@@ -1,0 +1,88 @@
+// Fused Alg. 1 step (paper Eqs. 9-11) over a minibatch of gathered rows:
+//   v = p + q, raw = r − Σ u·v, err = c·raw
+//   du = −θ(−err·v + αu), gp = −err·u + βp, dq = −θ(−err·u + γq)
+//   loss = ½ Σ c·raw²
+//
+// Replaces the TPU kernel `_dmf_fused_step_kernel`
+// (src/repro/kernels/dmf_update.py:61, pallas_call at :181).
+//
+// Bound at the serving slice's shapes (B=256 rows, K=10): memory, and far
+// below the launch cost. A launch reads u/p/q (30 KB) and r/conf (2 KB)
+// and writes du/gp/dq (30 KB) and the loss: about 64 KB, 0.02 us at
+// 3.35 TB/s; its ~18·B·K = 46 kFLOP are nothing.
+//
+// Design: one thread per row, fp32. The TPU kernel accumulated the loss
+// into one block that every grid step revisited, which relies on the TPU
+// grid running in order. Blocks on the GPU run in no order, so each block
+// writes its partial sum (a fixed shared-memory tree) and a second
+// one-thread kernel adds the partials in index order. No float atomics:
+// the loss is the same bits on every run.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kStepThreads = 128;
+
+__global__ void __launch_bounds__(kStepThreads)
+dmf_fused_step_kernel(const float* __restrict__ u, const float* __restrict__ p,
+                      const float* __restrict__ q, const float* __restrict__ r,
+                      const float* __restrict__ conf, float* __restrict__ du,
+                      float* __restrict__ gp, float* __restrict__ dq,
+                      float* __restrict__ partial, int B, int K, float theta,
+                      float alpha, float beta, float gamma) {
+  __shared__ float s_loss[kStepThreads];
+  const int b = blockIdx.x * kStepThreads + threadIdx.x;
+  float l = 0.f;
+  if (b < B) {
+    const size_t o = (size_t)b * K;
+    float dot = 0.f;
+    for (int c = 0; c < K; ++c) dot += u[o + c] * (p[o + c] + q[o + c]);
+    const float raw = r[b] - dot;
+    const float err = conf[b] * raw;
+    for (int c = 0; c < K; ++c) {
+      const float uc = u[o + c], pc = p[o + c], qc = q[o + c];
+      du[o + c] = -theta * (-err * (pc + qc) + alpha * uc);
+      gp[o + c] = -err * uc + beta * pc;
+      dq[o + c] = -theta * (-err * uc + gamma * qc);
+    }
+    l = conf[b] * raw * raw;
+  }
+  s_loss[threadIdx.x] = l;
+  __syncthreads();
+  for (int half = kStepThreads / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) s_loss[threadIdx.x] += s_loss[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) partial[blockIdx.x] = s_loss[0];
+}
+
+__global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
+                                    float* __restrict__ loss) {
+  float s = 0.f;
+  for (int i = 0; i < n; ++i) s += partial[i];
+  loss[0] = 0.5f * s;
+}
+
+}  // namespace
+
+extern "C" int dmf_step_blocks(int B) { return (B + kStepThreads - 1) / kStepThreads; }
+
+extern "C" int dmf_fused_step_launch(const float* u, const float* p, const float* q,
+                                     const float* r, const float* conf, float* du,
+                                     float* gp, float* dq, float* partial, float* loss,
+                                     int B, int K, float theta, float alpha, float beta,
+                                     float gamma, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = dmf_step_blocks(B);
+  dmf_fused_step_kernel<<<blocks, kStepThreads, 0, s>>>(
+      u, p, q, r, conf, du, gp, dq, partial, B, K, theta, alpha, beta, gamma);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_partials_kernel<<<1, 1, 0, s>>>(partial, blocks, loss);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,52 @@
+"""Fused DMF step kernel (paper Eqs. 9-11): residual, gradients, lr-scaled
+u/q deltas, the raw global-factor message and the batch loss in one pass —
+port of `_dmf_fused_step_kernel` / `dmf_fused_step_kernel_call`
+(`src/repro/kernels/dmf_update.py:61-89, 165-194`) behind
+`ops.dmf_fused_step` (`src/repro/kernels/ops.py:52-73`).
+
+The TPU wrapper padded B to 256 and K to 128 lanes; the CUDA kernel
+(``csrc/dmf_update.cu``) takes (B, K) as it is. Its loss is a per-block
+partial sum reduced in a fixed order by a second kernel, in the scratch
+this wrapper allocates.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+
+def dmf_fused_step(u, p, q, r, conf, *, theta: float, alpha: float,
+                   beta: float, gamma: float):
+    """u/p/q: (B, K) f32; r/conf: (B,) f32. Returns (du, gp, dq, loss):
+    the -θ·grad deltas for u and q, the raw p-gradient message, and the
+    0-d batch loss ½·Σ c·raw².
+
+    CPU tensors run `ref.dmf_fused_step_ref`; CUDA tensors launch the
+    kernel (and count one in ``dmf_fused_step.launches``) or raise."""
+    name = "dmf_fused_step"
+    B, K = u.shape
+    for arg, t in (("u", u), ("p", p), ("q", q)):
+        build.require_shape(name, arg, t, (B, K))
+        build.require_dtype(name, arg, t, torch.float32)
+    for arg, t in (("r", r), ("conf", conf)):
+        build.require_shape(name, arg, t, (B,))
+        build.require_dtype(name, arg, t, torch.float32)
+    if not build.on_card(name, u, p, q, r, conf):
+        return ref.dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma)
+    build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf)
+    du, gp, dq = (torch.empty_like(u) for _ in range(3))
+    if B == 0:
+        return du, gp, dq, torch.zeros((), dtype=torch.float32, device=u.device)
+    loss = torch.empty((), dtype=torch.float32, device=u.device)
+    partial = torch.empty(build.load().dmf_step_blocks(B), dtype=torch.float32,
+                          device=u.device)
+    build.launch(name, u.device, "dmf_fused_step_launch",
+                 u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
+                 du.data_ptr(), gp.data_ptr(), dq.data_ptr(), partial.data_ptr(),
+                 loss.data_ptr(), B, K, theta, alpha, beta, gamma)
+    dmf_fused_step.launches += 1
+    return du, gp, dq, loss
+
+
+dmf_fused_step.launches = 0

@@ -1,0 +1,76 @@
+"""Plain PyTorch versions of the port's kernels — port of
+`src/repro/kernels/ref.py` (`dmf_fused_step_ref`, `topk_scores_peruser_ref`,
+`serve_topk_window_ref`, `masked_topk_finalize`, `NEG_INF`).
+
+Each kernel wrapper runs these on CPU tensors, and `chip_smoke.py` holds
+each CUDA kernel against them on the card. They run on any device.
+
+Top-k contract, shared with the CUDA kernels and the reference's Pallas
+kernels: order by (score descending, item id ascending); a masked
+candidate never enters; unfilled slots are ``(NEG_INF, -1)``. The lowest-id
+tie-break comes from ``torch.sort(descending=True, stable=True)`` over
+positions in ascending id order — ``torch.topk`` documents no tie order.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30   # the dead-slot sentinel value of every top-k kernel
+
+
+def masked_topk_finalize(vals: torch.Tensor, idx: torch.Tensor):
+    """Slots whose score is masked out (≤ NEG_INF, incl. -inf) become
+    ``(NEG_INF, -1)``."""
+    dead = vals <= NEG_INF
+    return vals.masked_fill(dead, NEG_INF), idx.masked_fill(dead, -1)
+
+
+def _topk_positions(scores: torch.Tensor, k: int):
+    """(vals, positions) of the k best columns per row, ties to the lowest
+    position; rows shorter than k are padded with NEG_INF columns."""
+    n = scores.shape[1]
+    if n < k:
+        pad = scores.new_full((scores.shape[0], k - n), NEG_INF)
+        scores = torch.cat([scores, pad], dim=1)
+    vals, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return vals[:, :k], pos[:, :k].clamp_max(max(n - 1, 0))
+
+
+def serve_topk_window_ref(U, Vw, cand, seen_w, k: int):
+    """Geo-pruned serving over pre-gathered candidate windows.
+
+    U: (R, K) f32; Vw: (R, Cw, K) f32 item factors at the ``cand`` ids;
+    cand: (R, Cw) int32 ascending item ids, -1 padded; seen_w: (R, Cw)
+    bool/int8 seen bits aligned to ``cand``. Returns (vals (R, k) f32,
+    idx (R, k) int32 global item ids)."""
+    scores = (U[:, None, :] * Vw).sum(-1)
+    scores = scores.masked_fill((cand < 0) | (seen_w != 0), NEG_INF)
+    vals, pos = _topk_positions(scores, k)
+    idx = torch.gather(cand.clamp_min(0), 1, pos).to(torch.int32)
+    return masked_topk_finalize(vals, idx)
+
+
+def topk_scores_peruser_ref(U, V, mask, k: int):
+    """Dense per-user serving: every user scores all J items with their
+    own item factors. U: (R, K) f32; V: (R, J, K) f32; mask: (R, J)
+    bool/int8, nonzero = seen. Returns (vals (R, k) f32, idx (R, k) int32)
+    under the kernel's dead-slot contract (the reference's jnp oracle
+    returns raw ``-inf`` slots instead; its kernel returns these)."""
+    scores = (U[:, None, :] * V).sum(-1)
+    scores = scores.masked_fill(mask != 0, NEG_INF)
+    vals, pos = _topk_positions(scores, k)
+    return masked_topk_finalize(vals, pos.to(torch.int32))
+
+
+def dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma):
+    """Fused Alg. 1 step (paper Eqs. 9-11): lr-scaled deltas for the
+    sender's u/q, the raw global-factor gradient message gp, and the batch
+    loss ½·Σ c·raw². u/p/q: (B, K) f32; r/conf: (B,) f32."""
+    v = p + q
+    raw = r - (u * v).sum(-1)
+    err = (conf * raw)[:, None]
+    du = -theta * (-err * v + alpha * u)
+    gp = -err * u + beta * p
+    dq = -theta * (-err * u + gamma * q)
+    loss = 0.5 * (conf * raw * raw).sum()
+    return du, gp, dq, loss

@@ -1,0 +1,111 @@
+"""Online factor refresh: streamed check-ins update the served factors in
+place — port of `src/repro/serving/online.py:45-170` (`OnlineConfig`,
+`RefreshReport`, `_event_batches`, `touched_from_events`,
+`online_refresh`). The DP branch is not ported: `online_refresh` raises
+when ``cfg.dp``.
+
+When user i checks in at POI j, the learner runs the paper's Eqs. 9-11
+step for (i, j) plus a few sampled negatives (the training objective) and
+ships only ∂L/∂p^i_j to its walk-neighbor receivers. One refresh writes
+U and Q rows of the affected users only, and P rows of the affected users'
+receivers only.
+
+Events are padded to a fixed batch shape (``OnlineConfig.batch_cap``);
+padded rows carry conf=0 and valid=0 and contribute nothing. U/P/Q are
+updated **in place** (the reference donates them to a jitted step).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core import dmf
+from repro_torch.core import graph as graph_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class OnlineConfig:
+    batch_cap: int = 256    # fixed event-batch shape (events + negatives)
+    steps: int = 4          # local SGD passes over the event batch
+    neg_samples: int = 3    # m fresh unobserved negatives per check-in
+
+
+@dataclasses.dataclass
+class RefreshReport:
+    affected_users: np.ndarray   # unique users with new check-ins
+    touched_users: np.ndarray    # affected ∪ their neighbor-table receivers
+    losses: list[float]          # per-batch loss on the event batches
+    n_events: int
+    n_batches: int
+
+
+def _event_batches(events: np.ndarray, cfg: dmf.DMFConfig, ocfg: OnlineConfig,
+                   rng: np.random.Generator, device: torch.device):
+    """Check-ins + per-event negatives (`dmf.sample_with_negatives`, the
+    training-time sampler) packed into fixed-shape (cap,) batches on
+    ``device``: (ui, vj, r, conf, valid)."""
+    ui, vj, r, conf = dmf.sample_with_negatives(events, cfg.n_items, ocfg.neg_samples, rng)
+    cap = ocfg.batch_cap
+    total = len(ui)
+    for s in range(0, total, cap):
+        b = min(s + cap, total) - s
+        pad = cap - b
+        host = (
+            np.pad(ui[s : s + b], (0, pad)).astype(np.int64),
+            np.pad(vj[s : s + b], (0, pad)).astype(np.int64),
+            np.pad(r[s : s + b], (0, pad)).astype(np.float32),
+            np.pad(conf[s : s + b], (0, pad)).astype(np.float32),
+            (np.arange(cap) < b).astype(np.float32),
+        )
+        yield tuple(torch.as_tensor(x, device=device) for x in host)
+
+
+def touched_from_events(events: np.ndarray,
+                        nbr: graph_lib.NeighborTable) -> tuple[np.ndarray, np.ndarray]:
+    """(affected, touched): the users whose factors a refresh may write.
+    Touched = affected ∪ their positive-weight neighbor-table receivers."""
+    affected = np.unique(np.asarray(events)[:, 0]).astype(np.int64)
+    rows = torch.as_tensor(affected, device=nbr.idx.device)
+    idx = nbr.idx[rows].cpu().numpy()
+    wgt = nbr.wgt[rows].cpu().numpy()
+    receivers = np.unique(idx[wgt > 0])
+    touched = np.union1d(affected, receivers)
+    return affected, touched
+
+
+def online_refresh(
+    state: dmf.DMFState,
+    nbr: graph_lib.NeighborTable,
+    events: np.ndarray,            # (n, 2) int (user, item) new check-ins
+    cfg: dmf.DMFConfig,
+    ocfg: OnlineConfig = OnlineConfig(),
+    rng: np.random.Generator | None = None,
+) -> tuple[dmf.DMFState, RefreshReport]:
+    """Run ``ocfg.steps`` local passes of the Eq. 9-11 step over the events
+    (fresh negatives each pass) and scatter the global-factor gradients to
+    the receivers. Updates ``state`` in place on its own device and returns
+    it with a locality report."""
+    if cfg.dp:
+        raise NotImplementedError("online_refresh with DP: the mechanism is not ported yet")
+    events = np.asarray(events)
+    if len(events) == 0:
+        return state, RefreshReport(np.empty(0, np.int64), np.empty(0, np.int64), [], 0, 0)
+    rng = rng or np.random.default_rng(cfg.seed)
+    affected, touched = touched_from_events(events, nbr)
+    losses = []
+    for _ in range(ocfg.steps):
+        for ui, vj, r, conf, valid in _event_batches(events, cfg, ocfg, rng, state.U.device):
+            loss = dmf._sparse_batch_update(
+                state.U, state.P, state.Q, nbr.idx, nbr.wgt, ui, vj, r, conf, cfg,
+                valid=valid)
+            losses.append(float(loss))
+    report = RefreshReport(
+        affected_users=affected,
+        touched_users=touched,
+        losses=losses,
+        n_events=int(len(events)),
+        n_batches=len(losses),
+    )
+    return state, report

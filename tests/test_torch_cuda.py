@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips with a reason where no card is present
+(the CPU tests hold the plain versions against the JAX reference instead).
+On a machine with a card and without JAX, run them with
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: the suite's conftest sets up JAX host devices). Values
+agree within 1e-5; top-k indices may differ only where the plain version
+scores the two items within 1e-5 (fp32 sums over K in another order).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+TOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU tests cover the plain versions")
+    return torch.device("cuda")
+
+
+def _hold(got, plain, scores):
+    gv, gi = (x.cpu().numpy() for x in got)
+    pv, pi = (x.cpu().numpy() for x in plain)
+    np.testing.assert_array_equal(gi < 0, pi < 0)
+    np.testing.assert_allclose(gv, pv, rtol=0, atol=TOL)
+    for r, s in np.argwhere(gi != pi):
+        assert abs(scores(r, gi[r, s]) - pv[r, s]) <= TOL
+
+
+@pytest.mark.parametrize("R,Cw,k", [(64, 384, 10), (5, 128, 16), (3, 1000, 1)])
+def test_serve_topk_window_kernel(dev, R, Cw, k):
+    rng = np.random.default_rng(R)
+    K = 10
+    U = rng.normal(size=(R, K)).astype(np.float32)
+    U[0] = 0.0
+    Vw = rng.normal(size=(R, Cw, K)).astype(np.float32)
+    Vw[1, ::2] = Vw[1, 1]
+    cand = np.full((R, Cw), -1, np.int32)
+    for r in range(R):
+        n = int(rng.integers(0, Cw + 1)) if r else Cw
+        cand[r, :n] = np.sort(rng.choice(5000, n, replace=False))
+    seen = (rng.random((R, Cw)) < 0.1).astype(np.int8)
+    U, Vw, cand, seen = (torch.as_tensor(x, device=dev) for x in (U, Vw, cand, seen))
+    before = ops.serve_topk_window.launches
+    got = ops.serve_topk_window(U, Vw, cand, seen, k)
+    torch.cuda.synchronize()
+    assert ops.serve_topk_window.launches == before + 1
+    sc = (U[:, None] * Vw).sum(-1).masked_fill((cand < 0) | (seen != 0), ref.NEG_INF).cpu().numpy()
+    ids = cand.cpu().numpy()
+    _hold(got, ref.serve_topk_window_ref(U, Vw, cand, seen, k),
+          lambda r, item: sc[r, np.flatnonzero(ids[r] == item)[0]])
+
+
+@pytest.mark.parametrize("R,J,k", [(64, 3197, 10), (7, 129, 16), (2, 5, 10)])
+def test_topk_peruser_kernel(dev, R, J, k):
+    rng = np.random.default_rng(J)
+    K = 10
+    U = rng.normal(size=(R, K)).astype(np.float32)
+    V = rng.normal(size=(R, J, K)).astype(np.float32)
+    V[0, J // 2:] = 0.0
+    mask = (rng.random((R, J)) < 0.2).astype(np.int8)
+    mask[-1] = 1
+    U, V, mask = (torch.as_tensor(x, device=dev) for x in (U, V, mask))
+    before = ops.recommend_topk_peruser.launches
+    got = ops.recommend_topk_peruser(U, V, mask, k)
+    torch.cuda.synchronize()
+    assert ops.recommend_topk_peruser.launches == before + 1
+    sc = (U[:, None] * V).sum(-1).masked_fill(mask != 0, ref.NEG_INF).cpu().numpy()
+    _hold(got, ref.topk_scores_peruser_ref(U, V, mask, k), lambda r, item: sc[r, item])
+
+
+@pytest.mark.parametrize("B", [256, 1000, 1])
+def test_dmf_fused_step_kernel(dev, B):
+    rng = np.random.default_rng(B)
+    x = [rng.normal(0, 0.5, (B, 10)).astype(np.float32) for _ in range(3)]
+    r = (rng.random(B) < 0.25).astype(np.float32)
+    x += [r, np.where(r > 0, 1.0, 1 / 3).astype(np.float32)]
+    x = [torch.as_tensor(a, device=dev) for a in x]
+    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    before = ops.dmf_fused_step.launches
+    got = ops.dmf_fused_step(*x, **hp)
+    torch.cuda.synchronize()
+    assert ops.dmf_fused_step.launches == before + 1
+    plain = ref.dmf_fused_step_ref(*x, *hp.values())
+    for a, b in zip(got[:3], plain[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    torch.testing.assert_close(got[3], plain[3], rtol=TOL, atol=0)
+    again = ops.dmf_fused_step(*x, **hp)[3]     # fixed-order reduction: same bits
+    assert torch.equal(again, got[3])

@@ -1,0 +1,79 @@
+"""The port stands alone: `repro_torch` imports neither `jax` nor `repro`,
+and its entry points run on the card unless the caller asks for the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core import dmf, graph
+from repro_torch.serving import ServingEngine, build_candidate_index
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print(len(names))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, env={**os.environ, "PYTHONPATH": str(PKG.parent)})
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip()) >= 20
+
+
+def _imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_source_scan_finds_no_reference_imports():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 20
+    for f in files:
+        roots = _imported_roots(f)
+        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+        text = f.read_text()
+        for needle in ("import jax", "from repro.", "import repro.", "from repro import"):
+            assert needle not in text, (f, needle)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dmf.DMFConfig(n_users=6, n_items=5, dim=4)
+    state = dmf.init_state(cfg, device="cpu")
+    index = build_candidate_index(np.zeros(5, np.int64), np.zeros(6, np.int64))
+    train = np.array([[0, 1], [2, 3]])
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(state, index, train=train)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.init_state(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.state_from_numpy(np.zeros((6, 4)), np.zeros((6, 5, 4)), np.zeros((6, 5, 4)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        graph.neighbor_table_from_dense(np.eye(6, dtype=np.float32))
+    with pytest.raises(ValueError):
+        device_lib.resolve("mps")
+    assert device_lib.resolve("cpu") == torch.device("cpu")
+    eng = ServingEngine(state, index, train=train, device="cpu")
+    assert eng.state.U.device.type == "cpu" and eng.seen.device.type == "cpu"

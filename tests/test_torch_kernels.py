@@ -1,0 +1,187 @@
+"""The port's kernels (`repro_torch.kernels`) against the reference's Pallas
+kernels, on the CPU.
+
+The same numpy inputs, drawn from a fixed seed, go through the reference's
+`repro.kernels.ops` wrappers (Pallas in interpret mode) and the port's
+plain versions, which is what the port's wrappers run on CPU tensors.
+Tolerances: top-k indices equal; values within 1e-6 abs + 1e-6 rel (the
+two frameworks sum over K in another order, about 1 ulp); fused-step
+deltas within 1e-6 abs, loss within 1e-5 rel (a sum over the batch).
+The CUDA kernels themselves are held against the same plain versions on
+the card by `chip_smoke.py` and `tests/test_torch_cuda.py`.
+"""
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from repro.core import dmf as ref_dmf  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro_torch.core import dmf  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+K = 10
+
+
+def _window_inputs(seed=0, R=12, Cw=256, J=3197):
+    """Serve-window inputs with exact ties (zero users, zero and repeated
+    item vectors), -1 padding, an all-seen row and rows with fewer
+    unmasked candidates than k."""
+    rng = np.random.default_rng(seed)
+    U = rng.normal(0, 1, (R, K)).astype(np.float32)
+    U[1] = 0.0                                   # every score exactly 0
+    Vw = rng.normal(0, 1, (R, Cw, K)).astype(np.float32)
+    Vw[2, ::3] = 0.0                             # zero item factors: 0.0 ties
+    Vw[3, 10:20] = Vw[3, 5]                      # repeated vectors: exact ties
+    n_valid = rng.integers(Cw // 2, Cw + 1, R)
+    n_valid[4] = 3                               # k > unmasked candidates
+    n_valid[5] = 0                               # empty bucket
+    cand = np.full((R, Cw), -1, np.int32)
+    for r in range(R):
+        cand[r, : n_valid[r]] = np.sort(rng.choice(J, n_valid[r], replace=False))
+    seen = (rng.random((R, Cw)) < 0.2).astype(np.int8)
+    seen[6] = 1                                  # all seen
+    seen[4] = 0
+    return U, Vw, cand, seen
+
+
+def _dense_inputs(seed=1, R=9, J=300):
+    """Dense per-user inputs: J not a multiple of 128, an all-masked row,
+    a row with fewer unmasked items than k, zero rows."""
+    rng = np.random.default_rng(seed)
+    U = rng.normal(0, 1, (R, K)).astype(np.float32)
+    U[0] = 0.0
+    V = rng.normal(0, 1, (R, J, K)).astype(np.float32)
+    V[2, 50:] = 0.0
+    V[3, 100:140] = V[3, 7]
+    mask = (rng.random((R, J)) < 0.3).astype(np.int8)
+    mask[4] = 1
+    mask[5] = 1
+    mask[5, [11, 200, 299]] = 0
+    return U, V, mask
+
+
+def _t(*xs):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in xs)
+
+
+def _assert_topk(port, reference):
+    (pv, pi), (rv, ri) = port, reference
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(pv.numpy(), np.asarray(rv), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_serve_topk_window_plain_matches_reference_kernel(seed, k):
+    U, Vw, cand, seen = _window_inputs(seed)
+    expect = ref_ops.serve_topk_window(jnp.asarray(U), jnp.asarray(Vw), jnp.asarray(cand),
+                                       jnp.asarray(seen), k, interpret=True)
+    got = ref.serve_topk_window_ref(*_t(U, Vw, cand, seen), k)
+    _assert_topk(got, expect)
+    vals, idx = got[0].numpy(), got[1].numpy()
+    # contract rows: all-seen and empty rows dead, the 3-candidate row
+    # fills 3 slots and leaves (NEG_INF, -1) behind
+    for r in (5, 6):
+        assert (idx[r] == -1).all() and (vals[r] == np.float32(ref.NEG_INF)).all()
+    assert (idx[4, :3] >= 0).all() and (idx[4, 3:] == -1).all()
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_topk_peruser_plain_matches_reference_kernel(k):
+    U, V, mask = _dense_inputs()
+    expect = ref_ops.recommend_topk_peruser(jnp.asarray(U), jnp.asarray(V),
+                                            jnp.asarray(mask), k, interpret=True)
+    got = ref.topk_scores_peruser_ref(*_t(U, V, mask), k)
+    _assert_topk(got, expect)
+    idx = got[1].numpy()
+    assert (idx[4] == -1).all()
+    assert set(idx[5][idx[5] >= 0]) <= {11, 200, 299}
+    # the zero user: every score 0.0, so the lowest unmasked ids win
+    unmasked = np.flatnonzero(mask[0] == 0)[:k]
+    np.testing.assert_array_equal(idx[0, : len(unmasked)], unmasked)
+
+
+@pytest.mark.parametrize("B", [256, 100])
+def test_dmf_fused_step_plain_matches_reference_kernel(B):
+    rng = np.random.default_rng(B)
+    u, p, q = (rng.normal(0, 0.5, (B, K)).astype(np.float32) for _ in range(3))
+    p[:7] = 0.0
+    r = (rng.random(B) < 0.25).astype(np.float32)
+    conf = np.where(r > 0, 1.0, 1.0 / 3).astype(np.float32)
+    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    expect = ref_ops.dmf_fused_step(*map(jnp.asarray, (u, p, q, r, conf)), **hp,
+                                    interpret=True)
+    got = ref.dmf_fused_step_ref(*_t(u, p, q, r, conf), hp["theta"], hp["alpha"],
+                                 hp["beta"], hp["gamma"])
+    for g, e in zip(got[:3], expect[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(got[3]), float(expect[3]), rtol=1e-5)
+
+
+def test_grads_and_loss_matches_reference_and_fused_step():
+    rng = np.random.default_rng(7)
+    B = 64
+    u, p, q = (rng.normal(0, 0.5, (B, K)).astype(np.float32) for _ in range(3))
+    r = (rng.random(B) < 0.25).astype(np.float32)
+    conf = np.where(r > 0, 1.0, 1.0 / 3).astype(np.float32)
+    rcfg = ref_dmf.DMFConfig(n_users=4, n_items=4, beta=0.1, gamma=0.01)
+    pcfg = dmf.DMFConfig(n_users=4, n_items=4, beta=0.1, gamma=0.01)
+    expect = ref_dmf._grads_and_loss(*map(jnp.asarray, (u, p, q, r, conf)), rcfg)
+    got = dmf._grads_and_loss(*_t(u, p, q, r, conf), pcfg)
+    for g, e in zip(got[:3], expect[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(got[3]), float(expect[3]), rtol=1e-5)
+    du, gp, dq, loss = ops.dmf_fused_step(*_t(u, p, q, r, conf), theta=pcfg.lr,
+                                          alpha=pcfg.alpha, beta=pcfg.beta, gamma=pcfg.gamma)
+    torch.testing.assert_close(du, -pcfg.lr * got[0], rtol=0, atol=1e-6)
+    torch.testing.assert_close(gp, got[1], rtol=0, atol=1e-6)
+    torch.testing.assert_close(dq, -pcfg.lr * got[2], rtol=0, atol=1e-6)
+    torch.testing.assert_close(loss, got[3], rtol=1e-6, atol=0)
+
+
+def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
+    before = [kern.launches for kern in ops.KERNELS]
+    U, Vw, cand, seen = _t(*_window_inputs(3))
+    for a, b in zip(ops.serve_topk_window(U, Vw, cand, seen, 10),
+                    ref.serve_topk_window_ref(U, Vw, cand, seen, 10)):
+        assert torch.equal(a, b)
+    U, V, mask = _t(*_dense_inputs(4))
+    for a, b in zip(ops.recommend_topk_peruser(U, V, mask, 7),
+                    ref.topk_scores_peruser_ref(U, V, mask, 7)):
+        assert torch.equal(a, b)
+    x = _t(*(np.random.default_rng(5).normal(size=(32, K)).astype(np.float32)
+             for _ in range(3)))
+    rc = _t(np.ones(32, np.float32), np.ones(32, np.float32))
+    for a, b in zip(ops.dmf_fused_step(*x, *rc, theta=0.1, alpha=0.1, beta=0.1, gamma=0.01),
+                    ref.dmf_fused_step_ref(*x, *rc, 0.1, 0.1, 0.1, 0.01)):
+        assert torch.equal(a, b)
+    assert [kern.launches for kern in ops.KERNELS] == before == [0, 0, 0]
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
+def test_wrappers_reject_what_the_kernels_do_not_take(case):
+    U, Vw, cand, seen = _t(*_window_inputs(0, Cw=128))
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            ops.serve_topk_window(U, Vw, cand.long(), seen, 5)
+        with pytest.raises(TypeError):
+            ops.recommend_topk_peruser(U.double(), Vw.double(), seen, 5)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            ops.serve_topk_window(U, Vw[:, :64], cand, seen, 5)
+        with pytest.raises(ValueError):
+            ops.dmf_fused_step(U, U, U[:3], U[:, 0], U[:, 0], theta=0.1, alpha=0.1,
+                               beta=0.1, gamma=0.1)
+    elif case == "k":
+        with pytest.raises(ValueError):
+            ops.serve_topk_window(U, Vw, cand, seen, 17)
+        with pytest.raises(ValueError):
+            ops.recommend_topk_peruser(U, Vw, seen, 0)
+    else:
+        # a tensor on neither the CPU nor a card never reaches the plain path
+        with pytest.raises(ValueError):
+            ops.serve_topk_window(U.to("meta"), Vw.to("meta"), cand.to("meta"),
+                                  seen.to("meta"), 5)
