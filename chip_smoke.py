@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (`src/repro_torch`) runs on
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
-version on the card, drives the serving slice at full Foursquare scale and
-times each kernel beside its bound.
+version on the card, drives the serving and the training slices at full
+Foursquare scale and times each kernel beside its bound.
 
     python3 chip_smoke.py            # needs one CUDA card, no arguments
 
@@ -10,24 +10,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. Build the kernels from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a).
 2. Hold each kernel against its plain version on the same CUDA tensors,
-   at the slice's shapes, on seeded inputs with exact ties, -1 padding,
+   at the slices' shapes, on seeded inputs with exact ties, -1 padding,
    all-seen rows and rows with fewer candidates than k. Values agree
    within 1e-5; an index may differ only where the plain version scores
-   the two items within that tolerance.
-3. The serving path at the paper's primary configuration, full Table-1
-   scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`):
-   ingest the train check-ins (kernel 3), recommend pruned (kernel 1) and
-   dense (kernel 2), ingest the test check-ins, recommend again; 256
-   served slates of each kind are held against the plain versions, and
-   every kernel's launch count must have gone up.
+   the two items within that tolerance. The DP kernels: the noise
+   stream's hash words exactly and its draws within 1e-6 (seeds 0, 7,
+   2^31-1; rids 0..29,999 and around 2^23), the clip + noise kernel within
+   1e-6 (bit for bit with clip=inf and noise 0), the fused DP step's
+   deltas within 1e-5 (B 256/100/1, clip inf/0.5/1e-3, noise zero and not,
+   a zero-norm row).
+3. The main paths at the paper's primary configuration, full Table-1
+   scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`),
+   each with every launch count set to 0 just before it and read just
+   after:
+   a. serving: ingest the train check-ins (kernel 3), recommend pruned
+      (kernel 1) and dense (kernel 2), ingest the test check-ins,
+      recommend again; 256 served slates of each kind are held against
+      the plain versions;
+   b. training: `fit` 20 epochs with DP off (kernel 3) and with σ=1,
+      C=0.5 (kernel 7 and the noise stream, the accountant), `evaluate`
+      of each over all users (kernel 2) unchunked and in 1,024-user chunks
+      (identical floats), a DP online refresh of the DP-trained model
+      (kernels 3 and 8), and the `dmf_train` CLI in process (``--full``,
+      3 DP epochs). Trained P@10 must beat untrained P@10. Then, outside
+      the counted run, 2 DP epochs on the card are held against the same
+      2 epochs on the CPU (losses within 1e-4 relative, factors within
+      1e-5 absolute), and kernel 8 on one batch's raw message against
+      kernel 7's message (within 1e-6).
 4. Time each kernel, its plain version and one library call on the main
-   path's own inputs; print the ``{"kernels": [...]}`` line.
+   paths' own inputs; print the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import pathlib
 import subprocess
@@ -40,10 +60,19 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 TOL = 1e-5
+DRAW_TOL = 1e-6               # noise draws and clipped/noised messages
+LOSS_REL_TOL = 1e-4           # card vs CPU epoch losses
+STATE_TOL = 1e-5              # card vs CPU factors (scatter atomics, fp32 order)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside the tensor cores
 MICROBATCH, K_TOP = 64, 10
 N_PRUNED, N_DENSE, N_CHECK = 4096, 1024, 256
+EPOCHS, HOLD_EPOCHS, EVAL_CHUNK = 20, 2, 1024
+CLI_ARGS = ["--full", "--epochs", "3", "--dp-sigma", "1", "--dp-clip", "0.5"]
+DP = dict(dp_sigma=1.0, dp_clip=0.5, dp_seed=0)
+SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_step")
+TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
+                    "dp_clip_noise", "gauss_counter")
 
 
 def log(*parts) -> None:
@@ -166,7 +195,74 @@ def check_kernels(dev, J: int) -> dict[str, float]:
         hold_step(ops.dmf_fused_step(*x, **hp), ref.dmf_fused_step_ref(*x, *hp.values()))
         for x in (step_inputs(rng, B, 10, dev) for B in (256, 100, 1)))
     sync(dev)
+    errs["gauss_counter"] = check_stream(dev)
+    errs["dp_clip_noise"] = check_clip_noise(rng, dev)
+    errs["dmf_fused_step_dp"] = check_step_dp(rng, dev, hp)
+    sync(dev)
     return errs
+
+
+def stream_rids(dev) -> torch.Tensor:
+    """Rids 0..29,999 and the 128 around 2^23, where the high bits start
+    folding into the row key."""
+    rid = np.concatenate([np.arange(30_000), np.arange((1 << 23) - 64, (1 << 23) + 64)])
+    return torch.as_tensor(rid.astype(np.int32), device=dev)
+
+
+def check_stream(dev, K: int = 10) -> float:
+    """The noise stream: hash words exact, draws within DRAW_TOL."""
+    from repro_torch.kernels import dp_noise, ops
+    rid = stream_rids(dev)
+    err = 0.0
+    for seed in (0, 7, 2**31 - 1):
+        for got, plain in zip(dp_noise.counter_words(seed, rid, K),
+                              dp_noise.counter_words_ref(seed, rid, K)):
+            assert torch.equal(got, plain), f"gauss_counter: hash words differ at seed {seed}"
+        draws = ops.gauss_counter(seed, rid, K)
+        err = max(err, float((draws - dp_noise.gauss_counter_ref(seed, rid, K)).abs().max()))
+    assert err <= DRAW_TOL, f"gauss_counter: max |draw diff| {err} > {DRAW_TOL}"
+    return err
+
+
+def clip_noise_inputs(rng, B, K, dev):
+    """Messages with a zero-norm row and a tiny one; rids around 2^23."""
+    g = rng.normal(0, 1, (B, K)).astype(np.float32)
+    g[0] = 0.0
+    g[1:2] *= 1e-3
+    rid = ((1 << 23) - B // 2 + np.arange(B)).astype(np.int32)
+    return torch.as_tensor(g, device=dev), torch.as_tensor(rid, device=dev)
+
+
+def check_clip_noise(rng, dev, K: int = 10) -> float:
+    from repro_torch.kernels import ops, ref
+    err = 0.0
+    for B in (256, 100, 1):
+        g, rid = clip_noise_inputs(rng, B, K, dev)
+        for clip in (float("inf"), 0.5, 1e-3):
+            for std in (0.0, 0.7):
+                got = ops.dp_clip_noise(g, rid, 7, clip=clip, noise_std=std)
+                err = max(err, float((got - ref.dp_clip_noise_ref(g, rid, 7, clip, std))
+                                     .abs().max()))
+                if clip == float("inf") and std == 0.0:
+                    assert torch.equal(got, g), "dp_clip_noise: disabled mechanism is not identity"
+    assert err <= DRAW_TOL, f"dp_clip_noise: max |diff| {err} > {DRAW_TOL}"
+    return err
+
+
+def check_step_dp(rng, dev, hp, K: int = 10) -> float:
+    from repro_torch.kernels import ops, ref
+    err = 0.0
+    for B in (256, 100, 1):
+        u, p, q, r, conf = step_inputs(rng, B, K, dev)
+        u[0] = 0.0                      # with p[0] = 0: a zero-norm message row
+        for clip in (float("inf"), 0.5, 1e-3):
+            for zs in (0.0, 0.5):
+                z = torch.as_tensor((zs * rng.normal(0, 1, (B, K))).astype(np.float32),
+                                    device=dev)
+                err = max(err, hold_step(
+                    ops.dmf_fused_step_dp(u, p, q, r, conf, z, **hp, clip=clip),
+                    ref.dmf_fused_step_dp_ref(u, p, q, r, conf, z, *hp.values(), clip)))
+    return err
 
 
 def sync(dev) -> None:
@@ -279,6 +375,152 @@ def serving_summary(run) -> dict:
     return out
 
 
+def drive_training(ds, nbr, index, cfg, dev) -> dict:
+    """Phase 3b through the entry points a user calls: `fit` with DP off
+    and on, `evaluate` unchunked and chunked, a DP online refresh of the
+    DP-trained model, and the `dmf_train` CLI. Returns what the checks,
+    the timing and the report need."""
+    from repro_torch.core import dmf
+    from repro_torch.launch import dmf_train
+    from repro_torch.privacy import GaussianAccountant
+    from repro_torch.serving import OnlineConfig, ServingConfig, ServingEngine
+
+    def evaluate(state, **kw):
+        return dmf.evaluate(state, ds.train, ds.test, ds.n_users, ds.n_items, device=dev, **kw)
+
+    out = {"untrained": evaluate(dmf.init_state(cfg, device=dev))}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for tag, c in (("dp_off", cfg), ("dp_on", dataclasses.replace(cfg, **DP))):
+        stamps = [time.perf_counter()]
+        res = dmf.fit(c, ds.train, nbr, epochs=EPOCHS, device=dev,
+                      callback=lambda t, state, loss: stamps.append(time.perf_counter()))
+        assert np.isfinite(res.train_losses).all(), f"{tag}: non-finite training loss"
+        sync(dev)
+        t0 = time.perf_counter()
+        metrics = evaluate(res.state)
+        eval_s = time.perf_counter() - t0
+        chunked = evaluate(res.state, chunk_users=EVAL_CHUNK)
+        assert chunked == metrics, f"{tag}: chunked evaluate {chunked} != {metrics}"
+        out[tag] = dict(fit=res, cfg=c, metrics=metrics, eval_s=eval_s,
+                        epoch_s=np.diff(stamps).tolist(),
+                        test_loss=dmf.test_loss(res.state, ds.test))
+    if dev.type == "cuda":
+        out["resident_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+    # the host half of a DP epoch: the accountant on one epoch's stream
+    c = out["dp_on"]["cfg"]
+    ui = dmf.sample_epoch(ds.train, c, np.random.default_rng(SEED + 1))[0]
+    nb = len(ui) // c.batch_size
+    acc = GaussianAccountant(n_users=c.n_users, sigma=c.dp_sigma)
+    t0 = time.perf_counter()
+    acc.observe_epoch(ui[:nb * c.batch_size].reshape(nb, c.batch_size))
+    out["accountant_s"] = time.perf_counter() - t0
+    eng = ServingEngine(out["dp_on"]["fit"].state, index,
+                        ServingConfig(microbatch=MICROBATCH, k=K_TOP), train=ds.train,
+                        nbr=nbr, dmf_cfg=out["dp_on"]["cfg"], device=dev)
+    t0 = time.perf_counter()
+    report = eng.ingest(ds.test, OnlineConfig())
+    sync(dev)
+    assert np.isfinite(report.losses).all(), "non-finite DP refresh loss"
+    out["dp_ingest"] = dict(batches=report.n_batches, seconds=time.perf_counter() - t0,
+                            touched=len(report.touched_users))
+    del eng
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out["cli"] = dmf_train.main(CLI_ARGS)
+    out["cli_lines"] = buf.getvalue().splitlines()
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def check_training(tr) -> None:
+    for tag in ("dp_off", "dp_on"):
+        got, base = tr[tag]["metrics"]["P@10"], tr["untrained"]["P@10"]
+        assert got > base, f"{tag}: trained P@10 {got} does not beat untrained {base}"
+    assert tr["dp_on"]["fit"].privacy is not None and tr["dp_off"]["fit"].privacy is None
+    assert any(line.startswith("privacy {") for line in tr["cli_lines"]), tr["cli_lines"]
+    assert set(tr["cli"]) == {"P@5", "R@5", "P@10", "R@10"}, tr["cli"]
+
+
+def hold_card_vs_cpu(ds, nbr, cfg, dev) -> dict:
+    """HOLD_EPOCHS DP epochs on the card against the same epochs of the
+    port on the CPU (the plain versions). Factors differ by the order of
+    the scatter's float atomics on the card and fp32 rounding order."""
+    from repro_torch.core import dmf, graph
+    dp_cfg = dataclasses.replace(cfg, **DP)
+    card = dmf.fit(dp_cfg, ds.train, nbr, epochs=HOLD_EPOCHS, device=dev)
+    host = dmf.fit(dp_cfg, ds.train, graph.NeighborTable(nbr.idx.cpu(), nbr.wgt.cpu()),
+                   epochs=HOLD_EPOCHS, device="cpu")
+    a, b = np.asarray(card.train_losses), np.asarray(host.train_losses)
+    out = {"loss_rel": float((np.abs(a - b) / np.abs(b)).max()),
+           "state_abs": max(float((getattr(card.state, n).cpu() - getattr(host.state, n))
+                                  .abs().max()) for n in "UPQ"),
+           "card_losses": card.train_losses, "cpu_losses": host.train_losses}
+    log(f"  card vs cpu, {HOLD_EPOCHS} DP epochs: {json.dumps(out)}")
+    assert out["loss_rel"] <= LOSS_REL_TOL, out
+    assert out["state_abs"] <= STATE_TOL, out
+    return out
+
+
+def mechanism_batch(ds, state, dp_cfg, dev) -> dict:
+    """One batch of epoch 0's DP stream (fit's own rng draws: U, the
+    sample, the seed) gathered from ``state``: the inputs of kernels 7 and
+    8 and the epoch's noise block."""
+    from repro_torch.core import dmf
+    rng = np.random.default_rng(dp_cfg.seed)
+    rng.normal(0, dp_cfg.init_scale, (dp_cfg.n_users, dp_cfg.dim))    # init_state's draw
+    ui, vj, r, conf = dmf.sample_epoch(ds.train, dp_cfg, rng)
+    B = dp_cfg.batch_size
+    n = (len(ui) // B) * B
+    _, seed = dmf.epoch_dp_inputs(dp_cfg, rng, n)
+    rid = torch.arange(n, dtype=torch.int32, device=dev)
+    block = dmf._dp_noise_rows(rid, seed, dp_cfg, dp_cfg.dim)
+    ui, vj = (torch.as_tensor(x[:B], device=dev) for x in (ui, vj))
+    sx = (state.U[ui], state.P[ui, vj], state.Q[ui, vj],
+          torch.as_tensor(r[:B], device=dev), torch.as_tensor(conf[:B], device=dev))
+    return dict(sx=sx, z=block[:B], rid=rid, seed=seed, cfg=dp_cfg)
+
+
+def hold_mechanism(mb) -> float:
+    """Kernel 8 on the batch's raw message (kernel 3) with the epoch's seed
+    and rids against kernel 7's message for the same batch."""
+    from repro_torch.kernels import ops
+    c = mb["cfg"]
+    hp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
+    B = mb["z"].shape[0]
+    raw = ops.dmf_fused_step(*mb["sx"], **hp)[1]
+    msg8 = ops.dp_clip_noise(raw, mb["rid"][:B], mb["seed"], clip=c.dp_clip,
+                             noise_std=c.dp_sigma * c.dp_clip)
+    msg7 = ops.dmf_fused_step_dp(*mb["sx"], mb["z"], **hp, clip=c.dp_clip)[1]
+    err = float((msg8 - msg7).abs().max())
+    assert err <= DRAW_TOL, f"kernel 8 vs kernel 7 message: {err} > {DRAW_TOL}"
+    return err
+
+
+def training_summary(tr) -> dict:
+    """The end-to-end numbers of phase 3b, unrounded."""
+    nb = tr["batches_per_epoch"]
+    out = {}
+    for tag in ("dp_off", "dp_on"):
+        f, ep = tr[tag]["fit"], tr[tag]["epoch_s"]
+        med = float(np.median(ep))
+        out[tag] = {"epoch_s_first": ep[0], "epoch_s_median": med,
+                    "batches_per_s": nb / med, "evaluate_s": tr[tag]["eval_s"],
+                    "train_loss_first_last": (f.train_losses[0], f.train_losses[-1]),
+                    "test_loss": tr[tag]["test_loss"], "trained": tr[tag]["metrics"]}
+    priv = tr["dp_on"]["fit"].privacy
+    out["privacy"] = {"eps_max": priv["eps_max"], "eps_median": priv["eps_median_active"],
+                      "sigma": priv["sigma"], "delta": priv["delta"]}
+    out["untrained"] = tr["untrained"]
+    out["batches_per_epoch"] = nb
+    out["dp_on"]["accountant_s_per_epoch"] = tr["accountant_s"]
+    out["dp_ingest"] = tr["dp_ingest"]
+    out["cli"] = tr["cli"]
+    out.update({key: tr.get(key) for key in ("resident_gb", "peak_gb")})
+    return out
+
+
 # ------------------------------------------------------------------- timing
 def device_ms(fn, n: int) -> float:
     """Device milliseconds per call, back to back: the stream is held by a
@@ -320,8 +562,9 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def time_kernels(run, launches, errs) -> list[dict]:
-    """Phase 4 on one microbatch of the main path's own inputs."""
+def serving_specs(run) -> list[dict]:
+    """Phase 4 rows of kernels 1-3 on one microbatch of the serving path's
+    own inputs."""
     from repro_torch.core import dmf
     from repro_torch.kernels import ops, ref
     eng = run["engine"]
@@ -346,47 +589,126 @@ def time_kernels(run, launches, errs) -> list[dict]:
         s = torch.einsum("rk,rck->rc", u, vw).masked_fill((cand < 0) | (seen_w != 0), ref.NEG_INF)
         return torch.topk(s, K_TOP, dim=1)
 
+    live_w = int(((cand >= 0) & (seen_w == 0)).sum())
+    out_b = MICROBATCH * K_TOP * 8
+    return [
+        dict(name="serve_topk_window", src="serve_topk.cu",
+             replaces="src/repro/kernels/serve_topk.py:122",
+             kern=lambda: ops.serve_topk_window(u, vw, cand, seen_w, K_TOP),
+             plain=lambda: ref.serve_topk_window_ref(u, vw, cand, seen_w, K_TOP),
+             lib=einsum_topk_window,
+             hold=lambda got: hold_window("serve_topk_window", got, u, vw, cand, seen_w, K_TOP),
+             nbytes=u.nbytes + cand.nbytes + seen_w.nbytes + live_w * K * 4 + out_b,
+             flops=2 * live_w * K, shape=f"R={MICROBATCH} Cw={cand.shape[1]} K={K} k={K_TOP}"),
+        dense_spec(u, v_rows, mask, "serving microbatch"),
+        dict(name="dmf_fused_step", src="dmf_update.cu",
+             replaces="src/repro/kernels/dmf_update.py:61",
+             kern=lambda: ops.dmf_fused_step(*sx, **hp),
+             plain=lambda: ref.dmf_fused_step_ref(*sx, *hp.values()), lib=None,
+             hold=lambda got: hold_step(got, ref.dmf_fused_step_ref(*sx, *hp.values())),
+             nbytes=sum(x.nbytes for x in sx) + 3 * sx[0].nbytes + 4,
+             flops=256 * (12 * K + 5), shape=f"B=256 K={K}"),
+    ]
+
+
+def dense_spec(u, v_rows, mask, where: str) -> dict:
+    """Kernel 2's row on (R, J, K) per-user item rows."""
+    from repro_torch.kernels import ops, ref
+    R, K = u.shape
+
     def einsum_topk_dense():
         s = torch.einsum("rk,rjk->rj", u, v_rows).masked_fill(mask != 0, ref.NEG_INF)
         return torch.topk(s, K_TOP, dim=1)
 
-    live_w = int(((cand >= 0) & (seen_w == 0)).sum())
     live_d = int((mask == 0).sum())
-    out_b = MICROBATCH * K_TOP * 8
-    specs = [
-        ("serve_topk_window", "serve_topk.cu", "src/repro/kernels/serve_topk.py:122",
-         lambda: ops.serve_topk_window(u, vw, cand, seen_w, K_TOP),
-         lambda: ref.serve_topk_window_ref(u, vw, cand, seen_w, K_TOP), einsum_topk_window,
-         u.nbytes + cand.nbytes + seen_w.nbytes + live_w * K * 4 + out_b, 2 * live_w * K),
-        ("recommend_topk_peruser", "topk_scores.cu", "src/repro/kernels/topk_scores.py:68",
-         lambda: ops.recommend_topk_peruser(u, v_rows, mask, K_TOP),
-         lambda: ref.topk_scores_peruser_ref(u, v_rows, mask, K_TOP), einsum_topk_dense,
-         u.nbytes + mask.nbytes + live_d * K * 4 + out_b, 2 * live_d * K),
-        ("dmf_fused_step", "dmf_update.cu", "src/repro/kernels/dmf_update.py:61",
-         lambda: ops.dmf_fused_step(*sx, **hp),
-         lambda: ref.dmf_fused_step_ref(*sx, *hp.values()), None,
-         sum(x.nbytes for x in sx) + 3 * sx[0].nbytes + 4, 256 * (12 * K + 5)),
+    return dict(name="recommend_topk_peruser", src="topk_scores.cu",
+                replaces="src/repro/kernels/topk_scores.py:68",
+                kern=lambda: ops.recommend_topk_peruser(u, v_rows, mask, K_TOP),
+                plain=lambda: ref.topk_scores_peruser_ref(u, v_rows, mask, K_TOP),
+                lib=einsum_topk_dense,
+                hold=lambda got: hold_dense("recommend_topk_peruser", got, u, v_rows, mask, K_TOP),
+                nbytes=u.nbytes + mask.nbytes + live_d * K * 4 + R * K_TOP * 8,
+                flops=2 * live_d * K,
+                shape=f"{where}: R={R} J={v_rows.shape[1]} K={K} k={K_TOP}")
+
+
+def training_specs(tr, mb, ds, dev) -> list[dict]:
+    """Phase 4 rows of kernels 7 and 8, the noise stream and kernel 2 at
+    the evaluate shape, on the training path's own inputs: one DP batch of
+    epoch 0's stream gathered from the DP-trained state, its raw message,
+    the epoch's (nb·B, K) noise block and all users of that state."""
+    from repro_torch.core import metrics
+    from repro_torch.kernels import dp_noise, ops, ref
+    c, sx, z, seed = mb["cfg"], mb["sx"], mb["z"], mb["seed"]
+    hp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
+    std = c.dp_sigma * c.dp_clip
+    B, K = z.shape
+    rid_b = mb["rid"][:B]
+    raw = ops.dmf_fused_step(*sx, **hp)[1]
+    block_rid = mb["rid"]
+    N = block_rid.shape[0]
+    st = tr["dp_on"]["fit"].state
+    V = st.P + st.Q
+    mask = torch.as_tensor(metrics.masks_from_interactions(ds.n_users, ds.n_items, ds.train),
+                           device=dev)
+
+    def hold_draws(got):
+        err = float((got - dp_noise.gauss_counter_ref(seed, block_rid, K)).abs().max())
+        assert err <= DRAW_TOL, f"gauss_counter: {err} > {DRAW_TOL}"
+        return err
+
+    def hold_msgs(got):
+        err = float((got - ref.dp_clip_noise_ref(raw, rid_b, seed, c.dp_clip, std)).abs().max())
+        assert err <= DRAW_TOL, f"dp_clip_noise: {err} > {DRAW_TOL}"
+        return err
+
+    draw_ops = 60     # two lowbias32 words, two uniforms, log, cos, sqrt, products
+    return [
+        dict(name="dmf_fused_step_dp", src="dmf_update.cu",
+             replaces="src/repro/kernels/dmf_update.py:92",
+             kern=lambda: ops.dmf_fused_step_dp(*sx, z, **hp, clip=c.dp_clip),
+             plain=lambda: ref.dmf_fused_step_dp_ref(*sx, z, *hp.values(), c.dp_clip),
+             lib=None,
+             hold=lambda got: hold_step(got, ref.dmf_fused_step_dp_ref(*sx, z, *hp.values(),
+                                                                       c.dp_clip)),
+             nbytes=sum(x.nbytes for x in sx) + z.nbytes + 3 * z.nbytes + 4,
+             flops=B * (15 * K + 8), shape=f"B={B} K={K}"),
+        dict(name="dp_clip_noise", src="dp_noise.cu",
+             replaces="src/repro/kernels/dp_noise.py:98",
+             kern=lambda: ops.dp_clip_noise(raw, rid_b, seed, clip=c.dp_clip, noise_std=std),
+             plain=lambda: ref.dp_clip_noise_ref(raw, rid_b, seed, c.dp_clip, std),
+             lib=None, hold=hold_msgs,
+             nbytes=raw.nbytes + rid_b.nbytes + raw.nbytes, flops=B * K * (draw_ops + 6),
+             shape=f"B={B} K={K}"),
+        dict(name="gauss_counter", src="dp_noise.cu",
+             replaces="src/repro/kernels/dp_noise.py:56 (the stream of :98)",
+             kern=lambda: ops.gauss_counter(seed, block_rid, K),
+             plain=lambda: dp_noise.gauss_counter_ref(seed, block_rid, K),
+             lib=None, hold=hold_draws,
+             nbytes=block_rid.nbytes + N * K * 4, flops=N * K * draw_ops,
+             shape=f"N={N} n_cols={K}"),
+        dense_spec(st.U, V, mask, "evaluate"),
     ]
-    rows_out = []
-    for name, src, replaces, kern, plain, lib, nbytes, flops in specs:
-        if name == "serve_topk_window":
-            errs[name] = max(errs[name], hold_window(name, kern(), u, vw, cand, seen_w, K_TOP))
-        elif name == "recommend_topk_peruser":
-            errs[name] = max(errs[name], hold_dense(name, kern(), u, v_rows, mask, K_TOP))
-        else:
-            errs[name] = max(errs[name], hold_step(kern(), plain()))
-        bound_ms, bound_by = bound(nbytes, flops)
-        rows_out.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": (ms := device_ms(kern, 200)), "kernel_ms": ms, "call_ms": call_ms(kern, 200),
-            "plain_ms": device_ms(plain, 30),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": device_ms(lib, 30) if lib is not None else None,
-            "bytes": int(nbytes), "flops": int(flops),
-        })
-    return rows_out
+
+
+def time_spec(spec, errs, launches) -> dict:
+    """One row of the kernels line: hold the kernel on these inputs, then
+    time it, its plain version and the library call."""
+    name, lib = spec["name"], spec["lib"]
+    errs[name] = max(errs.get(name, 0.0), spec["hold"](spec["kern"]()))
+    bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
+    by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{spec['src']}", "replaces": spec["replaces"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": errs[name], "shape": spec["shape"],
+        "ms": (ms := device_ms(spec["kern"], 200)), "kernel_ms": ms,
+        "call_ms": call_ms(spec["kern"], 200), "plain_ms": device_ms(spec["plain"], 30),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": device_ms(lib, 30) if lib is not None else None,
+        "bytes": int(spec["nbytes"]), "flops": int(spec["flops"]),
+    }
 
 
 # --------------------------------------------------------------------- main
@@ -433,23 +755,58 @@ def main() -> int:
         f"({time.perf_counter() - t0} s host)")
     assert ds.n_items == J
 
-    for kern in ops.KERNELS:
-        kern.launches = 0
-    t0 = time.perf_counter()
-    run = drive_main_path(ds, nbr, index, cfg, dev)
-    launches = {kern.__name__: kern.launches for kern in ops.KERNELS}
-    log(f"phase 3 main path: {time.perf_counter() - t0} s, launches {json.dumps(launches)}")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    def counted(path: str, kernels, drive):
+        """Drive one main path with every launch count set to 0 just
+        before and read just after; every kernel of the path must launch."""
+        for kern in ops.KERNELS:
+            kern.launches = 0
+        t0 = time.perf_counter()
+        out = drive()
+        counts = {kern.__name__: kern.launches for kern in ops.KERNELS}
+        log(f"phase 3 {path} path: {time.perf_counter() - t0} s, launches {json.dumps(counts)}")
+        for name in kernels:
+            assert counts[name] > 0, f"kernel {name} was not launched on the {path} path"
+        return out, counts
+
+    launches = {}
+    run, launches["serving"] = counted("serving", SERVING_KERNELS,
+                                       lambda: drive_main_path(ds, nbr, index, cfg, dev))
     slate_errs = check_slates(run, dev)
     log(f"phase 3 served slates vs plain: {json.dumps(slate_errs)}")
     log("serving", json.dumps(serving_summary(run)))
-    t0 = time.perf_counter()
     errs["serve_topk_window"] = max(errs["serve_topk_window"], slate_errs["pruned"])
     errs["recommend_topk_peruser"] = max(errs["recommend_topk_peruser"], slate_errs["dense"])
-    rows = time_kernels(run, launches, errs)
+
+    tr, launches["training"] = counted("training", TRAINING_KERNELS,
+                                       lambda: drive_training(ds, nbr, index, cfg, dev))
+    tr["batches_per_epoch"] = len(ds.train) * (1 + cfg.neg_samples) // cfg.batch_size
+    check_training(tr)
+    for line in tr["cli_lines"]:
+        log("  cli |", line)
+    t0 = time.perf_counter()
+    tr["card_vs_cpu"] = hold_card_vs_cpu(ds, nbr, cfg, dev)
+    mb = mechanism_batch(ds, tr["dp_on"]["fit"].state, tr["dp_on"]["cfg"], dev)
+    errs["dp_clip_noise"] = max(errs["dp_clip_noise"], hold_mechanism(mb))
+    log(f"phase 3 training holds: {time.perf_counter() - t0} s, kernel 8 vs kernel 7 "
+        f"message {errs['dp_clip_noise']}")
+    summary = training_summary(tr)
+    summary["card_vs_cpu"] = {k: tr["card_vs_cpu"][k] for k in ("loss_rel", "state_abs")}
+    log("training", json.dumps(summary))
+
+    t0 = time.perf_counter()
+    rows: dict[str, dict] = {}
+    for spec in serving_specs(run) + training_specs(tr, mb, ds, dev):
+        row = time_spec(spec, errs, launches)
+        if spec["name"] in rows:     # kernel 2 again, at the evaluate shape
+            first = rows[spec["name"]]
+            first["max_abs_err"] = row["max_abs_err"]
+            first["evaluate_shape"] = {k: row[k] for k in (
+                "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "bytes", "flops")}
+        else:
+            rows[spec["name"]] = row
     log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s")
-    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

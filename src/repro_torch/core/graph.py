@@ -1,7 +1,8 @@
 """User adjacency graph + random-walk propagation (paper Eqs. 2-4) — port
 of `src/repro/core/graph.py:33-163` (`GraphConfig`, `pairwise_dist`,
 `build_adjacency`, `row_normalize`, `walk_propagation_matrix`,
-`NeighborTable`, `neighbor_table_from_dense`, `walk_neighbor_table`).
+`NeighborTable`, `neighbor_table_from_dense`, `walk_neighbor_table`) and
+:231-254 (`neighbor_counts`, `communication_bytes`).
 
 The graph is built on the host in numpy, exactly as the reference does,
 so the dense matrices are bit-identical. Only the exported neighbor table
@@ -128,3 +129,28 @@ def neighbor_table_from_dense(M: np.ndarray, device="cuda") -> NeighborTable:
 def walk_neighbor_table(W: np.ndarray, cfg: GraphConfig, device="cuda") -> NeighborTable:
     """Sparse export of `walk_propagation_matrix`, shape (I, S)."""
     return neighbor_table_from_dense(walk_propagation_matrix(W, cfg), device)
+
+
+def neighbor_counts(W: np.ndarray, max_d: int) -> np.ndarray:
+    """|N^d(i)| for d=1..max_d: (max_d, I) counts of users first reached
+    at exactly d hops."""
+    I = W.shape[0]
+    A = (W > 0).astype(np.float64)
+    reached = np.eye(I, dtype=bool)
+    counts = np.zeros((max_d, I), dtype=np.int64)
+    Ad = np.eye(I)
+    for d in range(max_d):
+        Ad = Ad @ A
+        new = (Ad > 0) & ~reached
+        counts[d] = new.sum(axis=1)
+        reached |= new
+    return counts
+
+
+def communication_bytes(W: np.ndarray, D: int, K: int, n_ratings: int) -> int:
+    """Paper §Complexity: |O| · mean |N^D(i)| · 4K bytes per epoch — the
+    realized mean multi-hop fan-out of one gradient message times its
+    size."""
+    counts = neighbor_counts(W, D).sum(axis=0)  # |N^D(i)| per user
+    mean_fanout = float(counts.mean())
+    return int(round(n_ratings * mean_fanout * 4 * K))

@@ -95,13 +95,21 @@ def build(out_dir: pathlib.Path) -> pathlib.Path:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.serve_topk_window_launch.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.serve_topk_window_launch.restype = i32
     lib.topk_peruser_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.topk_peruser_launch.restype = i32
     lib.dmf_fused_step_launch.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
     lib.dmf_fused_step_launch.restype = i32
+    lib.dmf_fused_step_dp_launch.argtypes = [ptr] * 11 + [i32] * 2 + [f32] * 5 + [ptr]
+    lib.dmf_fused_step_dp_launch.restype = i32
+    lib.gauss_counter_launch.argtypes = [ptr] * 2 + [i32] * 2 + [u32, ptr]
+    lib.gauss_counter_launch.restype = i32
+    lib.counter_words_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32, ptr]
+    lib.counter_words_launch.restype = i32
+    lib.dp_clip_noise_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr]
+    lib.dp_clip_noise_launch.restype = i32
     lib.dmf_step_blocks.argtypes = [i32]
     lib.dmf_step_blocks.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

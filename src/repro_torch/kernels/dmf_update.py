@@ -1,8 +1,11 @@
-"""Fused DMF step kernel (paper Eqs. 9-11): residual, gradients, lr-scaled
-u/q deltas, the raw global-factor message and the batch loss in one pass —
+"""Fused DMF step kernels (paper Eqs. 9-11): residual, gradients, lr-scaled
+u/q deltas, the global-factor message and the batch loss in one pass —
 port of `_dmf_fused_step_kernel` / `dmf_fused_step_kernel_call`
 (`src/repro/kernels/dmf_update.py:61-89, 165-194`) behind
-`ops.dmf_fused_step` (`src/repro/kernels/ops.py:52-73`).
+`ops.dmf_fused_step` (`src/repro/kernels/ops.py:52-73`), and of its DP form
+`_dmf_fused_step_dp_kernel` / `dmf_fused_step_dp_kernel_call`
+(`dmf_update.py:92-162`) behind `ops.dmf_fused_step_dp` (`ops.py:76-101`),
+which also clips each message row to C and adds the row's noise z.
 
 The TPU wrapper padded B to 256 and K to 128 lanes; the CUDA kernel
 (``csrc/dmf_update.cu``) takes (B, K) as it is. Its loss is a per-block
@@ -16,6 +19,30 @@ import torch
 from repro_torch.kernels import build, ref
 
 
+def _check_step(name, u, p, q, r, conf, z=None):
+    B, K = u.shape
+    mats = {"u": u, "p": p, "q": q} if z is None else {"u": u, "p": p, "q": q, "z": z}
+    for arg, t in mats.items():
+        build.require_shape(name, arg, t, (B, K))
+        build.require_dtype(name, arg, t, torch.float32)
+    for arg, t in (("r", r), ("conf", conf)):
+        build.require_shape(name, arg, t, (B,))
+        build.require_dtype(name, arg, t, torch.float32)
+
+
+def _step_outputs(u):
+    """(du, gp, dq, loss, partial) buffers for one launch on u's device."""
+    B = u.shape[0]
+    du, gp, dq = (torch.empty_like(u) for _ in range(3))
+    if B == 0:   # nothing to launch: the loss of an empty batch is 0
+        empty = torch.zeros(0, dtype=torch.float32, device=u.device)
+        return du, gp, dq, torch.zeros((), dtype=torch.float32, device=u.device), empty
+    loss = torch.empty((), dtype=torch.float32, device=u.device)
+    partial = torch.empty(build.load().dmf_step_blocks(B), dtype=torch.float32,
+                          device=u.device)
+    return du, gp, dq, loss, partial
+
+
 def dmf_fused_step(u, p, q, r, conf, *, theta: float, alpha: float,
                    beta: float, gamma: float):
     """u/p/q: (B, K) f32; r/conf: (B,) f32. Returns (du, gp, dq, loss):
@@ -25,28 +52,44 @@ def dmf_fused_step(u, p, q, r, conf, *, theta: float, alpha: float,
     CPU tensors run `ref.dmf_fused_step_ref`; CUDA tensors launch the
     kernel (and count one in ``dmf_fused_step.launches``) or raise."""
     name = "dmf_fused_step"
-    B, K = u.shape
-    for arg, t in (("u", u), ("p", p), ("q", q)):
-        build.require_shape(name, arg, t, (B, K))
-        build.require_dtype(name, arg, t, torch.float32)
-    for arg, t in (("r", r), ("conf", conf)):
-        build.require_shape(name, arg, t, (B,))
-        build.require_dtype(name, arg, t, torch.float32)
+    _check_step(name, u, p, q, r, conf)
     if not build.on_card(name, u, p, q, r, conf):
         return ref.dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma)
     build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf)
-    du, gp, dq = (torch.empty_like(u) for _ in range(3))
-    if B == 0:
-        return du, gp, dq, torch.zeros((), dtype=torch.float32, device=u.device)
-    loss = torch.empty((), dtype=torch.float32, device=u.device)
-    partial = torch.empty(build.load().dmf_step_blocks(B), dtype=torch.float32,
-                          device=u.device)
-    build.launch(name, u.device, "dmf_fused_step_launch",
-                 u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
-                 du.data_ptr(), gp.data_ptr(), dq.data_ptr(), partial.data_ptr(),
-                 loss.data_ptr(), B, K, theta, alpha, beta, gamma)
-    dmf_fused_step.launches += 1
+    B, K = u.shape
+    du, gp, dq, loss, partial = _step_outputs(u)
+    if B:
+        build.launch(name, u.device, "dmf_fused_step_launch",
+                     u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
+                     du.data_ptr(), gp.data_ptr(), dq.data_ptr(), partial.data_ptr(),
+                     loss.data_ptr(), B, K, theta, alpha, beta, gamma)
+        dmf_fused_step.launches += 1
+    return du, gp, dq, loss
+
+
+def dmf_fused_step_dp(u, p, q, r, conf, z, *, theta: float, alpha: float,
+                      beta: float, gamma: float, clip: float):
+    """`dmf_fused_step` with the DP mechanism in the same pass: the returned
+    gp message is clipped per row to ``clip`` (inf = no clip) and perturbed
+    with ``z`` (B, K) f32, the batch's pre-scaled σC noise block.
+
+    CPU tensors run `ref.dmf_fused_step_dp_ref`; CUDA tensors launch the
+    kernel (and count one in ``dmf_fused_step_dp.launches``) or raise."""
+    name = "dmf_fused_step_dp"
+    _check_step(name, u, p, q, r, conf, z)
+    if not build.on_card(name, u, p, q, r, conf, z):
+        return ref.dmf_fused_step_dp_ref(u, p, q, r, conf, z, theta, alpha, beta, gamma, clip)
+    build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf, z=z)
+    B, K = u.shape
+    du, gp, dq, loss, partial = _step_outputs(u)
+    if B:
+        build.launch(name, u.device, "dmf_fused_step_dp_launch",
+                     u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
+                     z.data_ptr(), du.data_ptr(), gp.data_ptr(), dq.data_ptr(),
+                     partial.data_ptr(), loss.data_ptr(), B, K, theta, alpha, beta, gamma, clip)
+        dmf_fused_step_dp.launches += 1
     return du, gp, dq, loss
 
 
 dmf_fused_step.launches = 0
+dmf_fused_step_dp.launches = 0

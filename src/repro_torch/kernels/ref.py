@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the port's kernels — port of
 `src/repro/kernels/ref.py` (`dmf_fused_step_ref`, `topk_scores_peruser_ref`,
-`serve_topk_window_ref`, `masked_topk_finalize`, `NEG_INF`).
+`serve_topk_window_ref`, `masked_topk_finalize`, `NEG_INF`,
+`dp_clip_noise_ref` :91-108) plus `dmf_fused_step_dp_ref`, the plain form
+of `_dmf_fused_step_dp_kernel`. The plain noise stream is
+`dp_noise.gauss_counter_ref`.
 
 Each kernel wrapper runs these on CPU tensors, and `chip_smoke.py` holds
 each CUDA kernel against them on the card. They run on any device.
@@ -74,3 +77,30 @@ def dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma):
     dq = -theta * (-err * u + gamma * q)
     loss = 0.5 * (conf * raw * raw).sum()
     return du, gp, dq, loss
+
+
+def _clip_rows(g, clip):
+    """g · min(1, clip / ‖g‖₂) per row: a zero row or clip=inf scales by
+    exactly 1; a NaN ratio stays NaN, as the reference's minimum keeps it."""
+    nrm = torch.sqrt((g * g).sum(-1, keepdim=True))
+    return g * (clip / nrm).clamp(max=1.0)
+
+
+def dmf_fused_step_dp_ref(u, p, q, r, conf, z, theta, alpha, beta, gamma, clip):
+    """`dmf_fused_step_ref` with the DP mechanism on the message: gp is
+    clipped per row to ``clip`` and the batch's pre-scaled noise ``z``
+    (B, K) is added."""
+    du, gp, dq, loss = dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma)
+    return du, _clip_rows(gp, clip) + z, dq, loss
+
+
+def dp_clip_noise_ref(g, rid, seed, clip, noise_std):
+    """DP message mechanism: per-row L2 clip to ``clip``, then
+    ``noise_std`` times the counter-keyed draws of the rows' ``rid``.
+    g: (B, K) f32; rid: (B,) int32; seed: int. ``noise_std=0`` adds
+    nothing, so with clip=inf the result is g bit for bit."""
+    from repro_torch.kernels.dp_noise import gauss_counter_ref
+    out = _clip_rows(g, clip)
+    if noise_std > 0.0:
+        out = out + noise_std * gauss_counter_ref(seed, rid, g.shape[1])
+    return out

@@ -16,7 +16,8 @@ Request path:
    ``prune=False`` instead hands the full (R, J, K) rows to the dense
    kernel (`ops.recommend_topk_peruser`).
 3. **Online refresh** — `ingest` streams new check-ins through
-   `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`), then
+   `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
+   on, also the mechanism kernel `ops.dp_clip_noise`), then
    patches the touched rows of V and the new check-ins' seen bits.
 """
 from __future__ import annotations

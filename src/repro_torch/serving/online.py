@@ -1,8 +1,7 @@
 """Online factor refresh: streamed check-ins update the served factors in
 place — port of `src/repro/serving/online.py:45-170` (`OnlineConfig`,
 `RefreshReport`, `_event_batches`, `touched_from_events`,
-`online_refresh`). The DP branch is not ported: `online_refresh` raises
-when ``cfg.dp``.
+`online_refresh`, with the DP branch :95 and :133-149).
 
 When user i checks in at POI j, the learner runs the paper's Eqs. 9-11
 step for (i, j) plus a few sampled negatives (the training objective) and
@@ -13,6 +12,12 @@ receivers only.
 Events are padded to a fixed batch shape (``OnlineConfig.batch_cap``);
 padded rows carry conf=0 and valid=0 and contribute nothing. U/P/Q are
 updated **in place** (the reference donates them to a jitted step).
+
+DP (``cfg.dp``): the refresh runs the same clip+noise mechanism over each
+outgoing message as training — the online channel is no side door around
+it. Each `online_refresh` call draws one fresh mechanism seed from its rng
+(before sampling the negatives; DP off: no draw) and keys each row's noise
+by its position in the refresh stream, ``step·stream_len + s + arange``.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import torch
 
 from repro_torch.core import dmf
 from repro_torch.core import graph as graph_lib
+from repro_torch.privacy import mechanism
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +48,13 @@ class RefreshReport:
 
 
 def _event_batches(events: np.ndarray, cfg: dmf.DMFConfig, ocfg: OnlineConfig,
-                   rng: np.random.Generator, device: torch.device):
+                   rng: np.random.Generator, device: torch.device, rid_offset: int = 0):
     """Check-ins + per-event negatives (`dmf.sample_with_negatives`, the
     training-time sampler) packed into fixed-shape (cap,) batches on
-    ``device``: (ui, vj, r, conf, valid)."""
+    ``device``: (ui, vj, r, conf, valid, rid). ``rid`` (int32) are the
+    rows' DP noise keys, shifted by ``rid_offset`` so that successive local
+    passes over the same events never reuse a draw; padded rows get keys
+    too."""
     ui, vj, r, conf = dmf.sample_with_negatives(events, cfg.n_items, ocfg.neg_samples, rng)
     cap = ocfg.batch_cap
     total = len(ui)
@@ -58,6 +67,7 @@ def _event_batches(events: np.ndarray, cfg: dmf.DMFConfig, ocfg: OnlineConfig,
             np.pad(r[s : s + b], (0, pad)).astype(np.float32),
             np.pad(conf[s : s + b], (0, pad)).astype(np.float32),
             (np.arange(cap) < b).astype(np.float32),
+            (rid_offset + s + np.arange(cap)).astype(np.int32),
         )
         yield tuple(torch.as_tensor(x, device=device) for x in host)
 
@@ -86,20 +96,30 @@ def online_refresh(
     """Run ``ocfg.steps`` local passes of the Eq. 9-11 step over the events
     (fresh negatives each pass) and scatter the global-factor gradients to
     the receivers. Updates ``state`` in place on its own device and returns
-    it with a locality report."""
-    if cfg.dp:
-        raise NotImplementedError("online_refresh with DP: the mechanism is not ported yet")
+    it with a locality report.
+
+    With DP on, ``rng`` must be given and persist across calls: a default
+    one seeded from ``cfg.seed`` each call would re-derive the same noise
+    seed every refresh, and repeated noise cancels in update differences.
+    `ServingEngine.ingest` holds a persistent one."""
     events = np.asarray(events)
     if len(events) == 0:
         return state, RefreshReport(np.empty(0, np.int64), np.empty(0, np.int64), [], 0, 0)
+    if cfg.dp and rng is None:
+        raise ValueError(
+            "online_refresh with DP on needs an explicit persistent rng — "
+            "the default would reuse the same noise stream every call")
     rng = rng or np.random.default_rng(cfg.seed)
     affected, touched = touched_from_events(events, nbr)
+    dp_seed = mechanism.epoch_noise_seed(rng, cfg) if cfg.dp else 0
+    stream_len = len(events) * (1 + ocfg.neg_samples)
     losses = []
-    for _ in range(ocfg.steps):
-        for ui, vj, r, conf, valid in _event_batches(events, cfg, ocfg, rng, state.U.device):
+    for step in range(ocfg.steps):
+        for ui, vj, r, conf, valid, rid in _event_batches(
+                events, cfg, ocfg, rng, state.U.device, rid_offset=step * stream_len):
             loss = dmf._sparse_batch_update(
                 state.U, state.P, state.Q, nbr.idx, nbr.wgt, ui, vj, r, conf, cfg,
-                valid=valid)
+                valid=valid, rid=rid, dp_seed=dp_seed)
             losses.append(float(loss))
     report = RefreshReport(
         affected_users=affected,

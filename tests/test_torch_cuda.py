@@ -8,7 +8,10 @@ On a machine with a card and without JAX, run them with
 
 (``--noconftest``: the suite's conftest sets up JAX host devices). Values
 agree within 1e-5; top-k indices may differ only where the plain version
-scores the two items within 1e-5 (fp32 sums over K in another order).
+scores the two items within 1e-5 (fp32 sums over K in another order). The
+DP kernels: the noise stream's hash words exactly, its draws and the
+clipped, noised messages within 1e-6 (one fp32 ulp of log/cos), the fused
+DP step's deltas within 1e-5.
 """
 import numpy as np
 import pytest
@@ -96,3 +99,65 @@ def test_dmf_fused_step_kernel(dev, B):
     torch.testing.assert_close(got[3], plain[3], rtol=TOL, atol=0)
     again = ops.dmf_fused_step(*x, **hp)[3]     # fixed-order reduction: same bits
     assert torch.equal(again, got[3])
+
+
+DRAW_TOL = 1e-6
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_gauss_counter_kernel(dev, seed):
+    from repro_torch.kernels import dp_noise
+    rid = np.concatenate([np.arange(30_000), np.arange((1 << 23) - 64, (1 << 23) + 64)])
+    rid = torch.as_tensor(rid.astype(np.int32), device=dev)
+    for got, plain in zip(dp_noise.counter_words(seed, rid, 10),
+                          dp_noise.counter_words_ref(seed, rid, 10)):
+        assert torch.equal(got, plain)                    # hash words exact
+    before = ops.gauss_counter.launches
+    draws = ops.gauss_counter(seed, rid, 10)
+    torch.cuda.synchronize()
+    assert ops.gauss_counter.launches == before + 1
+    torch.testing.assert_close(draws, dp_noise.gauss_counter_ref(seed, rid, 10),
+                               rtol=0, atol=DRAW_TOL)
+
+
+@pytest.mark.parametrize("B", [256, 100, 1])
+@pytest.mark.parametrize("clip,std", [(float("inf"), 0.0), (0.5, 0.0), (0.5, 0.7), (1e-3, 1.0)])
+def test_dp_clip_noise_kernel(dev, B, clip, std):
+    rng = np.random.default_rng(B)
+    g = rng.normal(size=(B, 10)).astype(np.float32)
+    g[0] = 0.0
+    rid = ((1 << 23) - B // 2 + np.arange(B)).astype(np.int32)
+    g, rid = (torch.as_tensor(x, device=dev) for x in (g, rid))
+    before = ops.dp_clip_noise.launches
+    got = ops.dp_clip_noise(g, rid, 11, clip=clip, noise_std=std)
+    torch.cuda.synchronize()
+    assert ops.dp_clip_noise.launches == before + 1
+    torch.testing.assert_close(got, ref.dp_clip_noise_ref(g, rid, 11, clip, std),
+                               rtol=0, atol=DRAW_TOL)
+    if clip == float("inf") and std == 0.0:
+        assert torch.equal(got, g)                        # disabled: bit for bit
+
+
+@pytest.mark.parametrize("B", [256, 100, 1])
+@pytest.mark.parametrize("clip", [float("inf"), 0.5, 1e-3])
+def test_dmf_fused_step_dp_kernel(dev, B, clip):
+    rng = np.random.default_rng(B)
+    x = [rng.normal(0, 0.5, (B, 10)).astype(np.float32) for _ in range(3)]
+    x[0][0] = x[1][0] = 0.0                               # a zero-norm message row
+    r = (rng.random(B) < 0.25).astype(np.float32)
+    x += [r, np.where(r > 0, 1.0, 1 / 3).astype(np.float32),
+          (0.5 * rng.normal(size=(B, 10))).astype(np.float32)]
+    x = [torch.as_tensor(a, device=dev) for a in x]
+    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    before = ops.dmf_fused_step_dp.launches
+    got = ops.dmf_fused_step_dp(*x, **hp, clip=clip)
+    torch.cuda.synchronize()
+    assert ops.dmf_fused_step_dp.launches == before + 1
+    plain = ref.dmf_fused_step_dp_ref(*x, *hp.values(), clip)
+    for a, b in zip(got[:3], plain[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    torch.testing.assert_close(got[3], plain[3], rtol=TOL, atol=0)
+    # kernel 3 on the same rows: the same deltas and loss, bit for bit
+    k3 = ops.dmf_fused_step(*x[:5], **hp)
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], k3[i])

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import dmf, graph
+from repro_torch.launch import dmf_train
 from repro_torch.serving import ServingEngine, build_candidate_index
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -77,3 +78,30 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     assert device_lib.resolve("cpu") == torch.device("cpu")
     eng = ServingEngine(state, index, train=train, device="cpu")
     assert eng.state.U.device.type == "cpu" and eng.seen.device.type == "cpu"
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dmf.DMFConfig(n_users=6, n_items=5, dim=4, batch_size=2, dp_sigma=1.0, dp_clip=0.5)
+    state = dmf.init_state(cfg, device="cpu")
+    train = np.array([[0, 1], [2, 3], [4, 0], [5, 2]])
+    nbr = graph.neighbor_table_from_dense(np.eye(6, dtype=np.float32), device="cpu")
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.fit(cfg, train, nbr, epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.train_epoch(state, nbr, train, cfg, rng)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.train_epoch_dense(state, np.eye(6), train, cfg, rng)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.evaluate(state, train, train, 6, 5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.evaluate_dense(state, train, train, 6, 5)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf_train.main(["--epochs", "1"])
+    # asked for the CPU, each runs there and leaves the state where it was
+    state, loss = dmf.train_epoch(state, nbr, train, cfg, rng, device="cpu")
+    assert np.isfinite(loss) and state.P.device.type == "cpu"
+    assert set(dmf.evaluate(state, train, train, 6, 5, device="cpu")) == {
+        "P@5", "R@5", "P@10", "R@10"}
+    assert dmf.fit(cfg, train, nbr, epochs=1, device="cpu").state.U.device.type == "cpu"

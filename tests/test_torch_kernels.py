@@ -20,7 +20,7 @@ import torch  # noqa: E402
 from repro.core import dmf as ref_dmf  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro_torch.core import dmf  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import dp_noise, ops, ref  # noqa: E402
 
 K = 10
 
@@ -158,7 +158,16 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(ops.dmf_fused_step(*x, *rc, theta=0.1, alpha=0.1, beta=0.1, gamma=0.01),
                     ref.dmf_fused_step_ref(*x, *rc, 0.1, 0.1, 0.1, 0.01)):
         assert torch.equal(a, b)
-    assert [kern.launches for kern in ops.KERNELS] == before == [0, 0, 0]
+    for a, b in zip(ops.dmf_fused_step_dp(*x, *rc, x[0], theta=0.1, alpha=0.1, beta=0.1,
+                                          gamma=0.01, clip=0.5),
+                    ref.dmf_fused_step_dp_ref(*x, *rc, x[0], 0.1, 0.1, 0.1, 0.01, 0.5)):
+        assert torch.equal(a, b)
+    rid = torch.arange(32, dtype=torch.int32)
+    assert torch.equal(ops.dp_clip_noise(x[0], rid, 3, clip=0.5, noise_std=0.2),
+                       ref.dp_clip_noise_ref(x[0], rid, 3, 0.5, 0.2))
+    assert torch.equal(ops.gauss_counter(3, rid, K), dp_noise.gauss_counter_ref(3, rid, K))
+    assert [kern.launches for kern in ops.KERNELS] == before == [0] * len(ops.KERNELS)
+    assert len(ops.KERNELS) == 6
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
@@ -169,19 +178,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
             ops.serve_topk_window(U, Vw, cand.long(), seen, 5)
         with pytest.raises(TypeError):
             ops.recommend_topk_peruser(U.double(), Vw.double(), seen, 5)
+        with pytest.raises(TypeError):
+            ops.gauss_counter(0, cand[:, 0].long(), 10)
+        with pytest.raises(TypeError):
+            ops.dp_clip_noise(U.double(), cand[:, 0], 0, clip=1.0, noise_std=0.0)
     elif case == "shape":
         with pytest.raises(ValueError):
             ops.serve_topk_window(U, Vw[:, :64], cand, seen, 5)
         with pytest.raises(ValueError):
             ops.dmf_fused_step(U, U, U[:3], U[:, 0], U[:, 0], theta=0.1, alpha=0.1,
                                beta=0.1, gamma=0.1)
+        with pytest.raises(ValueError):
+            ops.dmf_fused_step_dp(U, U, U, U[:, 0], U[:, 0], U[:4], theta=0.1, alpha=0.1,
+                                  beta=0.1, gamma=0.1, clip=1.0)
+        with pytest.raises(ValueError):
+            ops.dp_clip_noise(U, cand[:3, 0], 0, clip=1.0, noise_std=0.0)
     elif case == "k":
         with pytest.raises(ValueError):
             ops.serve_topk_window(U, Vw, cand, seen, 17)
         with pytest.raises(ValueError):
             ops.recommend_topk_peruser(U, Vw, seen, 0)
+        with pytest.raises(ValueError):          # n_cols beyond the stream's KMAX
+            ops.gauss_counter(0, cand[:, 0], dp_noise.KMAX + 1)
     else:
         # a tensor on neither the CPU nor a card never reaches the plain path
         with pytest.raises(ValueError):
             ops.serve_topk_window(U.to("meta"), Vw.to("meta"), cand.to("meta"),
                                   seen.to("meta"), 5)
+        with pytest.raises(ValueError):
+            ops.gauss_counter(0, cand[:, 0].to("meta"), 10)
