@@ -2,9 +2,13 @@
 """Quickest proof that the PyTorch/CUDA port (`src/repro_torch`) runs on
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
 version on the card, drives the serving and the training slices at full
-Foursquare scale and times each kernel beside its bound.
+Foursquare scale and million-user tiled serving at the reference's
+million configuration, and times each kernel beside its bound.
 
-    python3 chip_smoke.py            # needs one CUDA card, no arguments
+    python3 chip_smoke.py                 # needs one CUDA card, no arguments
+    python3 chip_smoke.py --parent DIR    # also hold the fp32 window kernel
+                                          # against the build of the checkout
+                                          # unpacked in DIR, bit for bit
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -18,7 +22,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    2^31-1; rids 0..29,999 and around 2^23), the clip + noise kernel within
    1e-6 (bit for bit with clip=inf and noise 0), the fused DP step's
    deltas within 1e-5 (B 256/100/1, clip inf/0.5/1e-3, noise zero and not,
-   a zero-norm row).
+   a zero-norm row). The slab serving kernel (kernel 5) and the int8/bf16
+   window kernel (kernel 6, with an all-zero int8 request) within 1e-5,
+   and bit for bit against the fp32 window kernel (kernel 1) on the
+   windows gathered from the same rows, resp. on the dequantized windows.
 3. The main paths at the paper's primary configuration, full Table-1
    scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`),
    each with every launch count set to 0 just before it and read just
@@ -26,7 +33,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    a. serving: ingest the train check-ins (kernel 3), recommend pruned
       (kernel 1) and dense (kernel 2), ingest the test check-ins,
       recommend again; 256 served slates of each kind are held against
-      the plain versions;
+      the plain versions. Then, as the reference's serving bench does,
+      kernel 5 on 64 served requests' whole (64, 3,197, 10) item rows
+      against kernel 1 on their windows, and a `TiledFactorStore` built
+      from the ingested state, served in fp32, against
+      `ServingEngine.recommend` pruned on 4,096 users: both bit for bit;
    b. training: `fit` 20 epochs with DP off (kernel 3) and with σ=1,
       C=0.5 (kernel 7 and the noise stream, the accountant), `evaluate`
       of each over all users (kernel 2) unchunked and in 1,024-user chunks
@@ -37,6 +48,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       2 epochs on the CPU (losses within 1e-4 relative, factors within
       1e-5 absolute), and kernel 8 on one batch's raw message against
       kernel 7's message (within 1e-6).
+   c. tiled: the reference's million configuration
+      (`benchmarks/serving_bench.py` `million_section`: 1,000,000 users,
+      100,000 POIs, 1,024 cities, K=8, cell cap 128, microbatch 128, k=10,
+      seed 0; nothing cut): world, hierarchical index, store on the card,
+      int8 and bf16 quantization, 16,384 requests of random users in each
+      of fp32 (kernel 1), int8 and bf16 (kernel 6) after one warm-up
+      dispatch each; 256 served slates per mode held against the plain
+      versions; fp32 on 32 sampled users bit for bit against a
+      `ServingEngine` on their dense rows, int8 and bf16 within the
+      analytic score bound; `shard_rows(4)` bit for bit on 1,024 users.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs; print the ``{"kernels": [...]}`` line.
 
@@ -67,10 +88,18 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside the tensor cores
 MICROBATCH, K_TOP = 64, 10
 N_PRUNED, N_DENSE, N_CHECK = 4096, 1024, 256
+N_SLAB = 64                   # served requests held on kernel 5 vs kernel 1
+# the reference's million configuration (serving_bench.py million_section)
+M_USERS, M_ITEMS, M_CITIES, M_DIM, M_CELL_CAP, M_MICROBATCH = 1_000_000, 100_000, 1024, 8, 128, 128
+N_TILED, N_ORACLE, N_SHARD_USERS, N_SHARDS = 16_384, 32, 1024, 4
+N_REF_REQUESTS = 2048         # million_section's requests: its draws fix the oracle sample
+TILED_MODES = ("fp32", "int8", "bf16")
 EPOCHS, HOLD_EPOCHS, EVAL_CHUNK = 20, 2, 1024
 CLI_ARGS = ["--full", "--epochs", "3", "--dp-sigma", "1", "--dp-clip", "0.5"]
 DP = dict(dp_sigma=1.0, dp_clip=0.5, dp_seed=0)
-SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_step")
+SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_step",
+                   "serve_topk")
+TILED_KERNELS = ("serve_topk_window", "serve_topk_window_quant")
 TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
                     "dp_clip_noise", "gauss_counter")
 
@@ -95,6 +124,36 @@ def window_inputs(rng, R, Cw, J, K, dev):
     seen = (rng.random((R, Cw)) < 0.05).astype(np.int8)
     seen[6], seen[4] = 1, 0
     return tuple(torch.as_tensor(x, device=dev) for x in (U, Vw, cand, seen))
+
+
+def slab_inputs(rng, R, Cw, J, K, dev):
+    """Whole (R, J, K) item slabs and (R, J) seen rows that hold
+    `window_inputs`' windows and seen bits at the candidate ids, random
+    elsewhere."""
+    U, Vw, cand, seen_w = window_inputs(rng, R, Cw, J, K, dev)
+    V = torch.as_tensor(rng.normal(0, 1, (R, J, K)).astype(np.float32), device=dev)
+    seen = torch.as_tensor((rng.random((R, J)) < 0.05).astype(np.int8), device=dev)
+    r, c = torch.nonzero(cand >= 0, as_tuple=True)
+    V[r, cand[r, c].long()] = Vw[r, c]
+    seen[r, cand[r, c].long()] = seen_w[r, c]
+    return U, V, cand, seen
+
+
+def gather_windows(V, seen, cand):
+    """The (R, Cw, K) windows and (R, Cw) seen bits of whole slabs at the
+    candidate ids, as the engines gather them."""
+    rows = torch.arange(cand.shape[0], device=cand.device)[:, None]
+    safe = cand.clamp_min(0).long()
+    return V[rows, safe], seen[rows, safe]
+
+
+def quant_forms(Vw):
+    """[(form, Vq, scale)]: int8 codes with per-request scales, as the
+    tiled store quantizes, and bf16 with scale 1."""
+    from repro_torch.serving.store import int8_rows
+    codes, scale = int8_rows(Vw)
+    return [("int8", codes, scale),
+            ("bf16", Vw.to(torch.bfloat16), torch.ones(Vw.shape[0], device=Vw.device))]
 
 
 def dense_inputs(rng, R, J, K, dev):
@@ -167,6 +226,28 @@ def hold_dense(name, got, U, V, mask, k) -> float:
     return hold_topk(name, got, plain, lambda r, item: float(scores[r, item]))
 
 
+def hold_slab(name, got, U, V, cand, seen, k) -> float:
+    from repro_torch.kernels import ref
+    plain = ref.serve_topk_ref(U, V, cand, seen, k)
+    elig = torch.zeros(seen.shape, dtype=torch.bool, device=seen.device)
+    r, c = torch.nonzero(cand >= 0, as_tuple=True)
+    elig[r, cand[r, c].long()] = True
+    scores = (U[:, None, :] * V).sum(-1).masked_fill(~elig | (seen != 0), ref.NEG_INF)
+    scores = scores.cpu().numpy()
+    return hold_topk(name, got, plain, lambda r, item: float(scores[r, item]))
+
+
+def hold_quant(name, got, U, Vq, scale, cand, seen_w, k) -> float:
+    """The quant kernel against its plain version, which is the window
+    version on the dequantized windows."""
+    return hold_window(name, got, U, Vq.float() * scale[:, None, None], cand, seen_w, k)
+
+
+def same_bits(name, got, want) -> None:
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), f"{name}: not equal bit for bit"
+
+
 def hold_step(got, plain) -> float:
     err = max(float((a - b).abs().max()) for a, b in zip(got[:3], plain[:3]))
     assert err <= TOL, f"dmf_fused_step: max |delta diff| {err} > {TOL}"
@@ -195,11 +276,44 @@ def check_kernels(dev, J: int) -> dict[str, float]:
         hold_step(ops.dmf_fused_step(*x, **hp), ref.dmf_fused_step_ref(*x, *hp.values()))
         for x in (step_inputs(rng, B, 10, dev) for B in (256, 100, 1)))
     sync(dev)
+    U, V, cand, seen = slab_inputs(rng, MICROBATCH, 384, J, 10, dev)
+    vw, sw = gather_windows(V, seen, cand)
+    errs["serve_topk"] = max(
+        hold_slab(f"serve_topk k={k}", ops.serve_topk(U, V, cand, seen, k), U, V, cand, seen, k)
+        for k in (1, K_TOP, 16))
+    for k in (1, K_TOP, 16):
+        same_bits(f"serve_topk vs serve_topk_window k={k}", ops.serve_topk(U, V, cand, seen, k),
+                  ops.serve_topk_window(U, vw, cand, sw, k))
+    sync(dev)
+    errs["serve_topk_window_quant"] = check_quant(rng, dev, J)
     errs["gauss_counter"] = check_stream(dev)
     errs["dp_clip_noise"] = check_clip_noise(rng, dev)
     errs["dmf_fused_step_dp"] = check_step_dp(rng, dev, hp)
     sync(dev)
     return errs
+
+
+def check_quant(rng, dev, J: int) -> float:
+    """Kernel 6 in both forms at the serving and the million shape, with an
+    all-zero int8 request (scale 1e-12): against its plain version, and bit
+    for bit against kernel 1 on the dequantized windows."""
+    from repro_torch.kernels import ops
+    err = 0.0
+    for R, Cw, n_items, K in ((MICROBATCH, 384, J, 10), (M_MICROBATCH, M_CELL_CAP, M_ITEMS, M_DIM)):
+        U, Vw, cand, seen = window_inputs(rng, R, Cw, n_items, K, dev)
+        Vw[7] = 0.0
+        for form, Vq, scale in quant_forms(Vw):
+            if form == "int8":
+                assert float(scale[7]) == np.float32(1e-12) and not Vq[7].any()
+            deq = Vq.float() * scale[:, None, None]
+            for k in (1, K_TOP, 16):
+                got = ops.serve_topk_window_quant(U, Vq, scale, cand, seen, k)
+                err = max(err, hold_quant(f"serve_topk_window_quant {form} R={R} k={k}", got,
+                                          U, Vq, scale, cand, seen, k))
+                same_bits(f"serve_topk_window_quant {form} vs serve_topk_window k={k}", got,
+                          ops.serve_topk_window(U, deq, cand, seen, k))
+    sync(dev)
+    return err
 
 
 def stream_rids(dev) -> torch.Tensor:
@@ -330,9 +444,48 @@ def drive_main_path(ds, nbr, index, cfg, dev) -> dict:
     out["test_ingest"] = (report.n_events, report.n_batches, len(report.touched_users))
     dense = serve_round("after", pruned_ids, dense_ids)
     out["engine"], out["dense_engine"], out["test_events"] = eng, dense, ds.test
+    out.update(serve_staging_and_tiled(eng, index, pruned_ids, dev))
     if dev.type == "cuda":
         out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+def serve_staging_and_tiled(eng, index, pruned_ids, dev) -> dict:
+    """The two checks of the reference's serving bench on the ingested
+    state: kernel 5 on N_SLAB served requests' whole item rows beside
+    kernel 1 on their windows (`serving_bench.py:327-346`), and the tiled
+    store built from the state, served in fp32, beside `ServingEngine`
+    pruned (`tests/test_serving_tiled.py:227-242`). The engine is built
+    fresh on the same seen mask, so both sides count popularity alike."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (ServingConfig, ServingEngine, TiledFactorStore,
+                                     TiledServingEngine)
+    uids = torch.as_tensor(pruned_ids[:N_SLAB], device=dev)
+    cand = eng._bucket_items[eng._user_bucket[uids]]
+    vw, sw = gather_windows(eng.V[uids], eng.seen[uids], cand)
+    u = eng.state.U[uids]
+    out = {"slab_vs_window": (ops.serve_topk(u, eng.V[uids], cand, eng.seen[uids], K_TOP),
+                              ops.serve_topk_window(u, vw, cand, sw, K_TOP))}
+    cfg = ServingConfig(microbatch=MICROBATCH, k=K_TOP)
+    seen = eng.seen.cpu().numpy()
+    fresh = ServingEngine(eng.state, index, cfg, seen=seen, device=dev)
+    want = fresh.recommend(pruned_ids, return_flags=True)
+    del fresh
+    tiled = TiledServingEngine(TiledFactorStore.from_state(eng.state, index, seen), cfg)
+    out["tiled_vs_engine"] = (tiled.recommend(pruned_ids, return_flags=True), want)
+    out["tiled_fsq_rps"] = tiled.requests_per_sec
+    return out
+
+
+def check_staging_and_tiled(run) -> dict:
+    """Both checks of `serve_staging_and_tiled`, bit for bit."""
+    same_bits("served requests: serve_topk vs serve_topk_window", *run["slab_vs_window"])
+    got, want = run["tiled_vs_engine"]
+    for name, a, b in zip(("values", "ids", "flags"), got, want):
+        np.testing.assert_array_equal(a, b, err_msg=f"tiled fp32 vs ServingEngine: {name}")
+    return {"slab_vs_window_bitwise": True, "tiled_fp32_vs_engine_bitwise": True,
+            "requests": len(got[0]), "fallbacks": int(got[2].sum()),
+            "tiled_requests_per_s": run["tiled_fsq_rps"]}
 
 
 def check_slates(run, dev) -> dict[str, float]:
@@ -373,6 +526,170 @@ def serving_summary(run) -> dict:
         "warm_ingest_s", "warm_batches", "warm_loss_first_last", "test_ingest",
         "resident_gb", "peak_gb", "test_loss", "P@10", "R@10")})
     return out
+
+
+def drive_tiled(dev) -> dict:
+    """Phase 3c through the entry points a user calls, at the reference's
+    million configuration with its seeds (`million_section`,
+    `serving_bench.py:129-235`): build, quantize, serve N_TILED requests
+    per mode, then the exactness block and the row-sharding check.
+    Returns what the checks, the timing and the report need."""
+    from repro_torch.core import dmf
+    from repro_torch.serving import (ServingConfig, ServingEngine, SyntheticFactors,
+                                     TiledFactorStore, TiledServingEngine,
+                                     build_hierarchical_index, synthetic_world)
+    rng = np.random.default_rng(SEED)
+    out = {"build_s": {}}
+    on_card = dev.type == "cuda"
+    base_bytes = torch.cuda.memory_allocated(dev) if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    uc, ic, ucoord, icoord = synthetic_world(M_USERS, M_ITEMS, M_CITIES, seed=SEED)
+    out["build_s"]["world"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hier = build_hierarchical_index(ic, uc, icoord, ucoord, cell_cap=M_CELL_CAP)
+    out["build_s"]["index"] = time.perf_counter() - t0
+    out["flat_city_cap_would_be"] = int(np.bincount(ic, minlength=M_CITIES).max())
+    t0 = time.perf_counter()
+    synth = SyntheticFactors.create(M_USERS, M_ITEMS, M_DIM, seed=SEED + 1)
+    store = TiledFactorStore.synthetic(synth, hier.flat, seen_per_user=2, seed=SEED + 2,
+                                       device=dev)
+    sync(dev)
+    out["build_s"]["store"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store.quantize_int8()
+    store.quantize_bf16()
+    sync(dev)
+    out["build_s"]["quantize"] = time.perf_counter() - t0
+    out["store_gb"] = (torch.cuda.memory_allocated(dev) - base_bytes) / 1e9 if on_card else None
+
+    users = np.random.default_rng(SEED).integers(0, M_USERS, N_TILED)
+    rng.integers(0, M_USERS, N_REF_REQUESTS)   # the reference's draw, so its sample follows
+    cfg = ServingConfig(microbatch=M_MICROBATCH, k=K_TOP)
+    engines = {}
+    for mode in TILED_MODES:
+        eng = engines[mode] = TiledServingEngine(store, cfg, mode=mode)
+        eng.recommend(users[:M_MICROBATCH])              # one warm-up dispatch
+        eng.stats.reset()
+        out[mode] = (users, *eng.recommend(users, return_flags=True))
+        out[f"{mode}_rps"] = eng.requests_per_sec
+        out[f"{mode}_dispatch"] = eng.stats.dispatch_latency_percentiles()
+
+    # exactness: a dense sub-engine on the reference's sampled users, on
+    # the same floats (P = the generator's dense rows, Q = 0; seen from the
+    # store windows)
+    pool = np.flatnonzero(~store.cold & (hier.flat.bucket_size[hier.flat.user_bucket] > 0))
+    sample = rng.choice(pool, size=min(N_ORACLE, len(pool)), replace=False)
+    n = len(sample)
+    dense = synth.dense_rows(sample, device=dev)
+    sub_state = dmf.DMFState(U=store.U[torch.as_tensor(sample, device=dev)], P=dense,
+                             Q=torch.zeros_like(dense))
+    cand_s = hier.flat.bucket_items[hier.flat.user_bucket[sample]]
+    seen_s = store.seen[torch.as_tensor(sample, device=dev)].cpu().numpy()
+    seen_sub = np.zeros((n, M_ITEMS), bool)
+    for r in range(n):
+        m = (cand_s[r] >= 0) & (seen_s[r] != 0)
+        seen_sub[r, cand_s[r][m]] = True
+    sub_index = dataclasses.replace(hier.flat, user_bucket=hier.flat.user_bucket[sample])
+    sub_eng = ServingEngine(sub_state, sub_index,
+                            ServingConfig(microbatch=min(M_MICROBATCH, n), k=K_TOP),
+                            seen=seen_sub, device=dev)
+    v_ref, i_ref, f_ref = sub_eng.recommend(np.arange(n), return_flags=True)
+    del sub_eng, sub_state, dense
+    v_t, i_t, f_t = engines["fp32"].recommend(sample, return_flags=True)
+    assert not f_ref.any() and not f_t.any()
+    exact = {"n_oracle_users": n,
+             "fp32_bitwise_vs_dense_engine": bool((i_ref == i_t).all() and (v_ref == v_t).all())}
+    slab_s = store.slab[torch.as_tensor(sample, device=dev)].cpu().numpy()
+    u_s = store.U[torch.as_tensor(sample, device=dev)].cpu().numpy()
+    for mode, bound in (("int8", store.int8_score_bound(sample)),
+                        ("bf16", store.bf16_score_bound(sample))):
+        vq, iq, fq = engines[mode].recommend(sample, return_flags=True)
+        overlap = np.fromiter((len(set(a[a >= 0]) & set(b[b >= 0])) / max((a >= 0).sum(), 1)
+                               for a, b in zip(i_t, iq)), np.float64, n)
+        worst = 0.0
+        for r in range(n):
+            sc = slab_s[r] @ u_s[r]
+            for slot in range(K_TOP):
+                if iq[r, slot] >= 0:
+                    pos = int(np.flatnonzero(cand_s[r] == iq[r, slot])[0])
+                    worst = max(worst, abs(float(vq[r, slot]) - float(sc[pos])))
+        exact[mode] = {"topk_overlap_vs_fp32": float(overlap.mean()),
+                       "max_abs_score_delta": worst, "analytic_bound_max": float(bound.max())}
+    out["exact"] = exact
+
+    # row sharding: shard-local engines against the whole store
+    from repro_torch.sharding.dmf import rows_per_shard
+    shard_users = rng.choice(M_USERS, N_SHARD_USERS, replace=False)
+    rows = rows_per_shard(M_USERS, N_SHARDS)
+    shard_ok = {}
+    for mode in TILED_MODES:
+        whole = engines[mode].recommend(shard_users, return_flags=True)
+        ok = True
+        for start, sub in store.shard_rows(N_SHARDS):
+            mine = np.flatnonzero(shard_users // rows == start // rows)
+            got = TiledServingEngine(sub, cfg, mode=mode).recommend(
+                shard_users[mine] - start, return_flags=True)
+            ok &= all(np.array_equal(a, b[mine]) for a, b in zip(got, whole))
+            ok &= sub.slab.untyped_storage().data_ptr() == store.slab.untyped_storage().data_ptr()
+        shard_ok[mode] = bool(ok)
+    out["shard_rows_bitwise"] = shard_ok
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    out.update(store=store, hier=hier)
+    return out
+
+
+def check_tiled(tl) -> dict[str, float]:
+    """Hold N_CHECK served slates per mode (fallback rows excluded)
+    against the plain versions on the store's own windows; the exactness
+    block and the row sharding must hold."""
+    st = tl["store"]
+    ex = tl["exact"]
+    assert ex["fp32_bitwise_vs_dense_engine"], "tiled fp32 diverged from the dense sub-engine"
+    for mode in ("int8", "bf16"):
+        assert ex[mode]["max_abs_score_delta"] <= ex[mode]["analytic_bound_max"] + 1e-6, (mode, ex)
+    assert all(tl["shard_rows_bitwise"].values()), tl["shard_rows_bitwise"]
+    errs = {}
+    for mode in TILED_MODES:
+        ids, vals, idx, flags = tl[mode]
+        assert vals.shape == (len(ids), K_TOP) and np.isfinite(vals).all()
+        assert ((idx >= -1) & (idx < M_ITEMS)).all()
+        keep = np.flatnonzero(~flags)[:N_CHECK]
+        assert len(keep) == N_CHECK, f"only {len(keep)} unflagged {mode} rows"
+        uids = torch.as_tensor(ids[keep], device=st.device)
+        cand = torch.as_tensor(st.index.bucket_items, device=st.device)[
+            torch.as_tensor(st.index.user_bucket, device=st.device).long()[uids]]
+        u, sw, got = st.U[uids], st.seen[uids], (vals[keep], idx[keep])
+        if mode == "fp32":
+            errs[mode] = hold_window("served tiled fp32 slates", got, u, st.slab[uids], cand, sw,
+                                     K_TOP)
+        else:
+            Vq, scale = ((st.q_codes[uids], st.q_scale[uids]) if mode == "int8" else
+                         (st.slab_bf16[uids], torch.ones(len(keep), device=st.device)))
+            errs[mode] = hold_quant(f"served tiled {mode} slates", got, u, Vq, scale, cand, sw,
+                                    K_TOP)
+    return errs
+
+
+def tiled_summary(tl) -> dict:
+    """The end-to-end numbers of phase 3c, unrounded."""
+    hier, st = tl["hier"], tl["store"]
+    return {
+        "config": {"n_users": M_USERS, "n_items": M_ITEMS, "n_cities": M_CITIES, "dim": M_DIM,
+                   "cell_cap": M_CELL_CAP, "microbatch": M_MICROBATCH, "k": K_TOP,
+                   "n_requests": N_TILED},
+        "index": {"n_cells": hier.n_cells, "cap": hier.flat.cap, "max_depth": hier.max_depth,
+                  "flat_city_cap_would_be": tl["flat_city_cap_would_be"]},
+        "build_s": tl["build_s"],
+        "resident_gb": {key: v / 1e9 for key, v in st.nbytes().items()},
+        "store_gb_on_card": tl["store_gb"], "peak_gb": tl["peak_gb"],
+        "requests_per_s": {m: tl[f"{m}_rps"] for m in TILED_MODES},
+        "dispatch_p50_ms": {m: tl[f"{m}_dispatch"]["p50_ms"] for m in TILED_MODES},
+        "dispatch_p99_ms": {m: tl[f"{m}_dispatch"]["p99_ms"] for m in TILED_MODES},
+        "fallback_frac": float(tl["fp32"][3].mean()),
+        "exact": tl["exact"], "shard_rows_bitwise": tl["shard_rows_bitwise"],
+    }
 
 
 def drive_training(ds, nbr, index, cfg, dev) -> dict:
@@ -584,22 +901,8 @@ def serving_specs(run) -> list[dict]:
     cfg = eng.dmf_cfg
     hp = dict(theta=cfg.lr, alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.gamma)
     K = u.shape[1]
-
-    def einsum_topk_window():
-        s = torch.einsum("rk,rck->rc", u, vw).masked_fill((cand < 0) | (seen_w != 0), ref.NEG_INF)
-        return torch.topk(s, K_TOP, dim=1)
-
-    live_w = int(((cand >= 0) & (seen_w == 0)).sum())
-    out_b = MICROBATCH * K_TOP * 8
     return [
-        dict(name="serve_topk_window", src="serve_topk.cu",
-             replaces="src/repro/kernels/serve_topk.py:122",
-             kern=lambda: ops.serve_topk_window(u, vw, cand, seen_w, K_TOP),
-             plain=lambda: ref.serve_topk_window_ref(u, vw, cand, seen_w, K_TOP),
-             lib=einsum_topk_window,
-             hold=lambda got: hold_window("serve_topk_window", got, u, vw, cand, seen_w, K_TOP),
-             nbytes=u.nbytes + cand.nbytes + seen_w.nbytes + live_w * K * 4 + out_b,
-             flops=2 * live_w * K, shape=f"R={MICROBATCH} Cw={cand.shape[1]} K={K} k={K_TOP}"),
+        window_spec(u, vw, cand, seen_w, "serving microbatch"),
         dense_spec(u, v_rows, mask, "serving microbatch"),
         dict(name="dmf_fused_step", src="dmf_update.cu",
              replaces="src/repro/kernels/dmf_update.py:61",
@@ -609,6 +912,26 @@ def serving_specs(run) -> list[dict]:
              nbytes=sum(x.nbytes for x in sx) + 3 * sx[0].nbytes + 4,
              flops=256 * (12 * K + 5), shape=f"B=256 K={K}"),
     ]
+
+
+def window_spec(u, vw, cand, seen_w, where: str) -> dict:
+    """Kernel 1's row on (R, Cw, K) fp32 windows."""
+    from repro_torch.kernels import ops, ref
+    R, K = u.shape
+
+    def einsum_topk_window():
+        s = torch.einsum("rk,rck->rc", u, vw).masked_fill((cand < 0) | (seen_w != 0), ref.NEG_INF)
+        return torch.topk(s, K_TOP, dim=1)
+
+    live_w = int(((cand >= 0) & (seen_w == 0)).sum())
+    return dict(name="serve_topk_window", src="serve_topk.cu",
+                replaces="src/repro/kernels/serve_topk.py:122",
+                kern=lambda: ops.serve_topk_window(u, vw, cand, seen_w, K_TOP),
+                plain=lambda: ref.serve_topk_window_ref(u, vw, cand, seen_w, K_TOP),
+                lib=einsum_topk_window,
+                hold=lambda got: hold_window("serve_topk_window", got, u, vw, cand, seen_w, K_TOP),
+                nbytes=u.nbytes + cand.nbytes + seen_w.nbytes + live_w * K * 4 + R * K_TOP * 8,
+                flops=2 * live_w * K, shape=f"{where}: R={R} Cw={cand.shape[1]} K={K} k={K_TOP}")
 
 
 def dense_spec(u, v_rows, mask, where: str) -> dict:
@@ -630,6 +953,69 @@ def dense_spec(u, v_rows, mask, where: str) -> dict:
                 nbytes=u.nbytes + mask.nbytes + live_d * K * 4 + R * K_TOP * 8,
                 flops=2 * live_d * K,
                 shape=f"{where}: R={R} J={v_rows.shape[1]} K={K} k={K_TOP}")
+
+
+def tiled_specs(run, tl) -> list[dict]:
+    """Phase 4 rows of kernel 5 on one microbatch of the serving path's
+    pruned requests (their whole (64, 3,197, 10) item rows) and of kernel 6
+    in both forms on one microbatch of the tiled path's requests (the
+    million shape, R=128, Cw=128, K=8)."""
+    from repro_torch.kernels import ops, ref
+    eng = run["engine"]
+    dev = eng.device
+    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
+    u, v_rows, seen = eng.state.U[uids], eng.V[uids], eng.seen[uids]
+    cand = eng._bucket_items[eng._user_bucket[uids]]
+    rows = torch.arange(MICROBATCH, device=dev)[:, None]
+    safe = cand.clamp_min(0).long()
+    R, J, K = v_rows.shape
+
+    def gather_einsum_topk():
+        s = torch.einsum("rk,rck->rc", u, v_rows[rows, safe])
+        s = s.masked_fill((cand < 0) | (seen[rows, safe] != 0), ref.NEG_INF)
+        return torch.topk(s, K_TOP, dim=1)
+
+    valid = int((cand >= 0).sum())
+    live = int(((cand >= 0) & (seen[rows, safe] == 0)).sum())
+    specs = [dict(name="serve_topk", src="serve_topk.cu",
+                  replaces="src/repro/kernels/serve_topk.py:64",
+                  kern=lambda: ops.serve_topk(u, v_rows, cand, seen, K_TOP),
+                  plain=lambda: ref.serve_topk_ref(u, v_rows, cand, seen, K_TOP),
+                  lib=gather_einsum_topk,
+                  hold=lambda got: hold_slab("serve_topk", got, u, v_rows, cand, seen, K_TOP),
+                  nbytes=u.nbytes + cand.nbytes + valid + live * K * 4 + R * K_TOP * 8,
+                  flops=2 * live * K,
+                  shape=f"R={R} J={J} Cw={cand.shape[1]} K={K} k={K_TOP}")]
+
+    st = tl["store"]
+    ids = torch.as_tensor(tl["int8"][0][:M_MICROBATCH], device=st.device)
+    mcand = torch.as_tensor(st.index.bucket_items, device=st.device)[
+        torch.as_tensor(st.index.user_bucket, device=st.device).long()[ids]]
+    mu, msw = st.U[ids], st.seen[ids]
+    mlive = int(((mcand >= 0) & (msw == 0)).sum())
+    specs.append(dict(window_spec(mu, st.slab[ids], mcand, msw, "tiled fp32"),
+                      variant="tiled_shape"))
+    for form, Vq, scale in (("int8", st.q_codes[ids], st.q_scale[ids]),
+                            ("bf16", st.slab_bf16[ids], torch.ones(M_MICROBATCH, device=st.device))):
+        def dequant_einsum_topk(Vq=Vq, scale=scale):
+            s = torch.einsum("rk,rck->rc", mu, Vq.float() * scale[:, None, None])
+            return torch.topk(s.masked_fill((mcand < 0) | (msw != 0), ref.NEG_INF), K_TOP, dim=1)
+
+        specs.append(dict(
+            name="serve_topk_window_quant", src="serve_topk.cu", variant=form,
+            replaces="src/repro/kernels/serve_topk.py:184",
+            kern=lambda Vq=Vq, scale=scale: ops.serve_topk_window_quant(mu, Vq, scale, mcand,
+                                                                       msw, K_TOP),
+            plain=lambda Vq=Vq, scale=scale: ref.serve_topk_window_quant_ref(
+                mu, Vq, scale, mcand, msw, K_TOP),
+            lib=dequant_einsum_topk,
+            hold=lambda got, Vq=Vq, scale=scale: hold_quant(
+                f"serve_topk_window_quant {form}", got, mu, Vq, scale, mcand, msw, K_TOP),
+            nbytes=(mu.nbytes + mcand.nbytes + msw.nbytes + scale.nbytes
+                    + mlive * M_DIM * Vq.element_size() + M_MICROBATCH * K_TOP * 8),
+            flops=3 * mlive * M_DIM,                   # dequantizing multiply, then FMA
+            shape=f"{form}: R={M_MICROBATCH} Cw={mcand.shape[1]} K={M_DIM} k={K_TOP}"))
+    return specs
 
 
 def training_specs(tr, mb, ds, dev) -> list[dict]:
@@ -687,7 +1073,7 @@ def training_specs(tr, mb, ds, dev) -> list[dict]:
              lib=None, hold=hold_draws,
              nbytes=block_rid.nbytes + N * K * 4, flops=N * K * draw_ops,
              shape=f"N={N} n_cols={K}"),
-        dense_spec(st.U, V, mask, "evaluate"),
+        dict(dense_spec(st.U, V, mask, "evaluate"), variant="evaluate_shape"),
     ]
 
 
@@ -711,6 +1097,52 @@ def time_spec(spec, errs, launches) -> dict:
     }
 
 
+def hold_parent_build(parent: pathlib.Path, cases) -> int:
+    """Build the kernel library of the checkout unpacked in ``parent`` and
+    hold its fp32 window kernel against this build's, bit for bit, on each
+    case (U, Vw, cand, seen_w, k). Returns the number of cases held."""
+    import ctypes
+
+    from repro_torch.kernels import build, ops
+    out_dir = build.BUILD_ROOT / "parent"
+    lib = ctypes.CDLL(str(build.build(out_dir, parent / "src/repro_torch/kernels/csrc")))
+    fn = lib.serve_topk_window_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for n, (U, Vw, cand, seen, k) in enumerate(cases):
+        R, K = U.shape
+        vals = torch.empty((R, k), dtype=torch.float32, device=U.device)
+        idx = torch.empty((R, k), dtype=torch.int32, device=U.device)
+        err = fn(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.view(torch.int8).data_ptr(),
+                 vals.data_ptr(), idx.data_ptr(), R, cand.shape[1], K, k,
+                 torch.cuda.current_stream().cuda_stream)
+        assert err == 0, f"parent build: launch error {err}"
+        same_bits(f"serve_topk_window: this build vs the parent's, case {n}",
+                  ops.serve_topk_window(U, Vw, cand, seen, k), (vals, idx))
+    sync(U.device)
+    return len(cases)
+
+
+def parent_cases(dev, J, run, tl) -> list:
+    """Kernel 1's inputs for the parent hold: phase 2's tie-heavy windows
+    at k 1/10/16, and one microbatch of each of the serving and the tiled
+    paths."""
+    rng = np.random.default_rng(SEED + 7)
+    U, Vw, cand, seen = window_inputs(rng, MICROBATCH, 384, J, 10, dev)
+    cases = [(U, Vw, cand, seen, k) for k in (1, K_TOP, 16)]
+    eng = run["engine"]
+    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
+    cand = eng._bucket_items[eng._user_bucket[uids]]
+    vw, sw = gather_windows(eng.V[uids], eng.seen[uids], cand)
+    cases.append((eng.state.U[uids], vw, cand, sw, K_TOP))
+    st = tl["store"]
+    ids = torch.as_tensor(tl["fp32"][0][:M_MICROBATCH], device=dev)
+    mcand = torch.as_tensor(st.index.bucket_items, device=dev)[
+        torch.as_tensor(st.index.user_bucket, device=dev).long()[ids]]
+    cases.append((st.U[ids], st.slab[ids], mcand, st.seen[ids], K_TOP))
+    return cases
+
+
 # --------------------------------------------------------------------- main
 def gpu_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -718,7 +1150,14 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    parent = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--parent":
+            print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+            return 2
+        parent = pathlib.Path(argv[1]).resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
@@ -773,7 +1212,9 @@ def main() -> int:
                                        lambda: drive_main_path(ds, nbr, index, cfg, dev))
     slate_errs = check_slates(run, dev)
     log(f"phase 3 served slates vs plain: {json.dumps(slate_errs)}")
-    log("serving", json.dumps(serving_summary(run)))
+    summary = serving_summary(run)
+    summary["staging_and_tiled"] = check_staging_and_tiled(run)
+    log("serving", json.dumps(summary))
     errs["serve_topk_window"] = max(errs["serve_topk_window"], slate_errs["pruned"])
     errs["recommend_topk_peruser"] = max(errs["recommend_topk_peruser"], slate_errs["dense"])
 
@@ -793,19 +1234,32 @@ def main() -> int:
     summary["card_vs_cpu"] = {k: tr["card_vs_cpu"][k] for k in ("loss_rel", "state_abs")}
     log("training", json.dumps(summary))
 
+    tl, launches["tiled"] = counted("tiled", TILED_KERNELS, lambda: drive_tiled(dev))
+    tiled_errs = check_tiled(tl)
+    log(f"phase 3 tiled slates vs plain: {json.dumps(tiled_errs)}")
+    log("tiled", json.dumps(tiled_summary(tl)))
+    errs["serve_topk_window"] = max(errs["serve_topk_window"], tiled_errs["fp32"])
+    errs["serve_topk_window_quant"] = max(errs["serve_topk_window_quant"], tiled_errs["int8"],
+                                          tiled_errs["bf16"])
+
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}
-    for spec in serving_specs(run) + training_specs(tr, mb, ds, dev):
+    for spec in serving_specs(run) + training_specs(tr, mb, ds, dev) + tiled_specs(run, tl):
         row = time_spec(spec, errs, launches)
-        if spec["name"] in rows:     # kernel 2 again, at the evaluate shape
+        if spec["name"] in rows:     # a second shape or form of a kernel
             first = rows[spec["name"]]
             first["max_abs_err"] = row["max_abs_err"]
-            first["evaluate_shape"] = {k: row[k] for k in (
+            first[spec["variant"]] = {k: row[k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "bytes", "flops")}
         else:
             rows[spec["name"]] = row
     log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s")
+    if parent is not None:
+        t0 = time.perf_counter()
+        n = hold_parent_build(parent, parent_cases(dev, J, run, tl))
+        log(f"parent build: kernel 1 equal bit for bit on {n} cases ({time.perf_counter() - t0} s)")
+    assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

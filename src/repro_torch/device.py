@@ -8,6 +8,8 @@ its plain PyTorch version.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -26,4 +28,17 @@ def resolve(device: str | torch.device = DEFAULT_DEVICE) -> torch.device:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    else:
+        settle_cpu()
     return dev
+
+
+@functools.cache
+def settle_cpu() -> None:
+    """One small floating-point pass before a process's first CPU work,
+    once per process. On some AVX-512 hosts the first vectorized
+    floating-point pass of a process can return wrong values for a run of
+    one thread's elements (two identical calls of the noise stream, and
+    even of `torch.sqrt`, then differ by up to 4e-5); after any earlier
+    pass, every call reproduces."""
+    torch.sqrt(torch.ones(64))

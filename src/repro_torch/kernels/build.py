@@ -24,6 +24,8 @@ import time
 
 import torch
 
+from repro_torch import device as device_lib
+
 CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -70,13 +72,15 @@ def _run_all(cmds: list[list[str]], log: list[str]) -> None:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
 
 
-def build(out_dir: pathlib.Path) -> pathlib.Path:
-    """Compile and link into ``out_dir``; returns the library's path. The
-    library is written under a temporary name and renamed into place."""
+def build(out_dir: pathlib.Path, csrc: pathlib.Path = CSRC) -> pathlib.Path:
+    """Compile every ``csrc/*.cu`` and link into ``out_dir``; returns the
+    library's path. The library is written under a temporary name and
+    renamed into place. ``csrc`` defaults to this checkout's sources (another
+    checkout's, to compare two builds)."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}"
-    units = sorted(CSRC.glob("*.cu"))
+    units = sorted(pathlib.Path(csrc).glob("*.cu"))
     objs = [out_dir / f"{src.stem}.{tag}.o" for src in units]
     log: list[str] = []
     t0 = time.perf_counter()
@@ -98,6 +102,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.serve_topk_window_launch.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
     lib.serve_topk_window_launch.restype = i32
+    lib.serve_topk_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    lib.serve_topk_launch.restype = i32
+    lib.serve_topk_window_quant_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.serve_topk_window_quant_launch.restype = i32
     lib.topk_peruser_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
     lib.topk_peruser_launch.restype = i32
     lib.dmf_fused_step_launch.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
@@ -151,6 +159,8 @@ def on_card(name: str, *tensors: torch.Tensor) -> bool:
     dev = devices.pop()
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"{name}: unsupported device {dev}")
+    if dev.type == "cpu":
+        device_lib.settle_cpu()
     return dev.type == "cuda"
 
 

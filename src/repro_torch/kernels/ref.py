@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the port's kernels — port of
 `src/repro/kernels/ref.py` (`dmf_fused_step_ref`, `topk_scores_peruser_ref`,
-`serve_topk_window_ref`, `masked_topk_finalize`, `NEG_INF`,
-`dp_clip_noise_ref` :91-108) plus `dmf_fused_step_dp_ref`, the plain form
-of `_dmf_fused_step_dp_kernel`. The plain noise stream is
+`serve_topk_ref` :48-67, `serve_topk_window_ref`, `masked_topk_finalize`,
+`NEG_INF`, `dp_clip_noise_ref` :91-108) plus `dmf_fused_step_dp_ref`, the
+plain form of `_dmf_fused_step_dp_kernel`, and
+`serve_topk_window_quant_ref`, the plain form of
+`_serve_topk_window_quant_kernel`. The plain noise stream is
 `dp_noise.gauss_counter_ref`.
 
 Each kernel wrapper runs these on CPU tensors, and `chip_smoke.py` holds
@@ -51,6 +53,32 @@ def serve_topk_window_ref(U, Vw, cand, seen_w, k: int):
     vals, pos = _topk_positions(scores, k)
     idx = torch.gather(cand.clamp_min(0), 1, pos).to(torch.int32)
     return masked_topk_finalize(vals, idx)
+
+
+def serve_topk_ref(U, V, cand, seen, k: int):
+    """Geo-pruned serving over whole per-request item slabs: dense scores
+    over all J items, masked to the request's candidate ids and to
+    ``seen == 0``.
+
+    U: (R, K) f32; V: (R, J, K) f32; cand: (R, Cw) int32 ascending item
+    ids, -1 padded (an id ≥ J is no candidate either); seen: (R, J)
+    bool/int8. Returns (vals (R, k) f32, idx (R, k) int32 global item
+    ids)."""
+    R, J = V.shape[0], V.shape[1]
+    scores = (U[:, None, :] * V).sum(-1)
+    elig = torch.zeros((R, J), dtype=torch.bool, device=V.device)
+    rows, cols = torch.nonzero((cand >= 0) & (cand < J), as_tuple=True)
+    elig[rows, cand[rows, cols].long()] = True
+    scores = scores.masked_fill(~elig | (seen != 0), NEG_INF)
+    vals, pos = _topk_positions(scores, k)
+    return masked_topk_finalize(vals, pos.to(torch.int32))
+
+
+def serve_topk_window_quant_ref(U, Vq, scale, cand, seen_w, k: int):
+    """`serve_topk_window_ref` on dequantized windows: Vq (R, Cw, K) int8
+    codes or bf16 factors, times the per-request f32 ``scale`` (R,) (1 for
+    bf16)."""
+    return serve_topk_window_ref(U, Vq.float() * scale[:, None, None], cand, seen_w, k)
 
 
 def topk_scores_peruser_ref(U, V, mask, k: int):

@@ -1,12 +1,22 @@
-"""Geo-pruned serving kernel: scores over pre-gathered candidate windows,
+"""Geo-pruned serving kernels: scores over each request's candidate ids,
 pad/seen masking and a running top-k carrying global item ids — port of
-`_serve_topk_window_kernel` / `serve_topk_window_kernel_call`
-(`src/repro/kernels/serve_topk.py:122-181`) behind `ops.serve_topk_window`
-(`src/repro/kernels/ops.py:190-219`).
+the three kernel families of `src/repro/kernels/serve_topk.py` behind
+their `src/repro/kernels/ops.py` wrappers:
 
-The public layout is the reference's: ``Vw`` is (R, Cw, K). The TPU's
-K-major transpose and 128-lane padding are not copied; the CUDA kernel
-(``csrc/serve_topk.cu``) reads the window as it is.
+* `serve_topk_window` — `_serve_topk_window_kernel` (:122-181) behind
+  `ops.serve_topk_window` (:190-219): pre-gathered fp32 windows;
+* `serve_topk` — `_serve_topk_kernel` (:64-119) behind `ops.serve_topk`
+  (:158-187): the candidates gathered out of whole item slabs inside the
+  kernel, the staging reference of the tiled path;
+* `serve_topk_window_quant` — `_serve_topk_window_quant_kernel`
+  (:184-250) behind `ops.serve_topk_window_quant` (:222-247): windows as
+  int8 codes times a per-request scale, or as bf16.
+
+The public layouts are the reference's: windows (R, Cw, K), slabs
+(R, J, K). The TPU's K-major transpose and 128-lane padding are not
+copied; one CUDA kernel body (``csrc/serve_topk.cu``) reads each form as
+it is. The slab and quant forms equal the fp32 window form bit for bit on
+windows gathered from the same rows, resp. on ``codes.float() * scale``.
 """
 from __future__ import annotations
 
@@ -15,6 +25,16 @@ import torch
 from repro_torch.kernels import build, ref
 
 TOPK_MAX = 16   # csrc/topk.cuh TOPK_MAX
+
+
+def _check_k(name: str, k: int) -> None:
+    if not 0 < k <= TOPK_MAX:
+        raise ValueError(f"{name}: k={k} outside 1..{TOPK_MAX}")
+
+
+def _outputs(R: int, k: int, device: torch.device):
+    return (torch.empty((R, k), dtype=torch.float32, device=device),
+            torch.empty((R, k), dtype=torch.int32, device=device))
 
 
 def serve_topk_window(U: torch.Tensor, Vw: torch.Tensor, cand: torch.Tensor,
@@ -36,13 +56,11 @@ def serve_topk_window(U: torch.Tensor, Vw: torch.Tensor, cand: torch.Tensor,
     build.require_dtype(name, "Vw", Vw, torch.float32)
     build.require_dtype(name, "cand", cand, torch.int32)
     build.require_dtype(name, "seen_w", seen_w, torch.int8, torch.bool)
-    if not 0 < k <= TOPK_MAX:
-        raise ValueError(f"{name}: k={k} outside 1..{TOPK_MAX}")
+    _check_k(name, k)
     if not build.on_card(name, U, Vw, cand, seen_w):
         return ref.serve_topk_window_ref(U, Vw, cand, seen_w, k)
     build.require_contiguous(name, U=U, Vw=Vw, cand=cand, seen_w=seen_w)
-    vals = torch.empty((R, k), dtype=torch.float32, device=U.device)
-    idx = torch.empty((R, k), dtype=torch.int32, device=U.device)
+    vals, idx = _outputs(R, k, U.device)
     if R:
         build.launch(name, U.device, "serve_topk_window_launch",
                      U.data_ptr(), Vw.data_ptr(), cand.data_ptr(),
@@ -53,3 +71,80 @@ def serve_topk_window(U: torch.Tensor, Vw: torch.Tensor, cand: torch.Tensor,
 
 
 serve_topk_window.launches = 0
+
+
+def serve_topk(U: torch.Tensor, V: torch.Tensor, cand: torch.Tensor, seen: torch.Tensor,
+               k: int):
+    """U: (R, K) f32; V: (R, J, K) f32 each request's whole item slab;
+    cand: (R, Cw) int32 ascending item ids, -1 padded (an id ≥ J is no
+    candidate and reads nothing); seen: (R, J) int8/bool. Returns (vals
+    (R, k) f32, idx (R, k) int32 global item ids), ``(NEG_INF, -1)`` in
+    unfilled slots.
+
+    CPU tensors run `ref.serve_topk_ref`; CUDA tensors launch the kernel
+    (and count one in ``serve_topk.launches``) or raise."""
+    name = "serve_topk"
+    R, K = U.shape
+    J, Cw = V.shape[1], cand.shape[1]
+    build.require_shape(name, "V", V, (R, J, K))
+    build.require_shape(name, "cand", cand, (R, Cw))
+    build.require_shape(name, "seen", seen, (R, J))
+    build.require_dtype(name, "U", U, torch.float32)
+    build.require_dtype(name, "V", V, torch.float32)
+    build.require_dtype(name, "cand", cand, torch.int32)
+    build.require_dtype(name, "seen", seen, torch.int8, torch.bool)
+    _check_k(name, k)
+    if not build.on_card(name, U, V, cand, seen):
+        return ref.serve_topk_ref(U, V, cand, seen, k)
+    build.require_contiguous(name, U=U, V=V, cand=cand, seen=seen)
+    vals, idx = _outputs(R, k, U.device)
+    if R:
+        build.launch(name, U.device, "serve_topk_launch",
+                     U.data_ptr(), V.data_ptr(), cand.data_ptr(),
+                     seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     R, J, Cw, K, k)
+        serve_topk.launches += 1
+    return vals, idx
+
+
+serve_topk.launches = 0
+
+
+def serve_topk_window_quant(U: torch.Tensor, Vq: torch.Tensor, scale: torch.Tensor,
+                            cand: torch.Tensor, seen_w: torch.Tensor, k: int):
+    """U: (R, K) f32; Vq: (R, Cw, K) int8 codes or bf16 factors at the
+    ``cand`` ids; scale: (R,) f32 per-request dequant scale (1 for bf16);
+    cand: (R, Cw) int32 ascending item ids, -1 padded; seen_w: (R, Cw)
+    int8/bool aligned to ``cand``. Returns (vals (R, k) f32, idx (R, k)
+    int32), ``(NEG_INF, -1)`` in unfilled slots.
+
+    CPU tensors run `ref.serve_topk_window_quant_ref`; CUDA tensors launch
+    the kernel (and count one in ``serve_topk_window_quant.launches``) or
+    raise."""
+    name = "serve_topk_window_quant"
+    R, K = U.shape
+    Cw = cand.shape[1]
+    build.require_shape(name, "Vq", Vq, (R, Cw, K))
+    build.require_shape(name, "scale", scale, (R,))
+    build.require_shape(name, "cand", cand, (R, Cw))
+    build.require_shape(name, "seen_w", seen_w, (R, Cw))
+    build.require_dtype(name, "U", U, torch.float32)
+    build.require_dtype(name, "Vq", Vq, torch.int8, torch.bfloat16)
+    build.require_dtype(name, "scale", scale, torch.float32)
+    build.require_dtype(name, "cand", cand, torch.int32)
+    build.require_dtype(name, "seen_w", seen_w, torch.int8, torch.bool)
+    _check_k(name, k)
+    if not build.on_card(name, U, Vq, scale, cand, seen_w):
+        return ref.serve_topk_window_quant_ref(U, Vq, scale, cand, seen_w, k)
+    build.require_contiguous(name, U=U, Vq=Vq, scale=scale, cand=cand, seen_w=seen_w)
+    vals, idx = _outputs(R, k, U.device)
+    if R:
+        build.launch(name, U.device, "serve_topk_window_quant_launch",
+                     U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
+                     seen_w.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     R, Cw, K, k, int(Vq.dtype == torch.bfloat16))
+        serve_topk_window_quant.launches += 1
+    return vals, idx
+
+
+serve_topk_window_quant.launches = 0

@@ -1,6 +1,7 @@
-"""City-bucketed candidate index — a numpy copy of
-`src/repro/serving/candidates.py:42-171` (`CandidateIndex`,
-`build_candidate_index`, `index_from_dataset`).
+"""City-bucketed candidate index and its geohash-cell refinement — a
+numpy copy of `src/repro/serving/candidates.py:42-300` (`CandidateIndex`,
+`build_candidate_index`, `index_from_dataset`, `HierarchicalIndex`,
+`build_hierarchical_index`).
 
 * ``bucket_items (C, cap) int32`` — each city's POI ids in **ascending id
   order**, padded with -1 to a shared cap (a multiple of 128). Ascending
@@ -131,3 +132,115 @@ def build_candidate_index(
 def index_from_dataset(ds, **kw) -> CandidateIndex:
     """Index straight from a `synthetic_poi.POIDataset`."""
     return build_candidate_index(ds.item_city, ds.user_city, n_items=ds.n_items, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalIndex:
+    """Geohash-style refinement of the flat city buckets. ``flat`` is a
+    plain `CandidateIndex` whose buckets are the leaf cells; the other
+    arrays describe the hierarchy."""
+    flat: CandidateIndex
+    cell_of_item: np.ndarray    # (J,) int32 leaf cell per item
+    cell_of_user: np.ndarray    # (I,) int32 leaf cell per user
+    cell_city: np.ndarray       # (n_cells,) int32 source city of each cell
+    cell_depth: np.ndarray      # (n_cells,) int32 splits below the city root
+
+    @property
+    def n_cells(self) -> int:
+        return int(len(self.cell_city))
+
+    @property
+    def max_depth(self) -> int:
+        return int(self.cell_depth.max()) if len(self.cell_depth) else 0
+
+    def stats(self) -> dict:
+        """How far the hierarchy shrank the serving cap."""
+        depth = self.cell_depth
+        return {
+            "n_cells": self.n_cells,
+            "max_depth": self.max_depth,
+            "mean_depth": float(depth.mean()) if len(depth) else 0.0,
+            "cap": self.flat.cap,
+            "n_empty_cells": int((self.flat.bucket_size == 0).sum()),
+            "mean_cell_items": float(self.flat.bucket_size.mean()),
+        }
+
+
+def build_hierarchical_index(
+    item_city: np.ndarray,
+    user_city: np.ndarray,
+    item_coords: np.ndarray,
+    user_coords: np.ndarray,
+    *,
+    cell_cap: int = 128,
+    cap: int | None = None,
+    pad_to: int = LANE,
+    max_depth: int = 16,
+    item_priority: np.ndarray | None = None,
+) -> HierarchicalIndex:
+    """Recursively halve every city holding more than ``cell_cap`` POIs at
+    the midpoint of its items' bounding box, alternating lon/lat per level
+    (a geohash's bit order), until each leaf fits ``cell_cap`` or
+    ``max_depth`` is reached. Users follow the same splits by their own
+    coordinates. Cells are numbered in the reference's order (cities
+    ascending, each city's stack popped right half first), so cell ids,
+    and with them the flat index, equal the reference's."""
+    item_city = np.asarray(item_city).reshape(-1)
+    user_city = np.asarray(user_city).reshape(-1)
+    item_coords = np.asarray(item_coords, dtype=np.float64).reshape(-1, 2)
+    user_coords = np.asarray(user_coords, dtype=np.float64).reshape(-1, 2)
+    J, I = len(item_city), len(user_city)
+    assert item_coords.shape == (J, 2), (item_coords.shape, J)
+    assert user_coords.shape == (I, 2), (user_coords.shape, I)
+    n_cities = max(
+        int(item_city.max()) + 1 if J else 0,
+        int(user_city.max()) + 1 if I else 0,
+        1,
+    )
+    cell_of_item = np.zeros(J, dtype=np.int32)
+    cell_of_user = np.zeros(I, dtype=np.int32)
+    cell_city: list[int] = []
+    cell_depth: list[int] = []
+
+    def emit(cell_items, cell_users, city: int, depth: int) -> None:
+        cid = len(cell_city)
+        cell_of_item[cell_items] = cid
+        cell_of_user[cell_users] = cid
+        cell_city.append(city)
+        cell_depth.append(depth)
+
+    for c in range(n_cities):
+        items_c = np.flatnonzero(item_city == c)
+        users_c = np.flatnonzero(user_city == c)
+        if len(items_c) == 0 and len(users_c) == 0:
+            continue
+        stack = [(items_c, users_c, 0)]
+        while stack:
+            it, us, depth = stack.pop()
+            if len(it) <= cell_cap or depth >= max_depth:
+                emit(it, us, c, depth)
+                continue
+            ax = depth % 2
+            lo = item_coords[it, ax].min()
+            hi = item_coords[it, ax].max()
+            mid = 0.5 * (lo + hi)
+            left_i = item_coords[it, ax] <= mid
+            if left_i.all() or not left_i.any():
+                emit(it, us, c, depth)          # degenerate: co-located POIs
+                continue
+            left_u = user_coords[us, ax] <= mid
+            stack.append((it[left_i], us[left_u], depth + 1))
+            stack.append((it[~left_i], us[~left_u], depth + 1))
+
+    flat = build_candidate_index(
+        cell_of_item if J else np.empty(0, np.int32),
+        cell_of_user if I else np.empty(0, np.int32),
+        n_items=J, cap=cap, pad_to=pad_to, item_priority=item_priority,
+    )
+    return HierarchicalIndex(
+        flat=flat,
+        cell_of_item=cell_of_item,
+        cell_of_user=cell_of_user,
+        cell_city=np.asarray(cell_city, dtype=np.int32),
+        cell_depth=np.asarray(cell_depth, dtype=np.int32),
+    )

@@ -11,13 +11,19 @@ agree within 1e-5; top-k indices may differ only where the plain version
 scores the two items within 1e-5 (fp32 sums over K in another order). The
 DP kernels: the noise stream's hash words exactly, its draws and the
 clipped, noised messages within 1e-6 (one fp32 ulp of log/cos), the fused
-DP step's deltas within 1e-5.
+DP step's deltas within 1e-5. The slab form of the serving kernel
+(`serve_topk`) equals the window form on the windows gathered from the
+same rows, and the int8/bf16 form (`serve_topk_window_quant`) equals it on
+the dequantized windows, bit for bit; the tiled engine on the card agrees
+with the same store on the CPU (store tensors bit for bit, slates as
+above).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.serving.store import int8_rows
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-5
@@ -161,3 +167,108 @@ def test_dmf_fused_step_dp_kernel(dev, B, clip):
     k3 = ops.dmf_fused_step(*x[:5], **hp)
     for i in (0, 2, 3):
         assert torch.equal(got[i], k3[i])
+
+
+def _slab_case(rng, R, J, Cw, K, dev):
+    """Whole slabs with exact ties, -1 padding, an all-seen row and a row
+    with fewer candidates than k; plus the windows gathered from them."""
+    U = rng.normal(size=(R, K)).astype(np.float32)
+    U[0] = 0.0
+    V = rng.normal(size=(R, J, K)).astype(np.float32)
+    V[1, ::2] = V[1, 1]
+    cand = np.full((R, Cw), -1, np.int32)
+    for r in range(R):
+        n = {0: Cw, 2: 3}.get(r, int(rng.integers(0, Cw + 1)))
+        cand[r, :n] = np.sort(rng.choice(J, n, replace=False))
+    seen = (rng.random((R, J)) < 0.1).astype(np.int8)
+    seen[min(3, R - 1)] = 1
+    U, V, cand, seen = (torch.as_tensor(x, device=dev) for x in (U, V, cand, seen))
+    safe = cand.clamp_min(0).long()
+    rows = torch.arange(R, device=dev)[:, None]
+    return U, V, cand, seen, V[rows, safe].contiguous(), seen[rows, safe].contiguous()
+
+
+@pytest.mark.parametrize("R,J,Cw,k", [(64, 3197, 384, 10), (5, 129, 128, 16), (4, 40, 17, 1)])
+def test_serve_topk_and_quant_kernels(dev, R, J, Cw, k):
+    rng = np.random.default_rng(J)
+    U, V, cand, seen, Vw, seen_w = _slab_case(rng, R, J, Cw, 8, dev)
+    Vw[R - 1] = 0.0                                       # an all-zero int8 user
+    slab_cand = cand.clone()
+    slab_cand[0, -1] = J + 5                              # past the slab: no candidate
+    sc = (U[:, None] * V).sum(-1)
+    elig = torch.zeros_like(seen, dtype=torch.bool)
+    live = (cand >= 0) & (slab_cand < J)
+    elig[torch.nonzero(live, as_tuple=True)[0], cand[live].long()] = True
+    sc = sc.masked_fill(~elig | (seen != 0), ref.NEG_INF).cpu().numpy()
+    before = ops.serve_topk.launches
+    got = ops.serve_topk(U, V, slab_cand, seen, k)
+    torch.cuda.synchronize()
+    assert ops.serve_topk.launches == before + 1
+    _hold(got, ref.serve_topk_ref(U, V, slab_cand, seen, k), lambda r, item: sc[r, item])
+    assert not (got[1] == J + 5).any()
+    codes, scale = int8_rows(Vw)
+    assert scale[R - 1] == np.float32(1e-12)
+    ids = cand.cpu().numpy()
+    for q, s in ((codes, scale), (Vw.to(torch.bfloat16), torch.ones(R, device=dev))):
+        deq = q.float() * s[:, None, None]
+        wsc = (U[:, None] * deq).sum(-1).masked_fill((cand < 0) | (seen_w != 0), ref.NEG_INF)
+        wsc = wsc.cpu().numpy()
+        before = ops.serve_topk_window_quant.launches
+        got = ops.serve_topk_window_quant(U, q, s, cand, seen_w, k)
+        torch.cuda.synchronize()
+        assert ops.serve_topk_window_quant.launches == before + 1
+        _hold(got, ref.serve_topk_window_quant_ref(U, q, s, cand, seen_w, k),
+              lambda r, item: wsc[r, np.flatnonzero(ids[r] == item)[0]])
+
+
+@pytest.mark.parametrize("R,J,Cw,k", [(64, 3197, 384, 10), (128, 1000, 128, 10), (3, 50, 20, 16)])
+def test_slab_and_quant_kernels_equal_the_window_kernel_bitwise(dev, R, J, Cw, k):
+    rng = np.random.default_rng(R + J)
+    U, V, cand, seen, Vw, seen_w = _slab_case(rng, R, J, Cw, 8, dev)
+    window = ops.serve_topk_window(U, Vw, cand, seen_w, k)
+    for a, b in zip(ops.serve_topk(U, V, cand, seen, k), window):
+        assert torch.equal(a, b)
+    codes, scale = int8_rows(Vw)
+    bf16 = Vw.to(torch.bfloat16)
+    ones = torch.ones(R, device=dev)
+    for q, s in ((codes, scale), (bf16, ones)):
+        deq = (q.float() * s[:, None, None]).contiguous()
+        for a, b in zip(ops.serve_topk_window_quant(U, q, s, cand, seen_w, k),
+                        ops.serve_topk_window(U, deq, cand, seen_w, k)):
+            assert torch.equal(a, b)
+
+
+def test_tiled_engine_on_the_card_equals_the_cpu(dev):
+    from repro_torch.serving import (ServingConfig, SyntheticFactors, TiledFactorStore,
+                                     TiledServingEngine, build_hierarchical_index,
+                                     synthetic_world)
+    uc, ic, ucoord, icoord = synthetic_world(3000, 600, 6, seed=1)
+    hier = build_hierarchical_index(ic, uc, icoord, ucoord, cell_cap=64)
+    sf = SyntheticFactors.create(3000, 600, 8, seed=2)
+    card = TiledFactorStore.synthetic(sf, hier.flat, seen_per_user=2, seed=3, device=dev)
+    host = TiledFactorStore.synthetic(sf, hier.flat, seen_per_user=2, seed=3, device="cpu")
+    assert torch.equal(card.slab.cpu(), host.slab)          # two eager ops, no FMA
+    assert torch.equal(card.seen.cpu(), host.seen)
+    ids = np.concatenate([np.random.default_rng(4).integers(0, 3000, 500), [-1, 3000]])
+    for mode in ("fp32", "int8", "bf16"):
+        cfg = ServingConfig(microbatch=64)
+        c_eng = TiledServingEngine(card, cfg, mode=mode)
+        h_eng = TiledServingEngine(host, cfg, mode=mode)
+        if mode == "int8":
+            assert torch.equal(card.q_codes.cpu(), host.q_codes)
+            assert torch.equal(card.q_scale.cpu(), host.q_scale)
+        if mode == "bf16":
+            assert torch.equal(card.slab_bf16.cpu().view(torch.int16),
+                               host.slab_bf16.view(torch.int16))
+        cv, ci, cf = c_eng.recommend(ids, return_flags=True)
+        hv, hi, hf = h_eng.recommend(ids, return_flags=True)
+        np.testing.assert_array_equal(cf, hf)
+        np.testing.assert_array_equal(ci[cf], hi[hf])
+        np.testing.assert_allclose(cv, hv, rtol=0, atol=TOL)
+        win = (host.slab if mode == "fp32" else host.slab_bf16.float() if mode == "bf16"
+               else host.q_codes.float() * host.q_scale[:, None, None])
+        for r, s in np.argwhere(ci != hi):          # only exact or 1e-5 ties may swap
+            u = int(ids[r])
+            cand = hier.flat.bucket_items[hier.flat.user_bucket[u]]
+            pos = int(np.flatnonzero(cand == ci[r, s])[0])
+            assert abs(float((host.U[u] * win[u, pos]).sum()) - hv[r, s]) <= TOL

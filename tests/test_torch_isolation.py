@@ -1,5 +1,6 @@
-"""The port stands alone: `repro_torch` imports neither `jax` nor `repro`,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: `repro_torch` imports neither `jax` nor `repro`
+nor `ml_dtypes` (a JAX dependency the card's machine lacks), and its entry
+points run on the card unless the caller asks for the CPU."""
 import ast
 import os
 import pathlib
@@ -13,7 +14,8 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import dmf, graph
 from repro_torch.launch import dmf_train
-from repro_torch.serving import ServingEngine, build_candidate_index
+from repro_torch.serving import (ServingEngine, SyntheticFactors, TiledFactorStore,
+                                 build_candidate_index, store_from_numpy)
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -23,11 +25,13 @@ def test_every_module_imports_without_jax_or_repro():
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                                       'ml_dtypes')\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len(names))\n"
@@ -53,7 +57,7 @@ def test_source_scan_finds_no_reference_imports():
     assert len(files) >= 20
     for f in files:
         roots = _imported_roots(f)
-        assert not roots & {"jax", "jaxlib", "repro"}, (f, roots)
+        assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, (f, roots)
         text = f.read_text()
         for needle in ("import jax", "from repro.", "import repro.", "from repro import"):
             assert needle not in text, (f, needle)
@@ -105,3 +109,25 @@ def test_training_entry_points_default_to_cuda_and_raise_without_a_card(monkeypa
     assert set(dmf.evaluate(state, train, train, 6, 5, device="cpu")) == {
         "P@5", "R@5", "P@10", "R@10"}
     assert dmf.fit(cfg, train, nbr, epochs=1, device="cpu").state.U.device.type == "cpu"
+
+
+def test_tiled_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sf = SyntheticFactors.create(6, 5, 4, seed=0)
+    index = build_candidate_index(np.zeros(5, np.int64), np.zeros(6, np.int64))
+    users, items = np.arange(6), np.zeros((6, 3), np.int64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sf.item_rows(users, items)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sf.dense_rows(users)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TiledFactorStore.synthetic(sf, index, seen_per_user=1)
+    host = TiledFactorStore.synthetic(sf, index, seen_per_user=1, device="cpu")
+    fields = (host.U.numpy(), host.slab.numpy(), host.seen.numpy(), index, host.cold,
+              host.item_counts)
+    with pytest.raises(RuntimeError, match="cuda"):
+        store_from_numpy(*fields)
+    # asked for the CPU, each runs there
+    assert sf.item_rows(users, items, device="cpu").device.type == "cpu"
+    assert host.slab.device.type == "cpu" and host.device.type == "cpu"
+    assert store_from_numpy(*fields, device="cpu").slab.device.type == "cpu"

@@ -5,7 +5,9 @@ The same numpy inputs, drawn from a fixed seed, go through the reference's
 `repro.kernels.ops` wrappers (Pallas in interpret mode) and the port's
 plain versions, which is what the port's wrappers run on CPU tensors.
 Tolerances: top-k indices equal; values within 1e-6 abs + 1e-6 rel (the
-two frameworks sum over K in another order, about 1 ulp); fused-step
+two frameworks sum over K in another order, about 1 ulp), for the fp32
+window, whole-slab (`serve_topk`) and int8/bf16 window
+(`serve_topk_window_quant`) forms alike; fused-step
 deltas within 1e-6 abs, loss within 1e-5 rel (a sum over the batch).
 The CUDA kernels themselves are held against the same plain versions on
 the card by `chip_smoke.py` and `tests/test_torch_cuda.py`.
@@ -89,6 +91,84 @@ def test_serve_topk_window_plain_matches_reference_kernel(seed, k):
     assert (idx[4, :3] >= 0).all() and (idx[4, 3:] == -1).all()
 
 
+def _slab_inputs(seed):
+    """Whole per-request slabs (R, J, K) and seen rows (R, J) holding the
+    window inputs at the candidate ids, random elsewhere."""
+    U, Vw, cand, seen_w = _window_inputs(seed)
+    R, J = cand.shape[0], 3197
+    rng = np.random.default_rng(seed + 100)
+    V = rng.normal(0, 1, (R, J, K)).astype(np.float32)
+    seen = (rng.random((R, J)) < 0.3).astype(np.int8)
+    for r in range(R):
+        live = cand[r] >= 0
+        V[r, cand[r, live]] = Vw[r, live]
+        seen[r, cand[r, live]] = seen_w[r, live]
+    return U, V, cand, seen
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_serve_topk_plain_matches_reference_kernel(seed, k):
+    U, V, cand, seen = _slab_inputs(seed)
+    expect = ref_ops.serve_topk(jnp.asarray(U), jnp.asarray(V), jnp.asarray(cand),
+                                jnp.asarray(seen), k, interpret=True)
+    got = ref.serve_topk_ref(*_t(U, V, cand, seen), k)
+    _assert_topk(got, expect)
+    idx = got[1].numpy()
+    for r in (5, 6):                       # empty bucket, all seen
+        assert (idx[r] == -1).all()
+    assert (idx[4, :3] >= 0).all() and (idx[4, 3:] == -1).all()
+    # the slab form equals the window form on the windows it gathers
+    _, Vw, _, seen_w = _window_inputs(seed)
+    for a, b in zip(got, ref.serve_topk_window_ref(*_t(U, Vw, cand, seen_w), k)):
+        assert torch.equal(a, b)
+    # an id past the slab is no candidate (the CUDA kernel reads nothing there)
+    past = cand.copy()
+    past[past == past.max()] = V.shape[1] + 3
+    got_past = ref.serve_topk_ref(*_t(U, V, past, seen), k)
+    assert not (got_past[1] == V.shape[1] + 3).any()
+
+
+def _quant_inputs(seed):
+    """int8 codes with per-request scales (an all-zero request floors its
+    scale at 1e-12) and the bf16 bits of the same windows."""
+    U, Vw, cand, seen = _window_inputs(seed)
+    Vw[7] = 0.0
+    scale = np.maximum(np.abs(Vw).max(axis=(1, 2)) / 127.0, 1e-12).astype(np.float32)
+    codes = np.clip(np.rint(Vw / scale[:, None, None]), -127, 127).astype(np.int8)
+    bits = np.array(jnp.asarray(Vw).astype(jnp.bfloat16)).view(np.uint16)
+    return U, Vw, cand, seen, codes, scale, bits
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+@pytest.mark.parametrize("form", ["int8", "bf16"])
+def test_serve_topk_window_quant_plain_matches_reference_kernel(form, k):
+    U, Vw, cand, seen, codes, scale, bits = _quant_inputs(0)
+    if form == "int8":
+        ref_q, ref_scale = jnp.asarray(codes), jnp.asarray(scale)
+        q, sc = torch.from_numpy(codes), torch.from_numpy(scale)
+    else:
+        ref_q = jnp.asarray(bits).view(jnp.bfloat16)
+        ref_scale = jnp.ones(len(scale), jnp.float32)
+        q = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        sc = torch.ones(len(scale))
+    expect = ref_ops.serve_topk_window_quant(jnp.asarray(U), ref_q, ref_scale,
+                                             jnp.asarray(cand), jnp.asarray(seen), k,
+                                             interpret=True)
+    Ut, ct, st = _t(U, cand, seen)
+    got = ref.serve_topk_window_quant_ref(Ut, q, sc, ct, st, k)
+    _assert_topk(got, expect)
+    # equal to the fp32 window form on the dequantized windows
+    deq = q.float() * sc[:, None, None]
+    for a, b in zip(got, ref.serve_topk_window_ref(Ut, deq, ct, st, k)):
+        assert torch.equal(a, b)
+    if form == "int8":
+        assert scale[7] == np.float32(1e-12) and (codes[7] == 0).all()
+        # the all-zero request scores 0.0 everywhere: lowest unseen ids win
+        live = cand[7][(cand[7] >= 0) & (seen[7] == 0)][:k]
+        np.testing.assert_array_equal(got[1][7, : len(live)].numpy(), live)
+
+
 @pytest.mark.parametrize("k", [1, 10, 16])
 def test_topk_peruser_plain_matches_reference_kernel(k):
     U, V, mask = _dense_inputs()
@@ -166,8 +246,16 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     assert torch.equal(ops.dp_clip_noise(x[0], rid, 3, clip=0.5, noise_std=0.2),
                        ref.dp_clip_noise_ref(x[0], rid, 3, 0.5, 0.2))
     assert torch.equal(ops.gauss_counter(3, rid, K), dp_noise.gauss_counter_ref(3, rid, K))
+    U, V, cand, seen = _t(*_slab_inputs(3))
+    for a, b in zip(ops.serve_topk(U, V, cand, seen, 10),
+                    ref.serve_topk_ref(U, V, cand, seen, 10)):
+        assert torch.equal(a, b)
+    U, _, cand, seen, codes, scale, _ = _t(*_quant_inputs(3))
+    for a, b in zip(ops.serve_topk_window_quant(U, codes, scale, cand, seen, 10),
+                    ref.serve_topk_window_quant_ref(U, codes, scale, cand, seen, 10)):
+        assert torch.equal(a, b)
     assert [kern.launches for kern in ops.KERNELS] == before == [0] * len(ops.KERNELS)
-    assert len(ops.KERNELS) == 6
+    assert len(ops.KERNELS) == 8
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
@@ -207,3 +295,31 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
                                   seen.to("meta"), 5)
         with pytest.raises(ValueError):
             ops.gauss_counter(0, cand[:, 0].to("meta"), 10)
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
+def test_tiled_wrappers_reject_what_the_kernels_do_not_take(case):
+    U, V, cand, seen = _t(*_slab_inputs(0))
+    _, _, _, seen_w, codes, scale, _ = _t(*_quant_inputs(0))
+    if case == "dtype":
+        with pytest.raises(TypeError):
+            ops.serve_topk(U, V.double(), cand, seen, 5)
+        with pytest.raises(TypeError):
+            ops.serve_topk_window_quant(U, codes.float(), scale, cand, seen_w, 5)
+        with pytest.raises(TypeError):
+            ops.serve_topk_window_quant(U, codes, scale.double(), cand, seen_w, 5)
+    elif case == "shape":
+        with pytest.raises(ValueError):
+            ops.serve_topk(U, V, cand, seen[:, :100], 5)
+        with pytest.raises(ValueError):
+            ops.serve_topk_window_quant(U, codes, scale[:3], cand, seen_w, 5)
+    elif case == "k":
+        with pytest.raises(ValueError):
+            ops.serve_topk(U, V, cand, seen, 17)
+        with pytest.raises(ValueError):
+            ops.serve_topk_window_quant(U, codes, scale, cand, seen_w, 0)
+    else:
+        with pytest.raises(ValueError):
+            ops.serve_topk(U.to("meta"), V.to("meta"), cand.to("meta"), seen.to("meta"), 5)
+        with pytest.raises(ValueError):
+            ops.serve_topk_window_quant(U, codes.to("meta"), scale, cand, seen_w, 5)
