@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (`src/repro_torch`) runs on
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
-version on the card, drives the serving and the training slices at full
-Foursquare scale and million-user tiled serving at the reference's
-million configuration, and times each kernel beside its bound.
+version on the card, drives the serving and the training slices and the
+paper's baseline comparison at full Foursquare scale and million-user
+tiled serving at the reference's million configuration, and times each
+kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold the fp32 window kernel
@@ -26,6 +27,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    window kernel (kernel 6, with an all-zero int8 request) within 1e-5,
    and bit for bit against the fp32 window kernel (kernel 1) on the
    windows gathered from the same rows, resp. on the dequantized windows.
+   The shared-V top-k (kernel 4) at `tests/test_kernels.py`'s shapes and
+   on all-zero users (each slate the lowest unmasked ids); the gradients
+   (kernel 9) at B 64/256/300/1024 × K 5/10/15/128 within 2e-5 abs + rel
+   plus the bound on two fp32 orders of the residual's dot; the walk
+   mixing (kernel 10) at (128,128), (200,333), (512,64), (77,1000) and
+   with bf16 inputs, within 1e-5 + 1e-5·(|M| @ |X|) elementwise.
 3. The main paths at the paper's primary configuration, full Table-1
    scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`),
    each with every launch count set to 0 just before it and read just
@@ -58,6 +65,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       versions; fp32 on 32 sampled users bit for bit against a
       `ServingEngine` on their dense rows, int8 and bf16 within the
       analytic score bound; `shard_rows(4)` bit for bit on 1,024 users.
+   d. baselines, the paper's comparison (Table 2 at K=10): `fit_mf` and
+      `fit_bpr` for 20 epochs and `evaluate_mf`, GDMF and LDMF through
+      `dmf.fit` and `evaluate`, beside the DMF DP-off numbers of b;
+      trained P@10 must beat untrained for MF and BPR, and "DMF R@10 >
+      MF R@10" (claim C1) is printed, not asserted. Kernel 4 on the MF
+      and BPR states at full width: its ids give `evaluate_mf`'s
+      metrics, except for users whose k-th and (k+1)-th scores tie
+      (counted). Kernel 4 on 256 DMF users one request at a time (the
+      reference's per-request loop), held against kernel 2 on the same
+      rows (within 1e-6; whether bit for bit is printed). Kernel 9 on a
+      training minibatch (B=256, K=10) and at B=2048, K=16: against its
+      plain version, gp against kernel 3's (bit for bit or not, printed),
+      −θ·gu and −θ·gq within 1 ulp of kernel 3's du and dq. Kernel 10 on
+      the dense walk matrix times every learner's P (6,524 × 6,524 @
+      6,524 × 31,970): against the plain product and the neighbor-table
+      gather, within 1e-5 + 1e-5·(|M| @ |X|).
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs; print the ``{"kernels": [...]}`` line.
 
@@ -102,6 +125,13 @@ SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_ste
 TILED_KERNELS = ("serve_topk_window", "serve_topk_window_quant")
 TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
                     "dp_clip_noise", "gauss_counter")
+BASELINE_KERNELS = ("recommend_topk", "dmf_grads", "gossip_mix_op")
+GRAD_TOL = 2e-5               # kernel 9 vs plain, abs + rel (plus the dot-order bound)
+N_PER_REQUEST = 256           # DMF users served one request at a time (kernel 4, R=1)
+MIX_TIMED = 3                 # kernel 10 launches per timed run at the Foursquare shape
+# the paper's tuned per-model hyperparameters (benchmarks/paper_tables.py:19-22)
+DMF_MODES = {"GDMF": dict(mode="gdmf", beta=0.1, gamma=0.0),
+             "LDMF": dict(mode="ldmf", beta=0.0, gamma=0.01)}
 
 
 def log(*parts) -> None:
@@ -289,8 +319,120 @@ def check_kernels(dev, J: int) -> dict[str, float]:
     errs["gauss_counter"] = check_stream(dev)
     errs["dp_clip_noise"] = check_clip_noise(rng, dev)
     errs["dmf_fused_step_dp"] = check_step_dp(rng, dev, hp)
+    errs["recommend_topk"] = check_topk_shared(dev)
+    errs["dmf_grads"] = check_grads(dev)
+    errs["gossip_mix_op"] = check_mix(dev)
     sync(dev)
     return errs
+
+
+def hold_shared(name, got, U, V, mask, k) -> float:
+    """Kernel 4 against its plain version on a shared (J, K) V."""
+    from repro_torch.kernels import ref
+    plain = ref.topk_scores_ref(U, V, mask, k)
+    with ref.fp32_matmul():
+        scores = (U @ V.T).masked_fill(mask != 0, ref.NEG_INF).cpu().numpy()
+    return hold_topk(name, got, plain, lambda r, item: float(scores[r, item]))
+
+
+def check_topk_shared(dev) -> float:
+    """Kernel 4 at `tests/test_kernels.py`'s shapes, and a tie-heavy case:
+    all-zero users score every item 0, so each slate is the lowest
+    unmasked ids."""
+    from repro_torch.kernels import ops
+
+    def inputs(seed, R, J, K):
+        rng = np.random.default_rng(seed)
+        return (torch.as_tensor(rng.normal(size=(R, K)).astype(np.float32), device=dev),
+                torch.as_tensor(rng.normal(size=(J, K)).astype(np.float32), device=dev),
+                torch.as_tensor(rng.random((R, J)) < 0.1, device=dev))
+
+    err = 0.0
+    for R, J, K, k in ((128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16), (256, 256, 5, 1)):
+        U, V, mask = inputs(R + J + k, R, J, K)
+        err = max(err, hold_shared(f"recommend_topk R={R} J={J} k={k}",
+                                   ops.recommend_topk(U, V, mask, k), U, V, mask, k))
+    U, V, mask = inputs(3, 64, 3197, 10)
+    U.zero_()
+    mask[1] = True
+    got = ops.recommend_topk(U, V, mask, 16)
+    err = max(err, hold_shared("recommend_topk all-zero users", got, U, V, mask, 16))
+    for r, m in enumerate(mask.cpu().numpy()):
+        want = np.full(16, -1)
+        lowest = np.flatnonzero(~m)[:16]
+        want[:len(lowest)] = lowest
+        assert got[1][r].tolist() == want.tolist(), f"recommend_topk: tie order, row {r}"
+    sync(dev)
+    return err
+
+
+def grads_inputs(rng, B, K, dev):
+    """`tests/test_kernels.py`'s gradient inputs: u/p/q normal, r/conf uniform."""
+    x = [rng.normal(size=(B, K)).astype(np.float32) for _ in range(3)]
+    x += [rng.random(B).astype(np.float32) for _ in range(2)]
+    return tuple(torch.as_tensor(a, device=dev) for a in x)
+
+
+def hold_grads(got, sx, hp) -> float:
+    """Kernel 9 against its plain version: each gradient within GRAD_TOL
+    abs + rel, plus the bound on two fp32 orders of the residual's K-term
+    dot (2·K·2⁻²⁴·c·Σ|u·v|) times the residual's factor (|v| for gu, |u|
+    for gp and gq). Returns the max abs error."""
+    from repro_torch.kernels import ref
+    u, p, q, r, c = sx
+    K = u.shape[1]
+    v = p + q
+    dot_err = (2 * K * 2.0**-24 * c * (u * v).abs().sum(-1))[:, None]
+    err = 0.0
+    for g, w, factor in zip(got, ref.dmf_grads_ref(*sx, *hp.values()), (v.abs(), u.abs(), u.abs())):
+        diff = (g - w).abs()
+        assert bool((diff <= GRAD_TOL * (1 + w.abs()) + dot_err * factor).all()), (
+            f"dmf_grads: |diff| {float(diff.max())} over its bound")
+        err = max(err, float(diff.max()))
+    return err
+
+
+def check_grads(dev) -> float:
+    from repro_torch.kernels import ops
+    hp = dict(alpha=0.1, beta=0.01, gamma=0.02)
+    err = 0.0
+    for B in (64, 256, 300, 1024):
+        for K in (5, 10, 15, 128):
+            sx = grads_inputs(np.random.default_rng(B * K), B, K, dev)
+            err = max(err, hold_grads(ops.dmf_grads(*sx, **hp), sx, hp))
+    sync(dev)
+    return err
+
+
+def hold_mix(name, Y, M, X) -> float:
+    """Kernel 10 against the fp32 product, elementwise within
+    1e-5 + 1e-5·(|M| @ |X|). Returns the max abs error."""
+    from repro_torch.kernels import ref
+    M, X = M.float(), X.float()
+    want = ref.gossip_mix_ref(M, X)
+    bound = ref.gossip_mix_ref(M.abs(), X.abs()).mul_(TOL).add_(TOL)
+    diff = (Y - want).abs_()
+    assert Y.shape == want.shape and Y.dtype == torch.float32, (name, Y.shape, Y.dtype)
+    assert bool(torch.isfinite(Y).all()), f"{name}: non-finite values"
+    assert bool((diff <= bound).all()), f"{name}: |diff| {float(diff.max())} over its bound"
+    return float(diff.max())
+
+
+def check_mix(dev) -> float:
+    """Kernel 10 at `tests/test_kernels.py`'s shapes and with bf16 inputs."""
+    from repro_torch.kernels import ops
+    err = 0.0
+    for I, F in ((128, 128), (200, 333), (512, 64), (77, 1000)):
+        rng = np.random.default_rng(I + F)
+        M = torch.as_tensor(rng.normal(size=(I, I)).astype(np.float32), device=dev)
+        X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+        err = max(err, hold_mix(f"gossip_mix_op I={I} F={F}", ops.gossip_mix_op(M, X), M, X))
+    rng = np.random.default_rng(0)
+    M = torch.as_tensor(rng.normal(size=(64, 64)), device=dev).bfloat16()
+    X = torch.as_tensor(rng.normal(size=(64, 32)), device=dev).bfloat16()
+    err = max(err, hold_mix("gossip_mix_op bf16", ops.gossip_mix_op(M, X), M, X))
+    sync(dev)
+    return err
 
 
 def check_quant(rng, dev, J: int) -> float:
@@ -386,12 +528,15 @@ def sync(dev) -> None:
 
 # ---------------------------------------------------------------- main path
 def build_world(ds, dev):
+    """The neighbor table, the dense (I, I) walk matrix it was cut from
+    (host numpy, for kernel 10), the candidate index and the config."""
     from repro_torch.configs import dmf_foursquare as fsq
     from repro_torch.core import graph
     from repro_torch.serving import index_from_dataset
     W = graph.build_adjacency(ds.user_coords, ds.user_city, fsq.GRAPH)
-    nbr = graph.walk_neighbor_table(W, fsq.GRAPH, device=dev)
-    return nbr, index_from_dataset(ds), fsq.dmf_config(ds.n_users, ds.n_items)
+    M = graph.walk_propagation_matrix(W, fsq.GRAPH)
+    nbr = graph.neighbor_table_from_dense(M, device=dev)
+    return nbr, M, index_from_dataset(ds), fsq.dmf_config(ds.n_users, ds.n_items)
 
 
 def drive_main_path(ds, nbr, index, cfg, dev) -> dict:
@@ -838,6 +983,198 @@ def training_summary(tr) -> dict:
     return out
 
 
+def drive_baselines(ds, M, nbr, tr, cfg, dev) -> dict:
+    """Phase 3d, the paper's comparison, through the entry points a user
+    calls: `fit_mf` and `fit_bpr` and `evaluate_mf` at K=10 for the DMF
+    path's epochs, GDMF and LDMF through `dmf.fit` and `evaluate`; kernel 4
+    on both baselines at full width and one DMF request at a time, kernel 9
+    on a training minibatch and at the micro-bench shape, kernel 10 on the
+    walk matrix times every learner's P. Returns what the checks, the
+    timing and the report need; nothing here is held yet."""
+    from repro_torch.core import baselines, dmf, metrics
+    from repro_torch.kernels import ops
+    out = {"fit_s": {}, "metrics": {}, "losses": {}}
+    common = dict(n_users=ds.n_users, n_items=ds.n_items, dim=cfg.dim)
+    train_mask = torch.as_tensor(metrics.masks_from_interactions(ds.n_users, ds.n_items,
+                                                                 ds.train), device=dev)
+    out["train_mask"] = train_mask
+    untrained = baselines.init_mf(baselines.MFConfig(**common), device=dev)
+    out["untrained"] = baselines.evaluate_mf(untrained, ds.train, ds.test, ds.n_users,
+                                             ds.n_items, device=dev)
+    for name, c, fit in (("MF", baselines.MFConfig(**common), baselines.fit_mf),
+                         ("BPR", baselines.BPRConfig(**common), baselines.fit_bpr)):
+        t0 = time.perf_counter()
+        state, losses = fit(c, ds.train, epochs=EPOCHS, device=dev)
+        sync(dev)
+        out["fit_s"][name] = time.perf_counter() - t0
+        assert np.isfinite(losses).all(), f"{name}: non-finite training loss"
+        out["losses"][name] = (losses[0], losses[-1])
+        out["metrics"][name] = baselines.evaluate_mf(state, ds.train, ds.test, ds.n_users,
+                                                     ds.n_items, device=dev)
+        out[name] = state
+        out[f"{name}_topk"] = ops.recommend_topk(state.U, state.V, train_mask, K_TOP)
+    for name, hp in DMF_MODES.items():
+        c = dataclasses.replace(cfg, **hp)
+        t0 = time.perf_counter()
+        res = dmf.fit(c, ds.train, nbr, epochs=EPOCHS, device=dev)
+        sync(dev)
+        out["fit_s"][name] = time.perf_counter() - t0
+        out["metrics"][name] = dmf.evaluate(res.state, ds.train, ds.test, ds.n_users,
+                                            ds.n_items, device=dev)
+        del res
+    out["metrics"]["DMF"] = tr["dp_off"]["metrics"]
+
+    # kernel 4, one request at a time on the trained DMF state: the
+    # reference's per-request seed loop (serving_bench._loop_per_request)
+    st = tr["dp_off"]["fit"].state
+    users = np.random.default_rng(SEED + 3).choice(ds.n_users, N_PER_REQUEST, replace=False)
+    u0 = int(users[0])
+    ops.recommend_topk(st.U[u0][None], st.P[u0] + st.Q[u0], train_mask[u0][None], K_TOP)
+    sync(dev)
+    slates = []
+    t0 = time.perf_counter()
+    for u in users.tolist():
+        v, i = ops.recommend_topk(st.U[u][None], st.P[u] + st.Q[u], train_mask[u][None], K_TOP)
+        slates.append((v.cpu(), i.cpu()))
+    out["per_request_rps"] = N_PER_REQUEST / (time.perf_counter() - t0)
+    out["per_request"] = (users, torch.cat([v for v, _ in slates]),
+                          torch.cat([i for _, i in slates]))
+    out["dmf_state"] = st
+
+    # kernel 9 on the first minibatch of a DP-off epoch (fit's own draws:
+    # U, then the sample) gathered from the trained state, and at the
+    # micro-bench shape (kernels_bench.py: B=2048, K=16)
+    rng = np.random.default_rng(cfg.seed)
+    rng.normal(0, cfg.init_scale, (cfg.n_users, cfg.dim))          # init_state's draw
+    ui, vj, r, conf = dmf.sample_epoch(ds.train, cfg, rng)
+    B = cfg.batch_size
+    ui, vj = (torch.as_tensor(x[:B], device=dev) for x in (ui, vj))
+    sx = (st.U[ui], st.P[ui, vj], st.Q[ui, vj],
+          torch.as_tensor(r[:B], device=dev), torch.as_tensor(conf[:B], device=dev))
+    hp = dict(alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.gamma)
+    bench = grads_inputs(np.random.default_rng(0), 2048, 16, dev)
+    bench_hp = dict(alpha=0.1, beta=0.01, gamma=0.01)
+    out["grads"] = [(sx, hp, ops.dmf_grads(*sx, **hp)),
+                    (bench, bench_hp, ops.dmf_grads(*bench, **bench_hp))]
+    out["lr"] = cfg.lr
+
+    # kernel 10: the dense walk matrix times every learner's P, flattened
+    # (gossip_mix.py:3-6, Alg. 1 lines 13-15 over all learners at once)
+    Md = torch.as_tensor(M, device=dev)
+    X = st.P.reshape(ds.n_users, -1)
+    out["mix_in"] = (Md, X)
+    out["mix_out"] = ops.gossip_mix_op(Md, X)
+    sync(dev)
+    return out
+
+
+def boundary_ties(scores: torch.Tensor, train_mask: torch.Tensor, ks=(5, 10)) -> dict:
+    """Per user, whether the k-th and (k+1)-th best unmasked scores tie
+    exactly, or lie within 1e-6 relative, at each k of ``ks``."""
+    top = torch.topk(scores.masked_fill(train_mask, float("-inf")), max(ks) + 1, dim=1)[0]
+    out = {}
+    for k in ks:
+        a, b = top[:, k - 1], top[:, k]
+        out[k] = ((a == b).cpu().numpy(),
+                  ((a - b).abs() <= 1e-6 * a.abs().clamp_min(1.0)).cpu().numpy())
+    return out
+
+
+def check_baselines(ds, bl, nbr, run_rps: float, dev) -> tuple[dict, dict]:
+    """The holds of phase 3d: trained beats untrained; kernel 4's ids give
+    `evaluate_mf`'s metrics (users whose k-th and (k+1)-th scores tie are
+    counted); kernel 4 per request against kernel 2 on the same rows;
+    kernel 9 against its plain version and kernel 3; kernel 10 against the
+    plain product and the neighbor-table gather. Frees kernel 10's output."""
+    from repro_torch.core import baselines, metrics
+    from repro_torch.kernels import ops, ref
+    test_mask = metrics.masks_from_interactions(ds.n_users, ds.n_items, ds.test)
+    train_mask = bl["train_mask"]
+    out = {"metrics": bl["metrics"], "untrained": bl["untrained"], "fit_s": bl["fit_s"],
+           "loss_first_last": bl["losses"]}
+    errs = {}
+    for name in ("MF", "BPR"):
+        got, base = bl["metrics"][name]["P@10"], bl["untrained"]["P@10"]
+        assert got > base, f"{name}: trained P@10 {got} does not beat untrained {base}"
+        vals, idx = bl[f"{name}_topk"]
+        st = bl[name]
+        errs[name] = hold_shared(f"recommend_topk {name}", (vals, idx), st.U, st.V, train_mask,
+                                 K_TOP)
+        from_kernel = metrics.evaluate_ranking_from_topk(idx.cpu().numpy(), test_mask)
+        ties = boundary_ties(baselines.mf_scores(st), train_mask)
+        rec = metrics.topk_recommend(baselines.mf_scores(st), train_mask, K_TOP).cpu().numpy()
+        differ = np.zeros(ds.n_users, bool)
+        for k in (5, 10):
+            at_k = (metrics.topk_hits(idx.cpu().numpy(), test_mask, k)
+                    != metrics.topk_hits(rec, test_mask, k))
+            assert not (at_k & ~ties[k][1]).any(), (
+                f"{name}: kernel 4 hits differ from evaluate_mf's for users "
+                f"{np.flatnonzero(at_k & ~ties[k][1])[:10]} without a tie at k={k}")
+            differ |= at_k
+        if not differ.any():
+            assert from_kernel == bl["metrics"][name], (from_kernel, bl["metrics"][name])
+        out[f"{name}_kernel4"] = {
+            "metrics_equal_evaluate_mf": from_kernel == bl["metrics"][name],
+            "users_hits_differ": int(differ.sum()),
+            **{f"users_exact_tie_at_{k}": int(ties[k][0].sum()) for k in (5, 10)},
+            **{f"users_within_1e-6_at_{k}": int(ties[k][1].sum()) for k in (5, 10)}}
+
+    users, pv, pi = bl["per_request"]
+    st = bl["dmf_state"]
+    uid = torch.as_tensor(users, device=dev)
+    kv, ki = ops.recommend_topk_peruser(st.U[uid], st.P[uid] + st.Q[uid], train_mask[uid], K_TOP)
+    scores = (st.U[uid][:, None, :] * (st.P[uid] + st.Q[uid])).sum(-1)
+    scores = scores.masked_fill(train_mask[uid], ref.NEG_INF).cpu().numpy()
+    hold_topk("recommend_topk per request vs kernel 2", (pv, pi), (kv, ki),
+              lambda r, item: float(scores[r, item]))
+    kv, ki = kv.cpu(), ki.cpu()
+    per_err = float((pv - kv).abs().max())
+    assert per_err <= DRAW_TOL, f"per request vs kernel 2: {per_err} > {DRAW_TOL}"
+    out["per_request"] = {"requests": len(users), "requests_per_s": bl["per_request_rps"],
+                          "engine_pruned_requests_per_s": run_rps,
+                          "vs_kernel2_bitwise": bool(torch.equal(pv, kv) and torch.equal(pi, ki)),
+                          "vs_kernel2_max_abs": per_err}
+
+    grads = []
+    for sx, hp, got in bl["grads"]:
+        err = hold_grads(got, sx, hp)
+        theta = bl["lr"]
+        du, gp3, dq, _ = ops.dmf_fused_step(*sx, theta=theta, **hp)
+        within_ulp = []
+        for a, b in ((-theta * got[0], du), (-theta * got[2], dq)):
+            ulp = (torch.nextafter(b, torch.full_like(b, float("inf"))) - b).abs()
+            within_ulp.append(bool(((a - b).abs() <= ulp).all()))
+        assert all(within_ulp), "dmf_grads: -θ·gu / -θ·gq not within 1 ulp of kernel 3's du / dq"
+        grads.append({"shape": f"B={sx[0].shape[0]} K={sx[0].shape[1]}", "max_abs_err": err,
+                      "gp_vs_kernel3_bitwise": bool(torch.equal(got[1], gp3)),
+                      "gp_vs_kernel3_max_abs": float((got[1] - gp3).abs().max())})
+    errs["grads"] = max(g["max_abs_err"] for g in grads)
+    out["dmf_grads"] = grads
+
+    (Md, X), Y = bl["mix_in"], bl.pop("mix_out")
+    errs["mix"] = hold_mix("gossip_mix_op Foursquare", Y, Md, X)
+    I = Md.shape[0]
+    rebuilt = torch.zeros_like(Md)
+    rebuilt.index_put_((torch.arange(I, device=dev)[:, None].expand_as(nbr.idx), nbr.idx),
+                       nbr.wgt, accumulate=True)
+    assert torch.equal(rebuilt, Md), "a nonzero of M is missing from the neighbor table"
+    gathered = torch.zeros_like(Y)
+    for s in range(nbr.idx.shape[1]):
+        gathered.addcmul_(nbr.wgt[:, s, None], X[nbr.idx[:, s]])
+    bound = ref.gossip_mix_ref(Md.abs(), X.abs()).mul_(TOL).add_(TOL)
+    gather_err = (Y - gathered).abs_()
+    assert bool((gather_err <= bound).all()), f"kernel 10 vs gather: {float(gather_err.max())}"
+    out["gossip_mix"] = {"shape": f"I={I} F={X.shape[1]}", "max_abs_vs_plain": errs["mix"],
+                         "max_abs_vs_gather": float(gather_err.max()),
+                         "nnz_per_row_max": int((Md != 0).sum(1).max()),
+                         "nnz": int((Md != 0).sum())}
+    del Y, gathered, bound, gather_err, rebuilt
+    torch.cuda.empty_cache()
+    dmf_r10, mf_r10 = bl["metrics"]["DMF"]["R@10"], bl["metrics"]["MF"]["R@10"]
+    out["C1_dmf_R@10_beats_mf"] = bool(dmf_r10 > mf_r10)
+    return out, errs
+
+
 # ------------------------------------------------------------------- timing
 def device_ms(fn, n: int) -> float:
     """Device milliseconds per call, back to back: the stream is held by a
@@ -1077,10 +1414,81 @@ def training_specs(tr, mb, ds, dev) -> list[dict]:
     ]
 
 
+def baseline_specs(bl) -> list[dict]:
+    """Phase 4 rows of kernels 4, 9 and 10 on the baselines path's own
+    inputs: kernel 4 on the trained MF state at full width (R=6,524) and on
+    one DMF request (R=1); kernel 9 on the training minibatch (B=256, K=10)
+    and at the micro-bench shape (B=2048, K=16); kernel 10 on the walk
+    matrix times every learner's P (I=6,524, F=31,970; MIX_TIMED calls a
+    timed run, each about a tenth of a second) and at the micro-bench shape
+    (512 × 512 @ 512 × 1024)."""
+    from repro_torch.kernels import ops, ref
+    mask = bl["train_mask"]
+    st, dmf_st = bl["MF"], bl["dmf_state"]
+    u0 = int(bl["per_request"][0][0])
+    one = (dmf_st.U[u0][None], (dmf_st.P[u0] + dmf_st.Q[u0]).contiguous(), mask[u0][None])
+
+    def topk_spec(U, V, m, where):
+        R, K = U.shape
+        live = int((m == 0).sum())
+
+        def matmul_topk():
+            return torch.topk((U @ V.T).masked_fill(m, ref.NEG_INF), K_TOP, dim=1)
+
+        return dict(name="recommend_topk", src="topk_scores.cu",
+                    replaces="src/repro/kernels/topk_scores.py:51",
+                    kern=lambda: ops.recommend_topk(U, V, m, K_TOP),
+                    plain=lambda: ref.topk_scores_ref(U, V, m, K_TOP), lib=matmul_topk,
+                    hold=lambda got: hold_shared("recommend_topk", got, U, V, m, K_TOP),
+                    nbytes=U.nbytes + V.nbytes + m.nbytes + R * K_TOP * 8, flops=2 * live * K,
+                    shape=f"{where}: R={R} J={V.shape[0]} K={K} k={K_TOP}")
+
+    def grads_spec(sx, hp, where):
+        B, K = sx[0].shape
+        return dict(name="dmf_grads", src="dmf_update.cu",
+                    replaces="src/repro/kernels/dmf_update.py:22",
+                    kern=lambda: ops.dmf_grads(*sx, **hp),
+                    plain=lambda: ref.dmf_grads_ref(*sx, *hp.values()), lib=None,
+                    hold=lambda got: hold_grads(got, sx, hp),
+                    nbytes=sum(x.nbytes for x in sx) + 3 * sx[0].nbytes, flops=B * (12 * K + 2),
+                    shape=f"{where}: B={B} K={K}")
+
+    def mix_spec(M, X, where, n):
+        I, F = X.shape
+        nnz = int((M != 0).sum())
+        sparse_ms, sparse_by = bound(nnz * 12 + 2 * X.nbytes, 2 * nnz * F)
+        return dict(name="gossip_mix_op", src="gossip_mix.cu",
+                    replaces="src/repro/kernels/gossip_mix.py:22",
+                    kern=lambda: ops.gossip_mix_op(M, X),
+                    plain=lambda: ref.gossip_mix_ref(M, X), lib=lambda: torch.matmul(M, X),
+                    hold=lambda got: hold_mix("gossip_mix_op", got, M, X),
+                    nbytes=M.nbytes + 2 * X.nbytes, flops=2 * I * I * F, n=n, plain_n=n,
+                    shape=f"{where}: I={I} F={F}",
+                    extra={"nnz_M": nnz, "sparse_product_bound_ms": sparse_ms,
+                           "sparse_product_bound_by": sparse_by})
+
+    Md, X = bl["mix_in"]
+    rng = np.random.default_rng(0)
+    bm = torch.as_tensor(rng.normal(size=(512, 512)).astype(np.float32), device=Md.device)
+    bx = torch.as_tensor(rng.normal(size=(512, 1024)).astype(np.float32), device=Md.device)
+    (sx, hp, _), (bsx, bhp, _) = bl["grads"]
+    return [
+        topk_spec(st.U, st.V, mask, "MF, all users"),
+        dict(topk_spec(*one, "one DMF request"), variant="per_request"),
+        grads_spec(sx, hp, "training minibatch"),
+        dict(grads_spec(bsx, bhp, "micro-bench"), variant="bench_shape"),
+        mix_spec(Md, X, "walk matrix x every learner's P", MIX_TIMED),
+        dict(mix_spec(bm, bx, "micro-bench", 200), variant="bench_shape"),
+    ]
+
+
 def time_spec(spec, errs, launches) -> dict:
     """One row of the kernels line: hold the kernel on these inputs, then
-    time it, its plain version and the library call."""
+    time it, its plain version and the library call (``n`` calls a timed
+    run for the kernel, ``plain_n`` for the others; 200 and 30 unless the
+    spec says)."""
     name, lib = spec["name"], spec["lib"]
+    n, plain_n = spec.get("n", 200), spec.get("plain_n", 30)
     errs[name] = max(errs.get(name, 0.0), spec["hold"](spec["kern"]()))
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
     by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
@@ -1089,11 +1497,12 @@ def time_spec(spec, errs, launches) -> dict:
         "source": f"src/repro_torch/kernels/csrc/{spec['src']}", "replaces": spec["replaces"],
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         "max_abs_err": errs[name], "shape": spec["shape"],
-        "ms": (ms := device_ms(spec["kern"], 200)), "kernel_ms": ms,
-        "call_ms": call_ms(spec["kern"], 200), "plain_ms": device_ms(spec["plain"], 30),
+        "ms": (ms := device_ms(spec["kern"], n)), "kernel_ms": ms,
+        "call_ms": call_ms(spec["kern"], n), "plain_ms": device_ms(spec["plain"], plain_n),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": device_ms(lib, 30) if lib is not None else None,
-        "bytes": int(spec["nbytes"]), "flops": int(spec["flops"]),
+        "library_ms": device_ms(lib, plain_n) if lib is not None else None,
+        "bytes": int(spec["nbytes"]), "flops": int(spec["flops"]), "timed_calls": n,
+        **spec.get("extra", {}),
     }
 
 
@@ -1188,7 +1597,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     ds = synthetic_poi.foursquare_like(reduced=False, seed=SEED)
-    nbr, index, cfg = build_world(ds, dev)
+    nbr, M, index, cfg = build_world(ds, dev)
     log(f"phase 3 data: users={ds.n_users} items={ds.n_items} train={len(ds.train)} "
         f"test={len(ds.test)} buckets={index.n_buckets} cap={index.cap} S={nbr.idx.shape[1]} "
         f"({time.perf_counter() - t0} s host)")
@@ -1242,16 +1651,27 @@ def main(argv=None) -> int:
     errs["serve_topk_window_quant"] = max(errs["serve_topk_window_quant"], tiled_errs["int8"],
                                           tiled_errs["bf16"])
 
+    bl, launches["baselines"] = counted("baselines", BASELINE_KERNELS,
+                                        lambda: drive_baselines(ds, M, nbr, tr, cfg, dev))
+    t0 = time.perf_counter()
+    bl_summary, bl_errs = check_baselines(ds, bl, nbr, run["after_pruned_rps"], dev)
+    log(f"phase 3 baselines holds: {time.perf_counter() - t0} s")
+    log("baselines", json.dumps(bl_summary))
+    errs["recommend_topk"] = max(errs["recommend_topk"], bl_errs["MF"], bl_errs["BPR"])
+    errs["dmf_grads"] = max(errs["dmf_grads"], bl_errs["grads"])
+    errs["gossip_mix_op"] = max(errs["gossip_mix_op"], bl_errs["mix"])
+
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}
-    for spec in serving_specs(run) + training_specs(tr, mb, ds, dev) + tiled_specs(run, tl):
+    for spec in (serving_specs(run) + training_specs(tr, mb, ds, dev) + tiled_specs(run, tl)
+                 + baseline_specs(bl)):
         row = time_spec(spec, errs, launches)
         if spec["name"] in rows:     # a second shape or form of a kernel
             first = rows[spec["name"]]
             first["max_abs_err"] = row["max_abs_err"]
             first[spec["variant"]] = {k: row[k] for k in (
                 "shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "bytes", "flops")}
+                "bytes", "flops", "timed_calls", *spec.get("extra", {}))}
         else:
             rows[spec["name"]] = row
     log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s")

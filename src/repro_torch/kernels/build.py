@@ -118,6 +118,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.counter_words_launch.restype = i32
     lib.dp_clip_noise_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr]
     lib.dp_clip_noise_launch.restype = i32
+    lib.topk_shared_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    lib.topk_shared_launch.restype = i32
+    lib.dmf_grads_launch.argtypes = [ptr] * 8 + [i32] * 2 + [f32] * 3 + [ptr]
+    lib.dmf_grads_launch.restype = i32
+    lib.gossip_mix_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    lib.gossip_mix_launch.restype = i32
     lib.dmf_step_blocks.argtypes = [i32]
     lib.dmf_step_blocks.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]

@@ -5,10 +5,13 @@
 // and its DP form, which also clips each outgoing message row to C and adds
 // the row's pre-scaled noise z:
 //   gp ← gp · min(1, C / ‖gp‖₂) + z
+// and the gradients alone (no θ, no loss):
+//   gu = −err·v + αu, gp = −err·u + βp, gq = −err·u + γq
 //
 // Replaces the TPU kernels `_dmf_fused_step_kernel`
-// (src/repro/kernels/dmf_update.py:61, pallas_call at :181) and
-// `_dmf_fused_step_dp_kernel` (dmf_update.py:92, pallas_call at :148).
+// (src/repro/kernels/dmf_update.py:61, pallas_call at :181),
+// `_dmf_fused_step_dp_kernel` (dmf_update.py:92, pallas_call at :148) and
+// `_dmf_grads_kernel` (dmf_update.py:22, pallas_call at :50).
 //
 // Bound at the slices' shapes (B=256 rows, K=10): memory, and far below
 // the launch cost. A launch reads u/p/q (30 KB) and r/conf (2 KB) and
@@ -26,6 +29,17 @@
 // than keeping K values in registers, and rounds the clip and the noise
 // add separately (no FMA), as the reference's two fp32 operations do. The
 // non-DP instantiation is the unchanged kernel 3.
+//
+// The gradients-only kernel (`dmf_grads_kernel`) is a separate __global__,
+// not a third instance of the template, so kernels 3 and 7 stay the code
+// they were. At B=256, K=10 it reads u/p/q and r/conf (32 KB) and writes
+// gu/gp/gq (30 KB): 0.019 us at 3.35 TB/s, far below the launch. One
+// thread per row, fp32. Its residual and its three expressions are
+// written as kernel 3 writes its own, so nvcc contracts them alike: gp is
+// kernel 3's gp, and −θ·gu, −θ·gq are kernel 3's du, dq, up to the one
+// rounding of the θ product. The TPU wrapper padded B to 256 and K to 128
+// (src/repro/kernels/ops.py:35-45); here B is the loop bound and K the
+// row length, and nothing is padded.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -84,6 +98,27 @@ dmf_fused_step_kernel(const float* __restrict__ u, const float* __restrict__ p,
   if (threadIdx.x == 0) partial[blockIdx.x] = s_loss[0];
 }
 
+__global__ void __launch_bounds__(kStepThreads)
+dmf_grads_kernel(const float* __restrict__ u, const float* __restrict__ p,
+                 const float* __restrict__ q, const float* __restrict__ r,
+                 const float* __restrict__ conf, float* __restrict__ gu,
+                 float* __restrict__ gp, float* __restrict__ gq, int B, int K,
+                 float alpha, float beta, float gamma) {
+  const int b = blockIdx.x * kStepThreads + threadIdx.x;
+  if (b >= B) return;
+  const size_t o = (size_t)b * K;
+  float dot = 0.f;
+  for (int c = 0; c < K; ++c) dot += u[o + c] * (p[o + c] + q[o + c]);
+  const float raw = r[b] - dot;
+  const float err = conf[b] * raw;
+  for (int c = 0; c < K; ++c) {
+    const float uc = u[o + c], pc = p[o + c], qc = q[o + c];
+    gu[o + c] = -err * (pc + qc) + alpha * uc;
+    gp[o + c] = -err * uc + beta * pc;
+    gq[o + c] = -err * uc + gamma * qc;
+  }
+}
+
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int n,
                                     float* __restrict__ loss) {
   float s = 0.f;
@@ -126,6 +161,16 @@ extern "C" int dmf_fused_step_dp_launch(const float* u, const float* p, const fl
                                         float beta, float gamma, float clip, void* stream) {
   return launch_step<true>(u, p, q, r, conf, z, du, gp, dq, partial, loss, B, K, theta,
                            alpha, beta, gamma, clip, stream);
+}
+
+extern "C" int dmf_grads_launch(const float* u, const float* p, const float* q,
+                                const float* r, const float* conf, float* gu, float* gp,
+                                float* gq, int B, int K, float alpha, float beta, float gamma,
+                                void* stream) {
+  const int blocks = (B + kStepThreads - 1) / kStepThreads;
+  dmf_grads_kernel<<<blocks, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      u, p, q, r, conf, gu, gp, gq, B, K, alpha, beta, gamma);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* repro_cuda_error_string(int err) {

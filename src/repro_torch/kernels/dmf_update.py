@@ -5,12 +5,14 @@ port of `_dmf_fused_step_kernel` / `dmf_fused_step_kernel_call`
 `ops.dmf_fused_step` (`src/repro/kernels/ops.py:52-73`), and of its DP form
 `_dmf_fused_step_dp_kernel` / `dmf_fused_step_dp_kernel_call`
 (`dmf_update.py:92-162`) behind `ops.dmf_fused_step_dp` (`ops.py:76-101`),
-which also clips each message row to C and adds the row's noise z.
+which also clips each message row to C and adds the row's noise z. Also
+the gradients alone, `_dmf_grads_kernel` / `dmf_grads_kernel_call`
+(`dmf_update.py:22-58`) behind `ops.dmf_grads` (`ops.py:30-49`).
 
-The TPU wrapper padded B to 256 and K to 128 lanes; the CUDA kernel
-(``csrc/dmf_update.cu``) takes (B, K) as it is. Its loss is a per-block
-partial sum reduced in a fixed order by a second kernel, in the scratch
-this wrapper allocates.
+The TPU wrapper padded B to 256 and K to 128 lanes; the CUDA kernels
+(``csrc/dmf_update.cu``) take (B, K) as it is. The step's loss is a
+per-block partial sum reduced in a fixed order by a second kernel, in the
+scratch this wrapper allocates.
 """
 from __future__ import annotations
 
@@ -41,6 +43,28 @@ def _step_outputs(u):
     partial = torch.empty(build.load().dmf_step_blocks(B), dtype=torch.float32,
                           device=u.device)
     return du, gp, dq, loss, partial
+
+
+def dmf_grads(u, p, q, r, conf, *, alpha: float, beta: float, gamma: float):
+    """u/p/q: (B, K) f32; r/conf: (B,) f32. Returns (gu, gp, gq), each
+    (B, K) f32: the confidence-weighted Eqs. 9-11 gradients, with no
+    learning rate and no loss.
+
+    CPU tensors run `ref.dmf_grads_ref`; CUDA tensors launch the kernel
+    (and count one in ``dmf_grads.launches``) or raise."""
+    name = "dmf_grads"
+    _check_step(name, u, p, q, r, conf)
+    if not build.on_card(name, u, p, q, r, conf):
+        return ref.dmf_grads_ref(u, p, q, r, conf, alpha, beta, gamma)
+    build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf)
+    B, K = u.shape
+    gu, gp, gq = (torch.empty_like(u) for _ in range(3))
+    if B:
+        build.launch(name, u.device, "dmf_grads_launch",
+                     u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
+                     gu.data_ptr(), gp.data_ptr(), gq.data_ptr(), B, K, alpha, beta, gamma)
+        dmf_grads.launches += 1
+    return gu, gp, gq
 
 
 def dmf_fused_step(u, p, q, r, conf, *, theta: float, alpha: float,
@@ -91,5 +115,6 @@ def dmf_fused_step_dp(u, p, q, r, conf, z, *, theta: float, alpha: float,
     return du, gp, dq, loss
 
 
+dmf_grads.launches = 0
 dmf_fused_step.launches = 0
 dmf_fused_step_dp.launches = 0

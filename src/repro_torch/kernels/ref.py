@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels — port of
-`src/repro/kernels/ref.py` (`dmf_fused_step_ref`, `topk_scores_peruser_ref`,
-`serve_topk_ref` :48-67, `serve_topk_window_ref`, `masked_topk_finalize`,
-`NEG_INF`, `dp_clip_noise_ref` :91-108) plus `dmf_fused_step_dp_ref`, the
+`src/repro/kernels/ref.py` (`dmf_grads_ref` :8-18, `dmf_fused_step_ref`,
+`topk_scores_peruser_ref`, `serve_topk_ref` :48-67, `serve_topk_window_ref`,
+`masked_topk_finalize`, `NEG_INF`, `dp_clip_noise_ref` :91-108,
+`gossip_mix_ref` :111-114, `topk_scores_ref` :117-123) plus `dmf_fused_step_dp_ref`, the
 plain form of `_dmf_fused_step_dp_kernel`, and
 `serve_topk_window_quant_ref`, the plain form of
 `_serve_topk_window_quant_kernel`. The plain noise stream is
@@ -17,6 +18,8 @@ tie-break comes from ``torch.sort(descending=True, stable=True)`` over
 positions in ascending id order — ``torch.topk`` documents no tie order.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -93,6 +96,17 @@ def topk_scores_peruser_ref(U, V, mask, k: int):
     return masked_topk_finalize(vals, pos.to(torch.int32))
 
 
+def dmf_grads_ref(u, p, q, r, conf, alpha, beta, gamma):
+    """Confidence-weighted per-rating gradients (paper Eqs. 9-11). u/p/q:
+    (B, K) f32; r/conf: (B,) f32. Returns (gu, gp, gq), each (B, K)."""
+    v = p + q
+    err = (conf * (r - (u * v).sum(-1)))[:, None]
+    gu = -err * v + alpha * u
+    gp = -err * u + beta * p
+    gq = -err * u + gamma * q
+    return gu, gp, gq
+
+
 def dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma):
     """Fused Alg. 1 step (paper Eqs. 9-11): lr-scaled deltas for the
     sender's u/q, the raw global-factor gradient message gp, and the batch
@@ -132,3 +146,36 @@ def dp_clip_noise_ref(g, rid, seed, clip, noise_std):
     if noise_std > 0.0:
         out = out + noise_std * gauss_counter_ref(seed, rid, g.shape[1])
     return out
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Full fp32 products on CUDA for the block (TF32 off), whatever the
+    process's setting; restored after."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def gossip_mix_ref(M, X):
+    """Propagation mixing Y = M @ X: the (I, I) walk matrix times the
+    flattened learner state (I, F), Alg. 1 line 15 over every receiver.
+    fp32, TF32 off."""
+    with fp32_matmul():
+        return M @ X
+
+
+def topk_scores_ref(U, V, mask, k: int):
+    """Masked top-k over one shared item matrix: U (R, K) f32, V (J, K)
+    f32, mask (R, J) bool/int8, nonzero = seen. Returns (vals (R, k) f32,
+    idx (R, k) int32) under the kernel's dead-slot contract (the
+    reference's jnp oracle returns raw ``-inf`` slots; its kernel returns
+    these). fp32 scores, TF32 off."""
+    with fp32_matmul():
+        scores = U @ V.T
+    scores = scores.masked_fill(mask != 0, NEG_INF)
+    vals, pos = _topk_positions(scores, k)
+    return masked_topk_finalize(vals, pos.to(torch.int32))

@@ -16,7 +16,13 @@ DP step's deltas within 1e-5. The slab form of the serving kernel
 same rows, and the int8/bf16 form (`serve_topk_window_quant`) equals it on
 the dequantized windows, bit for bit; the tiled engine on the card agrees
 with the same store on the CPU (store tensors bit for bit, slates as
-above).
+above). The shared-V top-k (`recommend_topk`, kernel 4) is held like the
+other top-k kernels, and on one user with V = p^i + q^i equals the
+per-user kernel bit for bit; the gradients kernel (`dmf_grads`, kernel 9)
+is within 2e-5 abs + rel of its plain version, its gp equals the fused
+step's bit for bit, and −θ·gu, −θ·gq are the step's deltas within one
+ulp; the walk-mixing product (`gossip_mix_op`, kernel 10) is within
+1e-5 + 1e-5·(|M| @ |X|) of the fp32 product, bf16 inputs upcast.
 """
 import numpy as np
 import pytest
@@ -272,3 +278,96 @@ def test_tiled_engine_on_the_card_equals_the_cpu(dev):
             cand = hier.flat.bucket_items[hier.flat.user_bucket[u]]
             pos = int(np.flatnonzero(cand == ci[r, s])[0])
             assert abs(float((host.U[u] * win[u, pos]).sum()) - hv[r, s]) <= TOL
+
+
+@pytest.mark.parametrize("R,J,K,k", [(128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16),
+                                     (256, 256, 5, 1), (6, 3197, 10, 10)])
+def test_recommend_topk_kernel(dev, R, J, K, k):
+    rng = np.random.default_rng(R + J + k)
+    U = rng.normal(size=(R, K)).astype(np.float32)
+    U[0] = 0.0                                            # all-zero scores: id ties
+    V = rng.normal(size=(J, K)).astype(np.float32)
+    V[J // 2:J // 2 + 20] = V[1]                          # repeated item rows
+    mask = rng.random((R, J)) < 0.1
+    mask[0] = False
+    mask[-1] = True
+    U, V, mask = (torch.as_tensor(x, device=dev) for x in (U, V, mask))
+    before = ops.recommend_topk.launches
+    got = ops.recommend_topk(U, V, mask, k)
+    torch.cuda.synchronize()
+    assert ops.recommend_topk.launches == before + 1
+    sc = (U[:, None] * V[None]).sum(-1).masked_fill(mask, ref.NEG_INF).cpu().numpy()
+    _hold(got, ref.topk_scores_ref(U, V, mask, k), lambda r, item: sc[r, item])
+    assert (got[1][-1] == -1).all()
+    assert got[1][0].tolist() == list(range(k))           # zero user: lowest ids
+
+
+def test_recommend_topk_one_user_equals_the_peruser_kernel(dev):
+    rng = np.random.default_rng(9)
+    U = torch.as_tensor(rng.normal(size=(8, 10)).astype(np.float32), device=dev)
+    V = torch.as_tensor(rng.normal(size=(8, 3197, 10)).astype(np.float32), device=dev)
+    seen = torch.as_tensor(rng.random((8, 3197)) < 0.01, device=dev)
+    for u in range(8):
+        one = ops.recommend_topk(U[u][None], V[u], seen[u][None], 10)
+        per = ops.recommend_topk_peruser(U[u][None], V[u][None], seen[u][None], 10)
+        assert torch.equal(one[0], per[0]) and torch.equal(one[1], per[1])
+
+
+def _grads_inputs(rng, B, K, dev):
+    x = [rng.normal(size=(B, K)).astype(np.float32) for _ in range(3)]
+    x += [rng.random(B).astype(np.float32) for _ in range(2)]
+    return [torch.as_tensor(a, device=dev) for a in x]
+
+
+@pytest.mark.parametrize("B", [64, 256, 300, 1024, 1])
+@pytest.mark.parametrize("K", [5, 10, 15, 128])
+def test_dmf_grads_kernel(dev, B, K):
+    x = _grads_inputs(np.random.default_rng(B * K), B, K, dev)
+    hp = dict(alpha=0.1, beta=0.01, gamma=0.02)
+    before = ops.dmf_grads.launches
+    got = ops.dmf_grads(*x, **hp)
+    torch.cuda.synchronize()
+    assert ops.dmf_grads.launches == before + 1
+    for a, b in zip(got, ref.dmf_grads_ref(*x, *hp.values())):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B", [256, 2048, 1])
+def test_dmf_grads_kernel_is_the_fused_step_kernel(dev, B):
+    x = _grads_inputs(np.random.default_rng(B), B, 10, dev)
+    theta, hp = 0.1, dict(alpha=0.1, beta=0.1, gamma=0.01)
+    gu, gp, gq = ops.dmf_grads(*x, **hp)
+    du, gp3, dq, _ = ops.dmf_fused_step(*x, theta=theta, **hp)
+    assert torch.equal(gp, gp3)
+    for a, b in ((-theta * gu, du), (-theta * gq, dq)):
+        ulp = torch.abs(torch.nextafter(b, torch.full_like(b, float("inf"))) - b)
+        assert ((a - b).abs() <= ulp).all()
+
+
+def _hold_mix(Y, M, X):
+    want = ref.gossip_mix_ref(M.float(), X.float())
+    bound = 1e-5 + 1e-5 * ref.gossip_mix_ref(M.float().abs(), X.float().abs())
+    assert Y.dtype == torch.float32 and Y.shape == want.shape
+    assert ((Y - want).abs() <= bound).all(), float((Y - want).abs().max())
+
+
+@pytest.mark.parametrize("I,F", [(128, 128), (200, 333), (512, 64), (77, 1000), (1, 5), (130, 1)])
+def test_gossip_mix_kernel(dev, I, F):
+    rng = np.random.default_rng(I + F)
+    M = torch.as_tensor(rng.normal(size=(I, I)).astype(np.float32), device=dev)
+    X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+    M[:, I // 2:] = 0.0                                   # a sparse half, like a walk matrix
+    before = ops.gossip_mix_op.launches
+    Y = ops.gossip_mix_op(M, X)
+    torch.cuda.synchronize()
+    assert ops.gossip_mix_op.launches == before + 1
+    _hold_mix(Y, M, X)
+
+
+def test_gossip_mix_kernel_upcasts_bf16(dev):
+    rng = np.random.default_rng(0)
+    M = torch.as_tensor(rng.normal(size=(64, 64)), device=dev).bfloat16()
+    X = torch.as_tensor(rng.normal(size=(64, 32)), device=dev).bfloat16()
+    Y = ops.gossip_mix_op(M, X)
+    torch.cuda.synchronize()
+    _hold_mix(Y, M, X)

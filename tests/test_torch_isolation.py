@@ -131,3 +131,27 @@ def test_tiled_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch
     assert sf.item_rows(users, items, device="cpu").device.type == "cpu"
     assert host.slab.device.type == "cpu" and host.device.type == "cpu"
     assert store_from_numpy(*fields, device="cpu").slab.device.type == "cpu"
+
+
+def test_baseline_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from repro_torch.core import baselines
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mf = baselines.MFConfig(n_users=6, n_items=12, dim=4, batch_size=2)
+    bpr = baselines.BPRConfig(n_users=6, n_items=12, dim=4, batch_size=2)
+    train = np.array([[0, 1], [2, 3], [4, 0], [5, 2]])
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.fit_mf(mf, train, epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.fit_bpr(bpr, train, epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.init_mf(mf)
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.mf_state_from_numpy(np.zeros((6, 4)), np.zeros((12, 4)))
+    # asked for the CPU, each runs there
+    state, losses = baselines.fit_mf(mf, train, epochs=1, device="cpu")
+    assert state.U.device.type == "cpu" and np.isfinite(losses).all()
+    with pytest.raises(RuntimeError, match="cuda"):
+        baselines.evaluate_mf(state, train, train, 6, 12)
+    assert set(baselines.evaluate_mf(state, train, train, 6, 12, device="cpu")) == {
+        "P@5", "R@5", "P@10", "R@10"}
+    assert baselines.fit_bpr(bpr, train, epochs=1, device="cpu")[0].V.device.type == "cpu"

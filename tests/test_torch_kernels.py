@@ -254,8 +254,16 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(ops.serve_topk_window_quant(U, codes, scale, cand, seen, 10),
                     ref.serve_topk_window_quant_ref(U, codes, scale, cand, seen, 10)):
         assert torch.equal(a, b)
+    U, Vs, mask = x[0], x[1][:20].contiguous(), torch.zeros(32, 20, dtype=torch.bool)
+    for a, b in zip(ops.recommend_topk(U, Vs, mask, 10), ref.topk_scores_ref(U, Vs, mask, 10)):
+        assert torch.equal(a, b)
+    for a, b in zip(ops.dmf_grads(*x, *rc, alpha=0.1, beta=0.1, gamma=0.01),
+                    ref.dmf_grads_ref(*x, *rc, 0.1, 0.1, 0.01)):
+        assert torch.equal(a, b)
+    M = torch.eye(32) + x[2][:, :1]
+    assert torch.equal(ops.gossip_mix_op(M, x[0]), ref.gossip_mix_ref(M, x[0]))
     assert [kern.launches for kern in ops.KERNELS] == before == [0] * len(ops.KERNELS)
-    assert len(ops.KERNELS) == 8
+    assert len(ops.KERNELS) == 11
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
