@@ -8,6 +8,7 @@ kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold the fp32 window kernel
+                                          # and the fused steps (kernels 3, 7)
                                           # against the build of the checkout
                                           # unpacked in DIR, bit for bit
 
@@ -32,7 +33,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (kernel 9) at B 64/256/300/1024 × K 5/10/15/128 within 2e-5 abs + rel
    plus the bound on two fp32 orders of the residual's dot; the walk
    mixing (kernel 10) at (128,128), (200,333), (512,64), (77,1000) and
-   with bf16 inputs, within 1e-5 + 1e-5·(|M| @ |X|) elementwise.
+   with bf16 inputs, within 1e-5 + 1e-5·(|M| @ |X|) elementwise; on
+   walk-like sparse M its sparse route equal to its dense route bit for
+   bit (512×1,024, 77×1,000, 130×1, 2,048×300, the last routed sparse by
+   the wrapper itself), and X holding NaN and ±Inf routed dense with the
+   plain product's NaN/Inf pattern. The fused steps also at B 1,000 and
+   5,000 (several blocks, one launch), and at K 8 and 16 (K fixed at run
+   time; rows too wide to stage).
 3. The main paths at the paper's primary configuration, full Table-1
    scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`),
    each with every launch count set to 0 just before it and read just
@@ -53,8 +60,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       3 DP epochs). Trained P@10 must beat untrained P@10. Then, outside
       the counted run, 2 DP epochs on the card are held against the same
       2 epochs on the CPU (losses within 1e-4 relative, factors within
-      1e-5 absolute), and kernel 8 on one batch's raw message against
-      kernel 7's message (within 1e-6).
+      1e-5 absolute), the same 2 epochs of `fit` DP off and on and of
+      `fit_mf` and `fit_bpr` run twice on the card (bitwise-equal factors:
+      the scatters are deterministic), and kernel 8 on one batch's raw
+      message against kernel 7's message (within 1e-6).
    c. tiled: the reference's million configuration
       (`benchmarks/serving_bench.py` `million_section`: 1,000,000 users,
       100,000 POIs, 1,024 cities, K=8, cell cap 128, microbatch 128, k=10,
@@ -76,13 +85,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       reference's per-request loop), held against kernel 2 on the same
       rows (within 1e-6; whether bit for bit is printed). Kernel 9 on a
       training minibatch (B=256, K=10) and at B=2048, K=16: against its
-      plain version, gp against kernel 3's (bit for bit or not, printed),
+      plain version, gp against kernel 3's (bit for bit, asserted),
       −θ·gu and −θ·gq within 1 ulp of kernel 3's du and dq. Kernel 10 on
       the dense walk matrix times every learner's P (6,524 × 6,524 @
       6,524 × 31,970): against the plain product and the neighbor-table
       gather, within 1e-5 + 1e-5·(|M| @ |X|).
 4. Time each kernel, its plain version and one library call on the main
-   paths' own inputs; print the ``{"kernels": [...]}`` line.
+   paths' own inputs (kernel 10's rows also name the route taken, as
+   ``mix_route``, and at the walk shape time the route's count with its
+   host readback and its fill and product alone), and a one-element
+   ``fill_`` as the launch floor; print the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
@@ -106,7 +118,7 @@ SEED = 0
 TOL = 1e-5
 DRAW_TOL = 1e-6               # noise draws and clipped/noised messages
 LOSS_REL_TOL = 1e-4           # card vs CPU epoch losses
-STATE_TOL = 1e-5              # card vs CPU factors (scatter atomics, fp32 order)
+STATE_TOL = 1e-5              # card vs CPU factors (fp32 order of the scatters and sums)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12      # H100 SXM data sheet, fp32 outside the tensor cores
 MICROBATCH, K_TOP = 64, 10
@@ -128,7 +140,8 @@ TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_
 BASELINE_KERNELS = ("recommend_topk", "dmf_grads", "gossip_mix_op")
 GRAD_TOL = 2e-5               # kernel 9 vs plain, abs + rel (plus the dot-order bound)
 N_PER_REQUEST = 256           # DMF users served one request at a time (kernel 4, R=1)
-MIX_TIMED = 3                 # kernel 10 launches per timed run at the Foursquare shape
+MIX_TIMED = 20                # kernel 10 calls per timed run at the Foursquare shape
+MIX_PLAIN_TIMED = 3           # its plain and library products (~50 ms each) per timed run
 # the paper's tuned per-model hyperparameters (benchmarks/paper_tables.py:19-22)
 DMF_MODES = {"GDMF": dict(mode="gdmf", beta=0.1, gamma=0.0),
              "LDMF": dict(mode="ldmf", beta=0.0, gamma=0.01)}
@@ -304,7 +317,13 @@ def check_kernels(dev, J: int) -> dict[str, float]:
     hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
     errs["dmf_fused_step"] = max(
         hold_step(ops.dmf_fused_step(*x, **hp), ref.dmf_fused_step_ref(*x, *hp.values()))
-        for x in (step_inputs(rng, B, 10, dev) for B in (256, 100, 1)))
+        for x in (step_inputs(rng, B, 10, dev) for B in (256, 100, 1, 1000, 5000)))
+    # other widths: K=8 staged through shared memory at run-time K, K=16 read
+    # in place (too wide to stage)
+    krng = np.random.default_rng(SEED + 3)
+    errs["dmf_fused_step"] = max(errs["dmf_fused_step"], *(
+        hold_step(ops.dmf_fused_step(*x, **hp), ref.dmf_fused_step_ref(*x, *hp.values()))
+        for x in (step_inputs(krng, B, K, dev) for K in (8, 16) for B in (256, 1000))))
     sync(dev)
     U, V, cand, seen = slab_inputs(rng, MICROBATCH, 384, J, 10, dev)
     vw, sw = gather_windows(V, seen, cand)
@@ -318,7 +337,8 @@ def check_kernels(dev, J: int) -> dict[str, float]:
     errs["serve_topk_window_quant"] = check_quant(rng, dev, J)
     errs["gauss_counter"] = check_stream(dev)
     errs["dp_clip_noise"] = check_clip_noise(rng, dev)
-    errs["dmf_fused_step_dp"] = check_step_dp(rng, dev, hp)
+    errs["dmf_fused_step_dp"] = max(check_step_dp(rng, dev, hp),
+                                    *(check_step_dp(krng, dev, hp, K) for K in (8, 16)))
     errs["recommend_topk"] = check_topk_shared(dev)
     errs["dmf_grads"] = check_grads(dev)
     errs["gossip_mix_op"] = check_mix(dev)
@@ -431,6 +451,63 @@ def check_mix(dev) -> float:
     M = torch.as_tensor(rng.normal(size=(64, 64)), device=dev).bfloat16()
     X = torch.as_tensor(rng.normal(size=(64, 32)), device=dev).bfloat16()
     err = max(err, hold_mix("gossip_mix_op bf16", ops.gossip_mix_op(M, X), M, X))
+    err = max(err, check_mix_routes(dev))
+    sync(dev)
+    return err
+
+
+def walk_like(rng, I, per_row=10) -> np.ndarray:
+    """A sparse M like the walk matrix: 1 on the diagonal and per_row
+    small positive weights a row, zeros elsewhere."""
+    M = np.zeros((I, I), np.float32)
+    for i in range(I):
+        M[i, rng.choice(I, per_row, replace=False)] = rng.random(per_row) / per_row
+        M[i, i] = 1.0
+    return M
+
+
+def hold_mix_nonfinite(name, Y, M, X) -> float:
+    """Kernel 10 on non-finite X: NaN and ±Inf exactly where the plain
+    product has them, the finite entries within 1e-5 + 1e-5·(|M| @ |X|)
+    (the non-finite X entries counted as 0 in the bound)."""
+    from repro_torch.kernels import ref
+    want = ref.gossip_mix_ref(M, X)
+    assert torch.equal(torch.isnan(Y), torch.isnan(want)), f"{name}: NaN pattern differs"
+    assert torch.equal(torch.isinf(Y) & (Y > 0), torch.isinf(want) & (want > 0)), name
+    assert torch.equal(torch.isinf(Y) & (Y < 0), torch.isinf(want) & (want < 0)), name
+    fin = torch.isfinite(want)
+    bound = ref.gossip_mix_ref(M.abs(), torch.where(torch.isfinite(X), X.abs(), 0.0))
+    diff = (Y - want).abs()[fin]
+    assert bool((diff <= TOL + TOL * bound[fin]).all()), f"{name}: |diff| {float(diff.max())}"
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def check_mix_routes(dev) -> float:
+    """Kernel 10's two routes on walk-like M: for finite X the sparse
+    route equals the dense route bit for bit (sub-wave, ragged and one
+    column shapes; at 2,048 × 300 the wrapper itself picks the sparse
+    route); for X holding NaN and ±Inf the wrapper takes the dense route
+    and gives the plain product's NaN pattern."""
+    from repro_torch.kernels import gossip_mix, ops
+    err = 0.0
+    for I, F in ((512, 1024), (77, 1000), (130, 1), (2048, 300)):
+        rng = np.random.default_rng(I * F)
+        M = torch.as_tensor(walk_like(rng, I, min(10, I)), device=dev)
+        X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+        sparse = gossip_mix.mix_on_route(M, X, "sparse")
+        same_bits(f"gossip_mix_op sparse vs dense route I={I} F={F}", (sparse,),
+                  (gossip_mix.mix_on_route(M, X, "dense"),))
+        err = max(err, hold_mix(f"gossip_mix_op sparse route I={I} F={F}", sparse, M, X))
+        if gossip_mix.counts_needed(I, F):
+            Y = ops.gossip_mix_op(M, X)
+            assert ops.gossip_mix_op.last_route == "sparse", ops.gossip_mix_op.last_route
+            same_bits(f"gossip_mix_op I={I} F={F}", (Y,), (sparse,))
+        X[3, 0] = float("inf")
+        X[I - 1, F - 1] = float("-inf")
+        X[I // 2, F // 2] = float("nan")
+        Y = ops.gossip_mix_op(M, X)
+        assert ops.gossip_mix_op.last_route == "dense", ops.gossip_mix_op.last_route
+        err = max(err, hold_mix_nonfinite(f"gossip_mix_op non-finite X I={I} F={F}", Y, M, X))
     sync(dev)
     return err
 
@@ -508,7 +585,7 @@ def check_clip_noise(rng, dev, K: int = 10) -> float:
 def check_step_dp(rng, dev, hp, K: int = 10) -> float:
     from repro_torch.kernels import ops, ref
     err = 0.0
-    for B in (256, 100, 1):
+    for B in (256, 100, 1, 5000):
         u, p, q, r, conf = step_inputs(rng, B, K, dev)
         u[0] = 0.0                      # with p[0] = 0: a zero-norm message row
         for clip in (float("inf"), 0.5, 1e-3):
@@ -907,8 +984,10 @@ def check_training(tr) -> None:
 
 def hold_card_vs_cpu(ds, nbr, cfg, dev) -> dict:
     """HOLD_EPOCHS DP epochs on the card against the same epochs of the
-    port on the CPU (the plain versions). Factors differ by the order of
-    the scatter's float atomics on the card and fp32 rounding order."""
+    port on the CPU (the plain versions). Factors differ by fp32 rounding
+    order: the scatters sum duplicates in another fixed order on each
+    device, and a kernel may fuse a multiply-add its plain version rounds
+    twice."""
     from repro_torch.core import dmf, graph
     dp_cfg = dataclasses.replace(cfg, **DP)
     card = dmf.fit(dp_cfg, ds.train, nbr, epochs=HOLD_EPOCHS, device=dev)
@@ -922,6 +1001,28 @@ def hold_card_vs_cpu(ds, nbr, cfg, dev) -> dict:
     log(f"  card vs cpu, {HOLD_EPOCHS} DP epochs: {json.dumps(out)}")
     assert out["loss_rel"] <= LOSS_REL_TOL, out
     assert out["state_abs"] <= STATE_TOL, out
+    return out
+
+
+def hold_repeat_runs(ds, nbr, cfg, dev) -> dict:
+    """The port's accumulating scatters are deterministic: HOLD_EPOCHS of
+    `fit` with DP off and on, and of `fit_mf` and `fit_bpr`, run twice from
+    the same seed on the card, give the same losses and bitwise-equal
+    factors."""
+    from repro_torch.core import baselines, dmf
+    out = {}
+    for tag, c in (("dmf_dp_off", cfg), ("dmf_dp_on", dataclasses.replace(cfg, **DP))):
+        a, b = (dmf.fit(c, ds.train, nbr, epochs=HOLD_EPOCHS, device=dev) for _ in range(2))
+        out[tag] = (a.train_losses == b.train_losses
+                    and all(torch.equal(getattr(a.state, n), getattr(b.state, n)) for n in "UPQ"))
+        del a, b
+    common = dict(n_users=ds.n_users, n_items=ds.n_items, dim=cfg.dim)
+    for tag, c, fit in (("mf", baselines.MFConfig(**common), baselines.fit_mf),
+                        ("bpr", baselines.BPRConfig(**common), baselines.fit_bpr)):
+        (sa, la), (sb, lb) = (fit(c, ds.train, epochs=HOLD_EPOCHS, device=dev) for _ in range(2))
+        out[tag] = la == lb and torch.equal(sa.U, sb.U) and torch.equal(sa.V, sb.V)
+    log(f"  determinism, two runs of {HOLD_EPOCHS} epochs bitwise equal: {json.dumps(out)}")
+    assert all(out.values()), out
     return out
 
 
@@ -1145,6 +1246,7 @@ def check_baselines(ds, bl, nbr, run_rps: float, dev) -> tuple[dict, dict]:
             ulp = (torch.nextafter(b, torch.full_like(b, float("inf"))) - b).abs()
             within_ulp.append(bool(((a - b).abs() <= ulp).all()))
         assert all(within_ulp), "dmf_grads: -θ·gu / -θ·gq not within 1 ulp of kernel 3's du / dq"
+        assert torch.equal(got[1], gp3), "dmf_grads: gp is not kernel 3's gp bit for bit"
         grads.append({"shape": f"B={sx[0].shape[0]} K={sx[0].shape[1]}", "max_abs_err": err,
                       "gp_vs_kernel3_bitwise": bool(torch.equal(got[1], gp3)),
                       "gp_vs_kernel3_max_abs": float((got[1] - gp3).abs().max())})
@@ -1419,10 +1521,11 @@ def baseline_specs(bl) -> list[dict]:
     inputs: kernel 4 on the trained MF state at full width (R=6,524) and on
     one DMF request (R=1); kernel 9 on the training minibatch (B=256, K=10)
     and at the micro-bench shape (B=2048, K=16); kernel 10 on the walk
-    matrix times every learner's P (I=6,524, F=31,970; MIX_TIMED calls a
-    timed run, each about a tenth of a second) and at the micro-bench shape
+    matrix times every learner's P (I=6,524, F=31,970; MIX_TIMED kernel
+    calls and MIX_PLAIN_TIMED plain and library products a timed run) and
+    at the micro-bench shape
     (512 × 512 @ 512 × 1024)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import gossip_mix, ops, ref
     mask = bl["train_mask"]
     st, dmf_st = bl["MF"], bl["dmf_state"]
     u0 = int(bl["per_request"][0][0])
@@ -1453,19 +1556,33 @@ def baseline_specs(bl) -> list[dict]:
                     nbytes=sum(x.nbytes for x in sx) + 3 * sx[0].nbytes, flops=B * (12 * K + 2),
                     shape=f"{where}: B={B} K={K}")
 
-    def mix_spec(M, X, where, n):
+    def mix_spec(M, X, where, n, plain_n):
         I, F = X.shape
         nnz = int((M != 0).sum())
         sparse_ms, sparse_by = bound(nnz * 12 + 2 * X.nbytes, 2 * nnz * F)
+        timed_extra = {}
+        if gossip_mix.counts_needed(I, F):
+            # the count with its readback, and the sparse route's CSR fill and
+            # product alone: a call of the wrapper blocks the host on the
+            # readback, so its `ms` holds that host round trip too
+            _, _, row_ptr = gossip_mix._count("gossip_mix_op", M, X)
+            Y = torch.empty_like(X)
+            timed_extra = {
+                "count_ms": lambda: gossip_mix._count("gossip_mix_op", M, X),
+                "fill_product_ms": lambda: gossip_mix._sparse_product(
+                    "gossip_mix_op", M, X, Y, nnz, row_ptr)}
         return dict(name="gossip_mix_op", src="gossip_mix.cu",
                     replaces="src/repro/kernels/gossip_mix.py:22",
                     kern=lambda: ops.gossip_mix_op(M, X),
                     plain=lambda: ref.gossip_mix_ref(M, X), lib=lambda: torch.matmul(M, X),
                     hold=lambda got: hold_mix("gossip_mix_op", got, M, X),
-                    nbytes=M.nbytes + 2 * X.nbytes, flops=2 * I * I * F, n=n, plain_n=n,
+                    # the products this M needs (its nonzeros'); M, X read and Y written once
+                    nbytes=M.nbytes + 2 * X.nbytes, flops=2 * nnz * F, n=n, plain_n=plain_n,
                     shape=f"{where}: I={I} F={F}",
-                    extra={"nnz_M": nnz, "sparse_product_bound_ms": sparse_ms,
-                           "sparse_product_bound_by": sparse_by})
+                    extra={"nnz_M": nnz, "dense_product_bound_ms": bound(0, 2 * I * I * F)[0],
+                           "sparse_product_bound_ms": sparse_ms,
+                           "sparse_product_bound_by": sparse_by},
+                    mix_route=lambda: ops.gossip_mix_op.last_route, timed_extra=timed_extra)
 
     Md, X = bl["mix_in"]
     rng = np.random.default_rng(0)
@@ -1477,8 +1594,8 @@ def baseline_specs(bl) -> list[dict]:
         dict(topk_spec(*one, "one DMF request"), variant="per_request"),
         grads_spec(sx, hp, "training minibatch"),
         dict(grads_spec(bsx, bhp, "micro-bench"), variant="bench_shape"),
-        mix_spec(Md, X, "walk matrix x every learner's P", MIX_TIMED),
-        dict(mix_spec(bm, bx, "micro-bench", 200), variant="bench_shape"),
+        mix_spec(Md, X, "walk matrix x every learner's P", MIX_TIMED, MIX_PLAIN_TIMED),
+        dict(mix_spec(bm, bx, "micro-bench", 200, 30), variant="bench_shape"),
     ]
 
 
@@ -1490,6 +1607,11 @@ def time_spec(spec, errs, launches) -> dict:
     name, lib = spec["name"], spec["lib"]
     n, plain_n = spec.get("n", 200), spec.get("plain_n", 30)
     errs[name] = max(errs.get(name, 0.0), spec["hold"](spec["kern"]()))
+    if "mix_route" in spec:          # the route kernel 10's wrapper took on these inputs
+        spec.setdefault("extra", {})["mix_route"] = spec["mix_route"]()
+        spec["extra"]["ms_holds_host_readback"] = "count_ms" in spec.get("timed_extra", {})
+    for key, fn in spec.get("timed_extra", {}).items():   # a part of the call, timed alone
+        spec.setdefault("extra", {})[key] = device_ms(fn, n)
     bound_ms, bound_by = bound(spec["nbytes"], spec["flops"])
     by_path = {path: counts.get(name, 0) for path, counts in launches.items()}
     return {
@@ -1506,30 +1628,78 @@ def time_spec(spec, errs, launches) -> dict:
     }
 
 
-def hold_parent_build(parent: pathlib.Path, cases) -> int:
+def hold_parent_build(parent: pathlib.Path, cases, step_cases) -> tuple[int, int]:
     """Build the kernel library of the checkout unpacked in ``parent`` and
-    hold its fp32 window kernel against this build's, bit for bit, on each
-    case (U, Vw, cand, seen_w, k). Returns the number of cases held."""
+    hold, bit for bit, its fp32 window kernel against this build's on each
+    case (U, Vw, cand, seen_w, k), and its fused steps (kernels 3 and 7)
+    against this build's on each step case (sx, z or None, hp, clip):
+    du, gp, dq and the loss. Returns the numbers of cases held."""
     import ctypes
 
     from repro_torch.kernels import build, ops
     out_dir = build.BUILD_ROOT / "parent"
     lib = ctypes.CDLL(str(build.build(out_dir, parent / "src/repro_torch/kernels/csrc")))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.serve_topk_window_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    fn.restype = i32
+    stream = torch.cuda.current_stream().cuda_stream
     for n, (U, Vw, cand, seen, k) in enumerate(cases):
         R, K = U.shape
         vals = torch.empty((R, k), dtype=torch.float32, device=U.device)
         idx = torch.empty((R, k), dtype=torch.int32, device=U.device)
         err = fn(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.view(torch.int8).data_ptr(),
-                 vals.data_ptr(), idx.data_ptr(), R, cand.shape[1], K, k,
-                 torch.cuda.current_stream().cuda_stream)
+                 vals.data_ptr(), idx.data_ptr(), R, cand.shape[1], K, k, stream)
         assert err == 0, f"parent build: launch error {err}"
         same_bits(f"serve_topk_window: this build vs the parent's, case {n}",
                   ops.serve_topk_window(U, Vw, cand, seen, k), (vals, idx))
-    sync(U.device)
-    return len(cases)
+    # the fused steps' scratch: the loss partials of the two-launch form
+    # (dmf_step_blocks) or the ticket and partials of the one-launch form
+    # (dmf_step_scratch, zeroed)
+    scratch_fn = lib.dmf_step_scratch if hasattr(lib, "dmf_step_scratch") else lib.dmf_step_blocks
+    scratch_fn.argtypes, scratch_fn.restype = [i32], i32
+    step = lib.dmf_fused_step_launch
+    step.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
+    step.restype = i32
+    step_dp = lib.dmf_fused_step_dp_launch
+    step_dp.argtypes = [ptr] * 11 + [i32] * 2 + [f32] * 5 + [ptr]
+    step_dp.restype = i32
+    for n, (sx, z, hp, clip) in enumerate(step_cases):
+        B, K = sx[0].shape
+        out = [torch.empty_like(sx[0]) for _ in range(3)]
+        loss = torch.empty((), dtype=torch.float32, device=sx[0].device)
+        scratch = torch.zeros(max(scratch_fn(B), 1), dtype=torch.float32, device=sx[0].device)
+        ptrs = [x.data_ptr() for x in sx]
+        tail = [*(o.data_ptr() for o in out), scratch.data_ptr(), loss.data_ptr(), B, K,
+                *hp.values()]
+        if z is None:
+            err = step(*ptrs, *tail, stream)
+            got = ops.dmf_fused_step(*sx, **hp)
+        else:
+            err = step_dp(*ptrs, z.data_ptr(), *tail, clip, stream)
+            got = ops.dmf_fused_step_dp(*sx, z, **hp, clip=clip)
+        assert err == 0, f"parent build: step launch error {err}"
+        same_bits(f"dmf_fused_step{'' if z is None else '_dp'}: this build vs the parent's, "
+                  f"case {n} (B={B})", got, (*out, loss))
+    sync(sx[0].device)
+    return len(cases), len(step_cases)
+
+
+def parent_step_cases(dev, mb) -> list:
+    """Kernels 3 and 7 for the parent hold: seeded batches at B 1, 256,
+    1,000 and 5,000 (one block and several) with K=10, and at K 8 and 16,
+    clip inf/0.5, and the DP training batch of the main path."""
+    rng = np.random.default_rng(SEED + 11)
+    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    cases = []
+    for B, K in ((1, 10), (256, 10), (1000, 10), (5000, 10), (256, 8), (1000, 16)):
+        sx = step_inputs(rng, B, K, dev)
+        z = torch.as_tensor((0.5 * rng.normal(size=(B, K))).astype(np.float32), device=dev)
+        cases += [(sx, None, hp, None), (sx, z, hp, float("inf")), (sx, z, hp, 0.5)]
+    c = mb["cfg"]
+    mhp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
+    cases += [(mb["sx"], None, mhp, None), (mb["sx"], mb["z"], mhp, c.dp_clip)]
+    return cases
 
 
 def parent_cases(dev, J, run, tl) -> list:
@@ -1635,12 +1805,14 @@ def main(argv=None) -> int:
         log("  cli |", line)
     t0 = time.perf_counter()
     tr["card_vs_cpu"] = hold_card_vs_cpu(ds, nbr, cfg, dev)
+    tr["determinism"] = hold_repeat_runs(ds, nbr, cfg, dev)
     mb = mechanism_batch(ds, tr["dp_on"]["fit"].state, tr["dp_on"]["cfg"], dev)
     errs["dp_clip_noise"] = max(errs["dp_clip_noise"], hold_mechanism(mb))
     log(f"phase 3 training holds: {time.perf_counter() - t0} s, kernel 8 vs kernel 7 "
         f"message {errs['dp_clip_noise']}")
     summary = training_summary(tr)
     summary["card_vs_cpu"] = {k: tr["card_vs_cpu"][k] for k in ("loss_rel", "state_abs")}
+    summary["determinism_bitwise"] = tr["determinism"]
     log("training", json.dumps(summary))
 
     tl, launches["tiled"] = counted("tiled", TILED_KERNELS, lambda: drive_tiled(dev))
@@ -1674,11 +1846,16 @@ def main(argv=None) -> int:
                 "bytes", "flops", "timed_calls", *spec.get("extra", {}))}
         else:
             rows[spec["name"]] = row
-    log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s")
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1.0), 200)   # one tiny launch, back to back
+    log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s; "
+        f"launch floor (a one-element fill_) {floor_ms} ms")
     if parent is not None:
         t0 = time.perf_counter()
-        n = hold_parent_build(parent, parent_cases(dev, J, run, tl))
-        log(f"parent build: kernel 1 equal bit for bit on {n} cases ({time.perf_counter() - t0} s)")
+        n, n_steps = hold_parent_build(parent, parent_cases(dev, J, run, tl),
+                                       parent_step_cases(dev, mb))
+        log(f"parent build: kernel 1 equal bit for bit on {n} cases, kernels 3 and 7 on "
+            f"{n_steps} cases ({time.perf_counter() - t0} s)")
     assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,9 @@
 The draws are the reference's, from the same `np.random.Generator` in the
 same order: U then V, then per epoch the MF sample (`dmf.sample_epoch`), or
 BPR's permutation and negatives. Unlike the reference, which donates U/V
-to a jitted step, the port updates them in place with ``index_add_``
-(duplicate rows sum). A whole epoch's batches are uploaded once, the
+to a jitted step, the port updates them in place with
+`scatter.scatter_add_rows_` (duplicate rows sum, in the same order on every
+run). A whole epoch's batches are uploaded once, the
 per-batch losses stay on the device and are read once per epoch, then
 summed in float64 in batch order, as the reference's ``tot += float(l)``
 sums them with one host read per batch.
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.core import metrics as metrics_lib
+from repro_torch.core.scatter import scatter_add_rows_
 from repro_torch.kernels.ref import fp32_matmul
 
 
@@ -79,8 +81,8 @@ def _mf_step(U, V, ui, vj, r, conf, cfg: MFConfig) -> torch.Tensor:
     gu = -err[:, None] * v + cfg.alpha * u
     gv = -err[:, None] * u + cfg.beta * v
     loss = 0.5 * (conf * (r - (u * v).sum(-1)) ** 2).sum()
-    U.index_add_(0, ui, -cfg.lr * gu)
-    V.index_add_(0, vj, -cfg.lr * gv)
+    scatter_add_rows_(U, (ui,), -cfg.lr * gu)
+    scatter_add_rows_(V, (vj,), -cfg.lr * gv)
     return loss
 
 
@@ -148,9 +150,9 @@ def _bpr_step(U, V, ui, vp, vn, cfg: BPRConfig) -> torch.Tensor:
     gu = -sig[:, None] * (xp - xn) + cfg.reg * u
     gp = -sig[:, None] * u + cfg.reg * xp
     gn = sig[:, None] * u + cfg.reg * xn
-    U.index_add_(0, ui, -cfg.lr * gu)
-    V.index_add_(0, vp, -cfg.lr * gp)
-    V.index_add_(0, vn, -cfg.lr * gn)
+    scatter_add_rows_(U, (ui,), -cfg.lr * gu)
+    scatter_add_rows_(V, (vp,), -cfg.lr * gp)
+    scatter_add_rows_(V, (vn,), -cfg.lr * gn)
     return loss
 
 

@@ -21,7 +21,9 @@ with N(0, (σC)²) at the sender (`privacy/mechanism.py`).
 
 Unlike the reference, which donates the U/P/Q buffers to jitted steps and
 scans, the port updates U/P/Q **in place** with
-``index_put_(accumulate=True)``: no (I, J, K) copy per batch or epoch. The
+`scatter.scatter_add_rows_` (duplicates summed in a fixed order on each
+device, so two runs from one seed give the same bits): no (I, J, K) copy
+per batch or epoch. The
 epoch is a Python loop over minibatches on the device that reads the
 per-batch losses to the host once per epoch. The step always runs the
 fused kernel (the reference's ``use_pallas=True`` path).
@@ -40,6 +42,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.core import graph as graph_lib
 from repro_torch.core import metrics as metrics_lib
+from repro_torch.core.scatter import scatter_add_rows_
 from repro_torch.kernels import ops
 from repro_torch.privacy import mechanism
 from repro_torch.privacy.accountant import GaussianAccountant
@@ -140,14 +143,14 @@ def _batch_step(U, P, Q, M, ui, vj, r, conf, cfg: DMFConfig) -> torch.Tensor:
     the equivalence oracle of the sparse path. Returns the batch loss."""
     theta = cfg.lr
     gu, gp, gq, loss = _grads_and_loss(U[ui], P[ui, vj], Q[ui, vj], r, conf, cfg)
-    U.index_put_((ui,), -theta * gu, accumulate=True)
+    scatter_add_rows_(U, (ui,), -theta * gu)
     if cfg.mode != "gdmf":
-        Q.index_put_((ui, vj), -theta * gq, accumulate=True)
+        scatter_add_rows_(Q, (ui, vj), -theta * gq)
     if cfg.mode != "ldmf":
         I, B = M.shape[0], ui.shape[0]
         upd = M[ui].T[:, :, None] * gp[None, :, :]            # (I, B, K)
         rows = torch.arange(I, device=U.device)[:, None].expand(I, B)
-        P.index_put_((rows, vj[None, :].expand(I, B)), -theta * upd, accumulate=True)
+        scatter_add_rows_(P, (rows, vj[None, :].expand(I, B)), -theta * upd)
     return loss
 
 
@@ -224,20 +227,20 @@ def _sparse_batch_update(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
     receivers at item vj[b], weighted by the walk weight (padded slots
     carry weight 0). With DP on, every receiver — the sender's own line-11
     update included — applies only the clipped, noised message. Duplicate
-    (receiver, item) pairs are summed by ``index_put_(accumulate=True)``,
-    in another order than XLA's scatter."""
+    (receiver, item) pairs are summed by `scatter.scatter_add_rows_`: in
+    the same order on every run, in another order than XLA's scatter."""
     if cfg.dp:
         du, gp, dq, loss = _step_deltas_dp(U, P, Q, ui, vj, r, conf, cfg, valid,
                                            noise, rid, dp_seed)
     else:
         du, gp, dq, loss = _step_deltas(U, P, Q, ui, vj, r, conf, cfg, valid)
-    U.index_put_((ui,), du, accumulate=True)
+    scatter_add_rows_(U, (ui,), du)
     if cfg.mode != "gdmf":
-        Q.index_put_((ui, vj), dq, accumulate=True)
+        scatter_add_rows_(Q, (ui, vj), dq)
     if cfg.mode != "ldmf":
         nb = nbr_idx[ui]                                   # (B, S) receivers
         upd = nbr_wgt[ui][:, :, None] * gp[:, None, :]     # (B, S, K)
-        P.index_put_((nb, vj[:, None].expand_as(nb)), -cfg.lr * upd, accumulate=True)
+        scatter_add_rows_(P, (nb, vj[:, None].expand_as(nb)), -cfg.lr * upd)
     return loss
 
 

@@ -122,10 +122,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.topk_shared_launch.restype = i32
     lib.dmf_grads_launch.argtypes = [ptr] * 8 + [i32] * 2 + [f32] * 3 + [ptr]
     lib.dmf_grads_launch.restype = i32
-    lib.gossip_mix_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
-    lib.gossip_mix_launch.restype = i32
-    lib.dmf_step_blocks.argtypes = [i32]
-    lib.dmf_step_blocks.restype = i32
+    lib.gossip_mix_count_launch.argtypes = [ptr] * 2 + [i32] * 2 + [ptr] * 4
+    lib.gossip_mix_count_launch.restype = i32
+    lib.gossip_mix_sparse_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr] * 4
+    lib.gossip_mix_sparse_launch.restype = i32
+    lib.gossip_mix_dense_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    lib.gossip_mix_dense_launch.restype = i32
+    lib.dmf_step_scratch.argtypes = [i32]
+    lib.dmf_step_scratch.restype = i32
     lib.repro_cuda_error_string.argtypes = [i32]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -10,9 +10,12 @@ the gradients alone, `_dmf_grads_kernel` / `dmf_grads_kernel_call`
 (`dmf_update.py:22-58`) behind `ops.dmf_grads` (`ops.py:30-49`).
 
 The TPU wrapper padded B to 256 and K to 128 lanes; the CUDA kernels
-(``csrc/dmf_update.cu``) take (B, K) as it is. The step's loss is a
-per-block partial sum reduced in a fixed order by a second kernel, in the
-scratch this wrapper allocates.
+(``csrc/dmf_update.cu``) take (B, K) as it is. The step is one launch:
+a batch of at most 256 rows is one block, which sums the loss itself; a
+larger batch's blocks leave their loss partials and an integer ticket in
+a scratch buffer kept per device and stream (zeroed when it is made or
+grown, reset by the kernel after each launch), and the last block sums
+them in a fixed order.
 """
 from __future__ import annotations
 
@@ -32,17 +35,33 @@ def _check_step(name, u, p, q, r, conf, z=None):
         build.require_dtype(name, arg, t, torch.float32)
 
 
+# (device index, stream handle) -> the step's scratch: the ticket, which
+# each multi-block launch leaves at 0, then the loss partials
+_SCRATCH: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _step_scratch(device: torch.device, B: int) -> torch.Tensor | None:
+    """The step's scratch for a launch over B rows on the current stream
+    of ``device``, or None when B rows are one block."""
+    need = build.load().dmf_step_scratch(B)
+    if need == 0:
+        return None
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _SCRATCH[key] = torch.zeros(need, dtype=torch.float32, device=device)
+    return buf
+
+
 def _step_outputs(u):
-    """(du, gp, dq, loss, partial) buffers for one launch on u's device."""
+    """(du, gp, dq, loss, scratch pointer) for one launch on u's device."""
     B = u.shape[0]
     du, gp, dq = (torch.empty_like(u) for _ in range(3))
     if B == 0:   # nothing to launch: the loss of an empty batch is 0
-        empty = torch.zeros(0, dtype=torch.float32, device=u.device)
-        return du, gp, dq, torch.zeros((), dtype=torch.float32, device=u.device), empty
+        return du, gp, dq, torch.zeros((), dtype=torch.float32, device=u.device), None
     loss = torch.empty((), dtype=torch.float32, device=u.device)
-    partial = torch.empty(build.load().dmf_step_blocks(B), dtype=torch.float32,
-                          device=u.device)
-    return du, gp, dq, loss, partial
+    scratch = _step_scratch(u.device, B)
+    return du, gp, dq, loss, None if scratch is None else scratch.data_ptr()
 
 
 def dmf_grads(u, p, q, r, conf, *, alpha: float, beta: float, gamma: float):
@@ -81,11 +100,11 @@ def dmf_fused_step(u, p, q, r, conf, *, theta: float, alpha: float,
         return ref.dmf_fused_step_ref(u, p, q, r, conf, theta, alpha, beta, gamma)
     build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf)
     B, K = u.shape
-    du, gp, dq, loss, partial = _step_outputs(u)
+    du, gp, dq, loss, scratch = _step_outputs(u)
     if B:
         build.launch(name, u.device, "dmf_fused_step_launch",
                      u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
-                     du.data_ptr(), gp.data_ptr(), dq.data_ptr(), partial.data_ptr(),
+                     du.data_ptr(), gp.data_ptr(), dq.data_ptr(), scratch,
                      loss.data_ptr(), B, K, theta, alpha, beta, gamma)
         dmf_fused_step.launches += 1
     return du, gp, dq, loss
@@ -105,12 +124,12 @@ def dmf_fused_step_dp(u, p, q, r, conf, z, *, theta: float, alpha: float,
         return ref.dmf_fused_step_dp_ref(u, p, q, r, conf, z, theta, alpha, beta, gamma, clip)
     build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf, z=z)
     B, K = u.shape
-    du, gp, dq, loss, partial = _step_outputs(u)
+    du, gp, dq, loss, scratch = _step_outputs(u)
     if B:
         build.launch(name, u.device, "dmf_fused_step_dp_launch",
                      u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
                      z.data_ptr(), du.data_ptr(), gp.data_ptr(), dq.data_ptr(),
-                     partial.data_ptr(), loss.data_ptr(), B, K, theta, alpha, beta, gamma, clip)
+                     scratch, loss.data_ptr(), B, K, theta, alpha, beta, gamma, clip)
         dmf_fused_step_dp.launches += 1
     return du, gp, dq, loss
 

@@ -22,7 +22,11 @@ per-user kernel bit for bit; the gradients kernel (`dmf_grads`, kernel 9)
 is within 2e-5 abs + rel of its plain version, its gp equals the fused
 step's bit for bit, and −θ·gu, −θ·gq are the step's deltas within one
 ulp; the walk-mixing product (`gossip_mix_op`, kernel 10) is within
-1e-5 + 1e-5·(|M| @ |X|) of the fp32 product, bf16 inputs upcast.
+1e-5 + 1e-5·(|M| @ |X|) of the fp32 product, bf16 inputs upcast; its
+sparse and dense routes give the same bits for finite X, and non-finite X
+gives the plain product's NaN pattern. The fused steps (kernels 3, 7) give
+the same bits twice in a row at every batch size, one block or several,
+and the port's accumulating scatters give the same bits on two runs.
 """
 import numpy as np
 import pytest
@@ -371,3 +375,120 @@ def test_gossip_mix_kernel_upcasts_bf16(dev):
     Y = ops.gossip_mix_op(M, X)
     torch.cuda.synchronize()
     _hold_mix(Y, M, X)
+
+
+def _walk_like(rng, I, per_row=10):
+    """A row-stochastic-looking sparse M: 1 on the diagonal and ~per_row
+    positive weights a row, zeros elsewhere (like the walk matrix)."""
+    M = np.zeros((I, I), np.float32)
+    for i in range(I):
+        cols = rng.choice(I, per_row, replace=False)
+        M[i, cols] = rng.random(per_row).astype(np.float32) / per_row
+        M[i, i] = 1.0
+    return M
+
+
+@pytest.mark.parametrize("I,F", [(512, 1024), (77, 1000), (130, 1), (300, 333)])
+def test_gossip_mix_sparse_route_equals_dense_route(dev, I, F):
+    from repro_torch.kernels import gossip_mix
+    rng = np.random.default_rng(I * F)
+    M = torch.as_tensor(_walk_like(rng, I, min(10, I)), device=dev)
+    X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+    sparse = gossip_mix.mix_on_route(M, X, "sparse")
+    dense = gossip_mix.mix_on_route(M, X, "dense")
+    torch.cuda.synchronize()
+    assert torch.equal(sparse, dense)
+    _hold_mix(sparse, M, X)
+
+
+def test_gossip_mix_routes_by_density_and_finiteness(dev):
+    from repro_torch.kernels import gossip_mix
+    rng = np.random.default_rng(5)
+    I, F = 2048, 300                      # above the count's size floor
+    assert gossip_mix.counts_needed(I, F)
+    M = torch.as_tensor(_walk_like(rng, I), device=dev)
+    X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+    Y = ops.gossip_mix_op(M, X)
+    assert ops.gossip_mix_op.last_route == "sparse"
+    _hold_mix(Y, M, X)
+    Md = torch.as_tensor(rng.normal(size=(I, I)).astype(np.float32), device=dev)
+    _hold_mix(ops.gossip_mix_op(Md, X), Md, X)
+    assert ops.gossip_mix_op.last_route == "dense"
+
+
+@pytest.mark.parametrize("I,F", [(2048, 300), (512, 1024), (77, 1000)])
+def test_gossip_mix_nonfinite_x_gives_the_plain_nan_pattern(dev, I, F):
+    from repro_torch.kernels import gossip_mix
+    rng = np.random.default_rng(I + 7)
+    M = torch.as_tensor(_walk_like(rng, I, min(10, I)), device=dev)
+    X = torch.as_tensor(rng.normal(size=(I, F)).astype(np.float32), device=dev)
+    X[3, 5] = float("inf")
+    X[I - 1, F - 1] = float("-inf")
+    X[I // 2, 0] = float("nan")
+    Y = ops.gossip_mix_op(M, X)
+    torch.cuda.synchronize()
+    assert ops.gossip_mix_op.last_route == "dense"
+    want = ref.gossip_mix_ref(M, X)
+    assert torch.equal(torch.isnan(Y), torch.isnan(want))
+    assert torch.equal(torch.isinf(Y), torch.isinf(want))
+    fin = torch.isfinite(want)
+    bound = 1e-5 + 1e-5 * ref.gossip_mix_ref(M.abs(), torch.where(torch.isfinite(X), X.abs(), 0))
+    assert ((Y - want).abs()[fin] <= bound[fin]).all()
+    if gossip_mix.counts_needed(I, F):   # the count saw the non-finite X
+        assert gossip_mix._count("t", M, X)[1] is False
+
+
+@pytest.mark.parametrize("B", [1, 256, 1000, 5000])
+@pytest.mark.parametrize("dp", [False, True])
+@pytest.mark.parametrize("K", [10, 8, 16])   # 10 fixed at build time; 16 too wide to stage
+def test_dmf_fused_steps_one_launch_same_bits_twice(dev, B, dp, K):
+    rng = np.random.default_rng(B + dp)
+    x = [rng.normal(0, 0.5, (B, K)).astype(np.float32) for _ in range(3)]
+    r = (rng.random(B) < 0.25).astype(np.float32)
+    x += [r, np.where(r > 0, 1.0, 1 / 3).astype(np.float32)]
+    x = [torch.as_tensor(a, device=dev) for a in x]
+    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    if dp:
+        z = torch.as_tensor((0.5 * rng.normal(size=(B, K))).astype(np.float32), device=dev)
+        kern, plain = ops.dmf_fused_step_dp, ref.dmf_fused_step_dp_ref
+        args, kw, pargs = (*x, z), dict(hp, clip=0.5), (*x, z, *hp.values(), 0.5)
+    else:
+        kern, plain = ops.dmf_fused_step, ref.dmf_fused_step_ref
+        args, kw, pargs = x, hp, (*x, *hp.values())
+    before = kern.launches
+    first = kern(*args, **kw)
+    second = kern(*args, **kw)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = plain(*pargs)
+    for a, b in zip(first[:3], want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=TOL)
+    torch.testing.assert_close(first[3], want[3], rtol=TOL, atol=0)
+
+
+def test_scatters_give_the_same_bits_on_two_runs(dev):
+    from repro_torch.core import baselines, dmf, graph
+    rng = np.random.default_rng(0)
+    I, J, K, B, S = 60, 40, 10, 256, 7
+    idx = np.concatenate([np.arange(I)[:, None], rng.integers(0, I, (I, S - 1))], 1)
+    nbr = graph.NeighborTable(torch.as_tensor(idx, device=dev),
+                              torch.as_tensor(rng.random((I, S)).astype(np.float32), device=dev))
+    cfg = dmf.DMFConfig(n_users=I, n_items=J, dim=K)
+    ui = torch.as_tensor(rng.integers(0, 8, B), device=dev)       # many duplicate pairs
+    vj = torch.as_tensor(rng.integers(0, 4, B), device=dev)
+    r = torch.as_tensor((rng.random(B) < 0.3).astype(np.float32), device=dev)
+    conf = torch.ones(B, device=dev)
+    runs = []
+    for _ in range(2):
+        st = dmf.init_state(cfg, np.random.default_rng(1), device=dev)
+        st.P.normal_(generator=torch.Generator(dev).manual_seed(2))
+        dmf._sparse_batch_update(st.U, st.P, st.Q, nbr.idx, nbr.wgt, ui, vj, r, conf, cfg)
+        runs.append(st)
+    for n in "UPQ":
+        assert torch.equal(getattr(runs[0], n), getattr(runs[1], n))
+    train = np.stack([rng.integers(0, I, 500), rng.integers(0, J, 500)], 1)
+    mcfg = baselines.MFConfig(n_users=I, n_items=J, batch_size=64)
+    a, b = (baselines.fit_mf(mcfg, train, epochs=2, device=dev)[0] for _ in range(2))
+    assert torch.equal(a.U, b.U) and torch.equal(a.V, b.V)
