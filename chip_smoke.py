@@ -7,10 +7,12 @@ tiled serving at the reference's million configuration, and times each
 kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
-    python3 chip_smoke.py --parent DIR    # also hold the fp32 window kernel
-                                          # and the fused steps (kernels 3, 7)
+    python3 chip_smoke.py --parent DIR    # also hold kernels 1 and 4, the
+                                          # fused steps (kernels 3, 7) and, at
+                                          # the main shapes, kernels 2, 5, 6
                                           # against the build of the checkout
-                                          # unpacked in DIR, bit for bit
+                                          # unpacked in DIR, bit for bit, and
+                                          # time both builds' top-k kernels
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -94,7 +96,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
    host readback and its fill and product alone), and a one-element
-   ``fill_`` as the launch floor; print the ``{"kernels": [...]}`` line.
+   ``fill_`` as the launch floor. Then the ``forms`` line: kernels 1 and 4
+   at their four main shapes (serving R=64 Cw=384, tiled R=128 Cw=128, MF
+   R=6,524, one DMF request R=1) in the wrapper's layout, in other layouts
+   (each held against the wrapper's slate bit for bit first) and scoring
+   without the merge, timed in turns, every form down the list and back up.
+   With ``--parent DIR``, build the checkout in DIR (the commit before the
+   warp-level merge) and hold against it, bit for bit: kernel 1 on phase
+   2's windows at k 1/10/16, one request of 33 slots with 5 live at k=10
+   and seven at k=16, and a serving and a tiled microbatch; kernel 4 at
+   phase 2's shapes, its all-zero users, the MF and BPR states at R=6,524
+   and 16 per-request rows at R=1; kernels 3 and 7 on 20 batches; and
+   kernels 1, 4, 2, 5 and 6 (int8) at the main shapes, which are also
+   timed against the parent's in turns (parent, this, this, parent) on the
+   ``parent build`` line. Last, print the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
@@ -103,6 +118,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import pathlib
@@ -355,26 +371,37 @@ def hold_shared(name, got, U, V, mask, k) -> float:
     return hold_topk(name, got, plain, lambda r, item: float(scores[r, item]))
 
 
+SHARED_SHAPES = ((128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16), (256, 256, 5, 1))
+
+
+def shared_inputs(seed, R, J, K, dev):
+    """Kernel 4's seeded (U, V, mask) at `tests/test_kernels.py`'s draws."""
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.normal(size=(R, K)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.normal(size=(J, K)).astype(np.float32), device=dev),
+            torch.as_tensor(rng.random((R, J)) < 0.1, device=dev))
+
+
+def zero_user_inputs(dev):
+    """The tie-heavy case: 64 all-zero users over J=3,197 (one all masked),
+    whose slates are the lowest unmasked ids."""
+    U, V, mask = shared_inputs(3, 64, 3197, 10, dev)
+    U.zero_()
+    mask[1] = True
+    return U, V, mask
+
+
 def check_topk_shared(dev) -> float:
     """Kernel 4 at `tests/test_kernels.py`'s shapes, and a tie-heavy case:
     all-zero users score every item 0, so each slate is the lowest
     unmasked ids."""
     from repro_torch.kernels import ops
-
-    def inputs(seed, R, J, K):
-        rng = np.random.default_rng(seed)
-        return (torch.as_tensor(rng.normal(size=(R, K)).astype(np.float32), device=dev),
-                torch.as_tensor(rng.normal(size=(J, K)).astype(np.float32), device=dev),
-                torch.as_tensor(rng.random((R, J)) < 0.1, device=dev))
-
     err = 0.0
-    for R, J, K, k in ((128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16), (256, 256, 5, 1)):
-        U, V, mask = inputs(R + J + k, R, J, K)
+    for R, J, K, k in SHARED_SHAPES:
+        U, V, mask = shared_inputs(R + J + k, R, J, K, dev)
         err = max(err, hold_shared(f"recommend_topk R={R} J={J} k={k}",
                                    ops.recommend_topk(U, V, mask, k), U, V, mask, k))
-    U, V, mask = inputs(3, 64, 3197, 10)
-    U.zero_()
-    mask[1] = True
+    U, V, mask = zero_user_inputs(dev)
     got = ops.recommend_topk(U, V, mask, 16)
     err = max(err, hold_shared("recommend_topk all-zero users", got, U, V, mask, 16))
     for r, m in enumerate(mask.cpu().numpy()):
@@ -1318,19 +1345,47 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def serving_specs(run) -> list[dict]:
+def main_shapes(run, tl, bl, tr) -> dict:
+    """The main paths' inputs of the top-k kernels at their timed shapes:
+    kernel 1 on one serving microbatch of pruned requests (R=64, Cw=384,
+    K=10) and one tiled microbatch (the million shape, R=128, Cw=128, K=8);
+    kernel 4 on the trained MF state (R=6,524) and on one DMF request (R=1);
+    kernel 2 on the serving microbatch's whole rows and at the evaluate shape
+    (every user of the DP-trained state); kernel 5 on the serving
+    microbatch's slabs; kernel 6 (int8) on the tiled microbatch."""
+    eng = run["engine"]
+    dev = eng.device
+    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
+    rows = uids[:, None]
+    cand = eng._bucket_items[eng._user_bucket[uids]]
+    safe = cand.clamp_min(0).long()
+    st = tl["store"]
+    ids = torch.as_tensor(tl["int8"][0][:M_MICROBATCH], device=st.device)
+    mcand = torch.as_tensor(st.index.bucket_items, device=st.device)[
+        torch.as_tensor(st.index.user_bucket, device=st.device).long()[ids]]
+    mask, mf, dmf_st = bl["train_mask"], bl["MF"], bl["dmf_state"]
+    u0 = int(bl["per_request"][0][0])
+    dp = tr["dp_on"]["fit"].state
+    u = eng.state.U[uids]
+    return {"serving": (u, eng.V[rows, safe], cand, eng.seen[rows, safe]),
+            "tiled": (st.U[ids], st.slab[ids], mcand, st.seen[ids]),
+            "MF": (mf.U, mf.V, mask),
+            "per_request": (dmf_st.U[u0][None], (dmf_st.P[u0] + dmf_st.Q[u0]).contiguous(),
+                            mask[u0][None]),
+            "dense": (u, eng.V[uids], eng.seen[uids]),
+            "evaluate": (dp.U, dp.P + dp.Q, mask),
+            "slab": (u, eng.V[uids], cand, eng.seen[uids]),
+            "int8": (st.U[ids], st.q_codes[ids], st.q_scale[ids], mcand, st.seen[ids])}
+
+
+def serving_specs(run, shapes) -> list[dict]:
     """Phase 4 rows of kernels 1-3 on one microbatch of the serving path's
     own inputs."""
     from repro_torch.core import dmf
     from repro_torch.kernels import ops, ref
     eng = run["engine"]
     st, dev = eng.state, eng.device
-    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
-    rows = uids[:, None]
-    cand = eng._bucket_items[eng._user_bucket[uids]]
-    safe = cand.clamp_min(0).long()
-    u, vw, seen_w = st.U[uids], eng.V[rows, safe], eng.seen[rows, safe]
-    v_rows, mask = eng.V[uids], eng.seen[uids]
+    u = shapes["dense"][0]
     # one refresh batch of the main path: test check-ins + their negatives
     ui, vj, r, conf = dmf.sample_with_negatives(
         run["test_events"], eng.index.n_items, 3, np.random.default_rng(SEED + 1))
@@ -1341,8 +1396,8 @@ def serving_specs(run) -> list[dict]:
     hp = dict(theta=cfg.lr, alpha=cfg.alpha, beta=cfg.beta, gamma=cfg.gamma)
     K = u.shape[1]
     return [
-        window_spec(u, vw, cand, seen_w, "serving microbatch"),
-        dense_spec(u, v_rows, mask, "serving microbatch"),
+        window_spec(*shapes["serving"], "serving microbatch"),
+        dense_spec(*shapes["dense"], "serving microbatch"),
         dict(name="dmf_fused_step", src="dmf_update.cu",
              replaces="src/repro/kernels/dmf_update.py:61",
              kern=lambda: ops.dmf_fused_step(*sx, **hp),
@@ -1394,18 +1449,14 @@ def dense_spec(u, v_rows, mask, where: str) -> dict:
                 shape=f"{where}: R={R} J={v_rows.shape[1]} K={K} k={K_TOP}")
 
 
-def tiled_specs(run, tl) -> list[dict]:
+def tiled_specs(tl, shapes) -> list[dict]:
     """Phase 4 rows of kernel 5 on one microbatch of the serving path's
     pruned requests (their whole (64, 3,197, 10) item rows) and of kernel 6
     in both forms on one microbatch of the tiled path's requests (the
     million shape, R=128, Cw=128, K=8)."""
     from repro_torch.kernels import ops, ref
-    eng = run["engine"]
-    dev = eng.device
-    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
-    u, v_rows, seen = eng.state.U[uids], eng.V[uids], eng.seen[uids]
-    cand = eng._bucket_items[eng._user_bucket[uids]]
-    rows = torch.arange(MICROBATCH, device=dev)[:, None]
+    u, v_rows, cand, seen = shapes["slab"]
+    rows = torch.arange(MICROBATCH, device=u.device)[:, None]
     safe = cand.clamp_min(0).long()
     R, J, K = v_rows.shape
 
@@ -1428,12 +1479,9 @@ def tiled_specs(run, tl) -> list[dict]:
 
     st = tl["store"]
     ids = torch.as_tensor(tl["int8"][0][:M_MICROBATCH], device=st.device)
-    mcand = torch.as_tensor(st.index.bucket_items, device=st.device)[
-        torch.as_tensor(st.index.user_bucket, device=st.device).long()[ids]]
-    mu, msw = st.U[ids], st.seen[ids]
+    mu, _, mcand, msw = shapes["tiled"]
     mlive = int(((mcand >= 0) & (msw == 0)).sum())
-    specs.append(dict(window_spec(mu, st.slab[ids], mcand, msw, "tiled fp32"),
-                      variant="tiled_shape"))
+    specs.append(dict(window_spec(*shapes["tiled"], "tiled fp32"), variant="tiled_shape"))
     for form, Vq, scale in (("int8", st.q_codes[ids], st.q_scale[ids]),
                             ("bf16", st.slab_bf16[ids], torch.ones(M_MICROBATCH, device=st.device))):
         def dequant_einsum_topk(Vq=Vq, scale=scale):
@@ -1457,12 +1505,11 @@ def tiled_specs(run, tl) -> list[dict]:
     return specs
 
 
-def training_specs(tr, mb, ds, dev) -> list[dict]:
+def training_specs(tr, mb, shapes) -> list[dict]:
     """Phase 4 rows of kernels 7 and 8, the noise stream and kernel 2 at
     the evaluate shape, on the training path's own inputs: one DP batch of
     epoch 0's stream gathered from the DP-trained state, its raw message,
     the epoch's (nb·B, K) noise block and all users of that state."""
-    from repro_torch.core import metrics
     from repro_torch.kernels import dp_noise, ops, ref
     c, sx, z, seed = mb["cfg"], mb["sx"], mb["z"], mb["seed"]
     hp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
@@ -1472,10 +1519,6 @@ def training_specs(tr, mb, ds, dev) -> list[dict]:
     raw = ops.dmf_fused_step(*sx, **hp)[1]
     block_rid = mb["rid"]
     N = block_rid.shape[0]
-    st = tr["dp_on"]["fit"].state
-    V = st.P + st.Q
-    mask = torch.as_tensor(metrics.masks_from_interactions(ds.n_users, ds.n_items, ds.train),
-                           device=dev)
 
     def hold_draws(got):
         err = float((got - dp_noise.gauss_counter_ref(seed, block_rid, K)).abs().max())
@@ -1512,11 +1555,11 @@ def training_specs(tr, mb, ds, dev) -> list[dict]:
              lib=None, hold=hold_draws,
              nbytes=block_rid.nbytes + N * K * 4, flops=N * K * draw_ops,
              shape=f"N={N} n_cols={K}"),
-        dict(dense_spec(st.U, V, mask, "evaluate"), variant="evaluate_shape"),
+        dict(dense_spec(*shapes["evaluate"], "evaluate"), variant="evaluate_shape"),
     ]
 
 
-def baseline_specs(bl) -> list[dict]:
+def baseline_specs(bl, shapes) -> list[dict]:
     """Phase 4 rows of kernels 4, 9 and 10 on the baselines path's own
     inputs: kernel 4 on the trained MF state at full width (R=6,524) and on
     one DMF request (R=1); kernel 9 on the training minibatch (B=256, K=10)
@@ -1526,10 +1569,6 @@ def baseline_specs(bl) -> list[dict]:
     at the micro-bench shape
     (512 × 512 @ 512 × 1024)."""
     from repro_torch.kernels import gossip_mix, ops, ref
-    mask = bl["train_mask"]
-    st, dmf_st = bl["MF"], bl["dmf_state"]
-    u0 = int(bl["per_request"][0][0])
-    one = (dmf_st.U[u0][None], (dmf_st.P[u0] + dmf_st.Q[u0]).contiguous(), mask[u0][None])
 
     def topk_spec(U, V, m, where):
         R, K = U.shape
@@ -1590,8 +1629,8 @@ def baseline_specs(bl) -> list[dict]:
     bx = torch.as_tensor(rng.normal(size=(512, 1024)).astype(np.float32), device=Md.device)
     (sx, hp, _), (bsx, bhp, _) = bl["grads"]
     return [
-        topk_spec(st.U, st.V, mask, "MF, all users"),
-        dict(topk_spec(*one, "one DMF request"), variant="per_request"),
+        topk_spec(*shapes["MF"], "MF, all users"),
+        dict(topk_spec(*shapes["per_request"], "one DMF request"), variant="per_request"),
         grads_spec(sx, hp, "training minibatch"),
         dict(grads_spec(bsx, bhp, "micro-bench"), variant="bench_shape"),
         mix_spec(Md, X, "walk matrix x every learner's P", MIX_TIMED, MIX_PLAIN_TIMED),
@@ -1628,31 +1667,157 @@ def time_spec(spec, errs, launches) -> dict:
     }
 
 
-def hold_parent_build(parent: pathlib.Path, cases, step_cases) -> tuple[int, int]:
-    """Build the kernel library of the checkout unpacked in ``parent`` and
-    hold, bit for bit, its fp32 window kernel against this build's on each
-    case (U, Vw, cand, seen_w, k), and its fused steps (kernels 3 and 7)
-    against this build's on each step case (sx, z or None, hp, clip):
-    du, gp, dq and the loss. Returns the numbers of cases held."""
+def brief(layout: dict) -> str:
+    keys = ("many", "threads", "blocks", "warps", "rpb", "slots", "tile")
+    return " ".join(f"{k}={layout[k]}" for k in keys if k in layout)
+
+
+def kernel_forms(shapes) -> dict[str, list]:
+    """[(form, call)] at each of the four main shapes of kernels 1 and 4:
+    the wrapper's layout first, then other layouts, then the wrapper's
+    layout scoring without merging (its outputs are list checksums, not a
+    slate). Every other form gives the wrapper's slate bit for bit."""
+    from repro_torch.kernels import serve_topk, topk_scores
+    out = {}
+    for key in ("MF", "per_request"):
+        U, V, m = shapes[key]
+        R, K = U.shape
+        J = V.shape[0]
+        own = topk_scores.shared_layout(R, J, K, K_TOP, topk_scores._n_sms(U.device.index))
+        layouts = [("wrapper", own)]
+        if own["many"]:
+            layouts.append(("few users, a block each",
+                            topk_scores.shared_layout(R, J, K, K_TOP, n_sms=10**9)))
+        else:
+            for warps in (4, 8, 16):
+                layouts.append((f"few users, {warps} warps", dict(
+                    own, threads=32 * warps,
+                    slots=topk_scores.few_slots(J, warps, own["tile"], K_TOP))))
+            layouts.append(("many users", topk_scores.shared_layout(R, J, K, K_TOP, n_sms=1)))
+        out[key] = [(f"{name} ({brief(lay)})", functools.partial(
+            topk_scores.shared_on_layout, U, V, m, K_TOP, lay)) for name, lay in layouts]
+        out[key].append(("wrapper, score only", functools.partial(
+            topk_scores.shared_on_layout, U, V, m, K_TOP, own, merge=False)))
+    for key, extra in (("serving", ((1, 1), (1, 4), (6, 1), (12, 1))),
+                       ("tiled", ((1, 1), (1, 8), (2, 1), (4, 1)))):
+        u, vw, cand, seen_w = shapes[key]
+        R, Cw = cand.shape
+        own = serve_topk.window_layout(R, Cw, K_TOP)
+        layouts = [("wrapper", own)] + [
+            (f"{w} warps x {rpb} requests a block",
+             dict(warps=w, rpb=rpb, slots=serve_topk.slots_for(K_TOP, -(-Cw // (32 * w)))))
+            for w, rpb in extra]
+        out[key] = [(f"{name} ({brief(lay)})", functools.partial(
+            serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, lay)) for name, lay in layouts]
+        out[key].append(("wrapper, score only", functools.partial(
+            serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, own, merge=False)))
+    return out
+
+
+def time_forms(shapes, n: int = 200) -> dict:
+    """Each form of `kernel_forms`, held against the wrapper's form, then
+    timed in turns in one call: every form once down the list and once back
+    up (device ms a call, ``n`` calls a timed run)."""
+    result = {}
+    for key, forms in kernel_forms(shapes).items():
+        want = forms[0][1]()
+        for name, call in forms[1:]:
+            if "score only" not in name:
+                same_bits(f"{key} form {name} vs the wrapper's", call(), want)
+        times = {name: [] for name, _ in forms}
+        for name, call in forms + forms[::-1]:
+            times[name].append(device_ms(call, n))
+        result[key] = times
+    return result
+
+
+def hold_parent_build(parent: pathlib.Path, cases, shared_cases, step_cases, shapes) -> dict:
+    """Build the kernel library of the checkout unpacked in ``parent`` (the
+    commit before the warp-level merge: C launches without layout
+    arguments) and hold, bit for bit, its fp32 window kernel (kernel 1)
+    against this build's on each case (U, Vw, cand, seen_w, k), its
+    shared-V top-k (kernel 4) on each shared case (U, V, mask, k), and its
+    fused steps (kernels 3 and 7) on each step case (sx, z or None, hp,
+    clip): du, gp, dq and the loss. Then, at the main ``shapes``, hold the
+    parent's kernels 1, 4, 2, 5 and 6 (int8) against this build's bit for
+    bit and time them beside this build's, in turns (parent, this, this,
+    parent). Returns the numbers of cases held and the times."""
     import ctypes
 
     from repro_torch.kernels import build, ops
     out_dir = build.BUILD_ROOT / "parent"
     lib = ctypes.CDLL(str(build.build(out_dir, parent / "src/repro_torch/kernels/csrc")))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.serve_topk_window_launch
-    fn.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    fn.restype = i32
+    window = lib.serve_topk_window_launch
+    window.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+    window.restype = i32
+    shared = lib.topk_shared_launch
+    shared.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    shared.restype = i32
+    peruser = lib.topk_peruser_launch
+    peruser.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+    peruser.restype = i32
+    slab = lib.serve_topk_launch
+    slab.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+    slab.restype = i32
+    quant = lib.serve_topk_window_quant_launch
+    quant.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    quant.restype = i32
     stream = torch.cuda.current_stream().cuda_stream
+
+    def outputs(R, k, dev):
+        return (torch.empty((R, k), dtype=torch.float32, device=dev),
+                torch.empty((R, k), dtype=torch.int32, device=dev))
+
+    def parent_window(U, Vw, cand, seen, k):
+        vals, idx = outputs(U.shape[0], k, U.device)
+        err = window(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(),
+                     seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     U.shape[0], cand.shape[1], U.shape[1], k, stream)
+        assert err == 0, f"parent build: kernel 1 launch error {err}"
+        return vals, idx
+
+    def parent_shared(U, V, mask, k):
+        vals, idx = outputs(U.shape[0], k, U.device)
+        err = shared(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
+                     vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[0], U.shape[1], k,
+                     stream)
+        assert err == 0, f"parent build: kernel 4 launch error {err}"
+        return vals, idx
+
+    def parent_peruser(U, V, mask, k):
+        vals, idx = outputs(U.shape[0], k, U.device)
+        err = peruser(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
+                      vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[1], U.shape[1], k,
+                      stream)
+        assert err == 0, f"parent build: kernel 2 launch error {err}"
+        return vals, idx
+
+    def parent_slab(U, V, cand, seen, k):
+        vals, idx = outputs(U.shape[0], k, U.device)
+        err = slab(U.data_ptr(), V.data_ptr(), cand.data_ptr(), seen.view(torch.int8).data_ptr(),
+                   vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[1], cand.shape[1],
+                   U.shape[1], k, stream)
+        assert err == 0, f"parent build: kernel 5 launch error {err}"
+        return vals, idx
+
+    def parent_quant(U, Vq, scale, cand, seen, k):
+        vals, idx = outputs(U.shape[0], k, U.device)
+        err = quant(U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
+                    seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                    U.shape[0], cand.shape[1], U.shape[1], k, int(Vq.dtype == torch.bfloat16),
+                    stream)
+        assert err == 0, f"parent build: kernel 6 launch error {err}"
+        return vals, idx
+
     for n, (U, Vw, cand, seen, k) in enumerate(cases):
-        R, K = U.shape
-        vals = torch.empty((R, k), dtype=torch.float32, device=U.device)
-        idx = torch.empty((R, k), dtype=torch.int32, device=U.device)
-        err = fn(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.view(torch.int8).data_ptr(),
-                 vals.data_ptr(), idx.data_ptr(), R, cand.shape[1], K, k, stream)
-        assert err == 0, f"parent build: launch error {err}"
-        same_bits(f"serve_topk_window: this build vs the parent's, case {n}",
-                  ops.serve_topk_window(U, Vw, cand, seen, k), (vals, idx))
+        same_bits(f"serve_topk_window: this build vs the parent's, case {n} "
+                  f"(R={U.shape[0]} Cw={cand.shape[1]} k={k})",
+                  ops.serve_topk_window(U, Vw, cand, seen, k), parent_window(U, Vw, cand, seen, k))
+    for n, (U, V, mask, k) in enumerate(shared_cases):
+        same_bits(f"recommend_topk: this build vs the parent's, case {n} "
+                  f"(R={U.shape[0]} J={V.shape[0]} k={k})",
+                  ops.recommend_topk(U, V, mask, k), parent_shared(U, V, mask, k))
     # the fused steps' scratch: the loss partials of the two-launch form
     # (dmf_step_blocks) or the ticket and partials of the one-launch form
     # (dmf_step_scratch, zeroed)
@@ -1682,7 +1847,26 @@ def hold_parent_build(parent: pathlib.Path, cases, step_cases) -> tuple[int, int
         same_bits(f"dmf_fused_step{'' if z is None else '_dp'}: this build vs the parent's, "
                   f"case {n} (B={B})", got, (*out, loss))
     sync(sx[0].device)
-    return len(cases), len(step_cases)
+
+    times = {}
+    for key, shape, this, theirs in (
+            ("kernel 4 MF R=6,524", "MF", ops.recommend_topk, parent_shared),
+            ("kernel 4 per request R=1", "per_request", ops.recommend_topk, parent_shared),
+            ("kernel 1 serving R=64 Cw=384", "serving", ops.serve_topk_window, parent_window),
+            ("kernel 1 tiled R=128 Cw=128", "tiled", ops.serve_topk_window, parent_window),
+            ("kernel 2 serving R=64", "dense", ops.recommend_topk_peruser, parent_peruser),
+            ("kernel 2 evaluate R=6,524", "evaluate", ops.recommend_topk_peruser, parent_peruser),
+            ("kernel 5 serving R=64", "slab", ops.serve_topk, parent_slab),
+            ("kernel 6 int8 R=128", "int8", ops.serve_topk_window_quant, parent_quant)):
+        args = shapes[shape] + (K_TOP,)
+        same_bits(f"{key}: this build vs the parent's", this(*args), theirs(*args))
+        t = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            t[who].append(device_ms(functools.partial(theirs if who == "parent" else this, *args),
+                                    200))
+        times[key] = t
+    return {"kernel1_cases": len(cases), "kernel4_cases": len(shared_cases),
+            "step_cases": len(step_cases), "device_ms": times}
 
 
 def parent_step_cases(dev, mb) -> list:
@@ -1704,11 +1888,17 @@ def parent_step_cases(dev, mb) -> list:
 
 def parent_cases(dev, J, run, tl) -> list:
     """Kernel 1's inputs for the parent hold: phase 2's tie-heavy windows
-    at k 1/10/16, and one microbatch of each of the serving and the tiled
-    paths."""
+    at k 1/10/16; one request of 33 slots (not a multiple of 32) with 5
+    live candidates at k=10, and 7 such requests at k=16; one microbatch of
+    each of the serving and the tiled paths."""
     rng = np.random.default_rng(SEED + 7)
     U, Vw, cand, seen = window_inputs(rng, MICROBATCH, 384, J, 10, dev)
     cases = [(U, Vw, cand, seen, k) for k in (1, K_TOP, 16)]
+    for R, k in ((1, K_TOP), (7, 16)):
+        U, Vw, cand, seen = window_inputs(rng, max(R, 7), 33, J, 10, dev)
+        cand[:, 5:] = -1                       # 5 live slots at most: k above them
+        cases.append((U[:R].contiguous(), Vw[:R].contiguous(), cand[:R].contiguous(),
+                      seen[:R].contiguous(), k))
     eng = run["engine"]
     uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
     cand = eng._bucket_items[eng._user_bucket[uids]]
@@ -1720,6 +1910,42 @@ def parent_cases(dev, J, run, tl) -> list:
         torch.as_tensor(st.index.user_bucket, device=dev).long()[ids]]
     cases.append((st.U[ids], st.slab[ids], mcand, st.seen[ids], K_TOP))
     return cases
+
+
+def parent_shared_cases(dev, bl) -> list:
+    """Kernel 4's inputs for the parent hold: phase 2's shapes and its
+    all-zero users, the trained MF and BPR states at full width, and 16 of
+    the per-request loop's DMF users one at a time (R=1)."""
+    cases = []
+    for R, J, K, k in SHARED_SHAPES:
+        cases.append((*shared_inputs(R + J + k, R, J, K, dev), k))
+    cases.append((*zero_user_inputs(dev), 16))
+    for name in ("MF", "BPR"):
+        cases.append((bl[name].U, bl[name].V, bl["train_mask"], K_TOP))
+    st = bl["dmf_state"]
+    for u in bl["per_request"][0][:16].tolist():
+        cases.append((st.U[u][None], (st.P[u] + st.Q[u]).contiguous(),
+                      bl["train_mask"][u][None], K_TOP))
+    return cases
+
+
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line per compiled kernel from the build's ``-Xptxas -v`` output:
+    its name with its template arguments (mangled), registers, spills."""
+    import re
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "error" in line.lower():
+            out.append(line.strip())
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = re.sub(r"^_ZN\w*?_GLOBAL__N__\w+?_cu_\w{8}\d+", "", m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            spill = ""
+    return out
 
 
 # --------------------------------------------------------------------- main
@@ -1756,9 +1982,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"phase 1 build: {time.perf_counter() - t0} s (source hash {build.source_hash()})")
-    for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            log("  ptxas", line.strip())
+    for line in ptxas_summary(build.build_log()):
+        log("  ptxas", line)
 
     t0 = time.perf_counter()
     J = 3197
@@ -1835,8 +2060,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}
-    for spec in (serving_specs(run) + training_specs(tr, mb, ds, dev) + tiled_specs(run, tl)
-                 + baseline_specs(bl)):
+    shapes = main_shapes(run, tl, bl, tr)
+    for spec in (serving_specs(run, shapes) + training_specs(tr, mb, shapes)
+                 + tiled_specs(tl, shapes) + baseline_specs(bl, shapes)):
         row = time_spec(spec, errs, launches)
         if spec["name"] in rows:     # a second shape or form of a kernel
             first = rows[spec["name"]]
@@ -1850,12 +2076,17 @@ def main(argv=None) -> int:
     floor_ms = device_ms(lambda: one.fill_(1.0), 200)   # one tiny launch, back to back
     log(f"phase 4 timing: {time.perf_counter() - t0} s; total {time.perf_counter() - t_start} s; "
         f"launch floor (a one-element fill_) {floor_ms} ms")
+    t0 = time.perf_counter()
+    log("forms", json.dumps(time_forms(shapes)))
+    log(f"phase 4 forms: {time.perf_counter() - t0} s")
     if parent is not None:
         t0 = time.perf_counter()
-        n, n_steps = hold_parent_build(parent, parent_cases(dev, J, run, tl),
-                                       parent_step_cases(dev, mb))
-        log(f"parent build: kernel 1 equal bit for bit on {n} cases, kernels 3 and 7 on "
-            f"{n_steps} cases ({time.perf_counter() - t0} s)")
+        held = hold_parent_build(parent, parent_cases(dev, J, run, tl),
+                                 parent_shared_cases(dev, bl), parent_step_cases(dev, mb), shapes)
+        log(f"parent build: kernel 1 equal bit for bit on {held['kernel1_cases']} cases, "
+            f"kernel 4 on {held['kernel4_cases']}, kernels 3 and 7 on {held['step_cases']}, "
+            f"kernels 1, 4, 2, 5 and 6 at the {len(held['device_ms'])} main shapes "
+            f"({time.perf_counter() - t0} s); device ms {json.dumps(held['device_ms'])}")
     assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

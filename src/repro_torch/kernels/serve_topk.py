@@ -17,6 +17,10 @@ The public layouts are the reference's: windows (R, Cw, K), slabs
 copied; one CUDA kernel body (``csrc/serve_topk.cu``) reads each form as
 it is. The slab and quant forms equal the fp32 window form bit for bit on
 windows gathered from the same rows, resp. on ``codes.float() * scale``.
+
+The launch layout (warps a request, requests a block, the lanes' list
+size) is chosen here, on the host, by `window_layout`, and handed to the
+C launch as arguments.
 """
 from __future__ import annotations
 
@@ -25,6 +29,35 @@ import torch
 from repro_torch.kernels import build, ref
 
 TOPK_MAX = 16   # csrc/topk.cuh TOPK_MAX
+SMEM_BYTES = 232_448        # the shared memory an H100 block can have (227 KB)
+MERGE_SCRATCH_BYTES = 16 * TOPK_MAX * 8   # csrc/topk.cuh MergeScratch, static
+MAX_WARPS = 16              # csrc/serve_topk.cu kMaxThreads / 32
+CANDIDATES_PER_LANE = 4     # a request takes ceil(Cw / 128) warps
+WARPS_PER_BLOCK = 4         # one-warp requests share a block four at a time
+
+
+def slots_for(k: int, per_lane: int) -> int:
+    """The lane list size (4, 8 or 16) for k from lanes that score at most
+    ``per_lane`` candidates each: the smallest that holds min(k, per_lane)
+    (csrc/topk.cuh ``slots_fit``)."""
+    n = min(k, per_lane)
+    return 4 if n <= 4 else 8 if n <= 8 else 16
+
+
+def window_layout(R: int, Cw: int, k: int) -> dict:
+    """The launch layout of kernels 1, 5 and 6 for R requests of Cw
+    candidates: ``warps`` a request (one for Cw ≤ 128, else ceil(Cw / 128),
+    at most 16), ``rpb`` requests a block, ``slots`` in a lane's list,
+    ``blocks``, ``threads`` a block and its shared memory."""
+    warps = min(MAX_WARPS, max(1, -(-Cw // (32 * CANDIDATES_PER_LANE))))
+    rpb = max(1, WARPS_PER_BLOCK // warps)
+    per_lane = max(1, -(-Cw // (32 * warps)))
+    return dict(warps=warps, rpb=rpb, slots=slots_for(k, per_lane), blocks=-(-R // rpb),
+                threads=32 * warps * rpb, smem_bytes=MERGE_SCRATCH_BYTES)
+
+
+def _layout_args(layout: dict, merge: bool) -> tuple:
+    return layout["warps"], layout["rpb"], layout["slots"], int(merge)
 
 
 def _check_k(name: str, k: int) -> None:
@@ -60,17 +93,29 @@ def serve_topk_window(U: torch.Tensor, Vw: torch.Tensor, cand: torch.Tensor,
     if not build.on_card(name, U, Vw, cand, seen_w):
         return ref.serve_topk_window_ref(U, Vw, cand, seen_w, k)
     build.require_contiguous(name, U=U, Vw=Vw, cand=cand, seen_w=seen_w)
-    vals, idx = _outputs(R, k, U.device)
+    vals, idx = window_on_layout(U, Vw, cand, seen_w, k, window_layout(R, Cw, k))
     if R:
-        build.launch(name, U.device, "serve_topk_window_launch",
-                     U.data_ptr(), Vw.data_ptr(), cand.data_ptr(),
-                     seen_w.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                     R, Cw, K, k)
         serve_topk_window.launches += 1
     return vals, idx
 
 
 serve_topk_window.launches = 0
+
+
+def window_on_layout(U, Vw, cand, seen_w, k: int, layout: dict, merge: bool = True):
+    """Kernel 1 on the card with the given layout (`window_layout`'s
+    keys), the inputs already checked. ``merge=False`` scores without
+    merging: the outputs then hold list checksums, not a slate (a timing
+    form). For the public wrapper, and for timing layouts against each
+    other; counts no launch."""
+    R, K = U.shape
+    vals, idx = _outputs(R, k, U.device)
+    if R:
+        build.launch("serve_topk_window", U.device, "serve_topk_window_launch",
+                     U.data_ptr(), Vw.data_ptr(), cand.data_ptr(),
+                     seen_w.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
+                     R, cand.shape[1], K, k, *_layout_args(layout, merge))
+    return vals, idx
 
 
 def serve_topk(U: torch.Tensor, V: torch.Tensor, cand: torch.Tensor, seen: torch.Tensor,
@@ -102,7 +147,7 @@ def serve_topk(U: torch.Tensor, V: torch.Tensor, cand: torch.Tensor, seen: torch
         build.launch(name, U.device, "serve_topk_launch",
                      U.data_ptr(), V.data_ptr(), cand.data_ptr(),
                      seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                     R, J, Cw, K, k)
+                     R, J, Cw, K, k, *_layout_args(window_layout(R, Cw, k), True))
         serve_topk.launches += 1
     return vals, idx
 
@@ -142,7 +187,8 @@ def serve_topk_window_quant(U: torch.Tensor, Vq: torch.Tensor, scale: torch.Tens
         build.launch(name, U.device, "serve_topk_window_quant_launch",
                      U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
                      seen_w.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                     R, Cw, K, k, int(Vq.dtype == torch.bfloat16))
+                     R, Cw, K, k, int(Vq.dtype == torch.bfloat16),
+                     *_layout_args(window_layout(R, Cw, k), True))
         serve_topk_window_quant.launches += 1
     return vals, idx
 

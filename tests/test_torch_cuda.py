@@ -32,7 +32,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, serve_topk, topk_scores
 from repro_torch.serving.store import int8_rows
 
 pytestmark = pytest.mark.cuda
@@ -315,6 +315,122 @@ def test_recommend_topk_one_user_equals_the_peruser_kernel(dev):
         one = ops.recommend_topk(U[u][None], V[u], seen[u][None], 10)
         per = ops.recommend_topk_peruser(U[u][None], V[u][None], seen[u][None], 10)
         assert torch.equal(one[0], per[0]) and torch.equal(one[1], per[1])
+        # the many-users layout too: the same chain per (user, item)
+        many = topk_scores.shared_on_layout(U[u][None], V[u], seen[u][None], 10,
+                                            topk_scores.shared_layout(1, 3197, 10, 10, n_sms=1))
+        assert torch.equal(many[0], per[0]) and torch.equal(many[1], per[1])
+
+
+def _shared_case(rng, R, J, K, dev):
+    """Kernel 4's inputs with an all-zero user, repeated item rows, an
+    all-masked row, and a row with fewer unmasked items than 16."""
+    U = rng.normal(size=(R, K)).astype(np.float32)
+    U[0] = 0.0
+    V = rng.normal(size=(J, K)).astype(np.float32)
+    V[J // 2:J // 2 + 20] = V[0]
+    mask = rng.random((R, J)) < 0.1
+    mask[0] = False
+    if R > 1:
+        mask[1] = True
+    if R > 2:
+        mask[2] = True
+        mask[2, rng.choice(J, min(J, 3), replace=False)] = False
+    return tuple(torch.as_tensor(x, device=dev) for x in (U, V, mask))
+
+
+# J=6,000 at K=10 passes one shared-memory stage (5,604 items beside the merge scratch)
+@pytest.mark.parametrize("R", [1, 2, 7, 133, 1100])
+@pytest.mark.parametrize("J", [1, 31, 3197, 6000])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_recommend_topk_kernel_across_layouts(dev, R, J, k):
+    """The wrapper's layout against the plain version, and every layout
+    (few users, many users in one J tile and in 1,000-item tiles) against
+    each other bit for bit."""
+    K = 10
+    U, V, mask = _shared_case(np.random.default_rng(R * J + k), R, J, K, dev)
+    before = ops.recommend_topk.launches
+    got = ops.recommend_topk(U, V, mask, k)
+    torch.cuda.synchronize()
+    assert ops.recommend_topk.launches == before + 1
+    sc = (U[:, None] * V[None]).sum(-1).masked_fill(mask, ref.NEG_INF).cpu().numpy()
+    _hold(got, ref.topk_scores_ref(U, V, mask, k), lambda r, item: sc[r, item])
+    assert got[1][0, :min(k, J)].tolist() == list(range(min(k, J)))   # zero user
+    if R > 1:
+        assert (got[1][1] == -1).all() and (got[0][1] == ref.NEG_INF).all()
+    few = topk_scores.shared_layout(R, J, K, k, n_sms=10**9)
+    many = topk_scores.shared_layout(R, J, K, k, n_sms=1)
+    tiled = dict(many, tile=min(many["tile"], 1000))
+    for layout in (few, many, tiled):
+        other = topk_scores.shared_on_layout(U, V, mask, k, layout)
+        assert torch.equal(other[0], got[0]) and torch.equal(other[1], got[1]), layout
+    torch.cuda.synchronize()
+
+
+def test_recommend_topk_signed_zero_scores_tie_on_id(dev):
+    """Scores of −0.0 and +0.0 (products below the smallest subnormal)
+    rank equal: each slate is the lowest unmasked ids, in both layouts."""
+    J, K = 500, 10
+    rng = np.random.default_rng(3)
+    U = np.full((140, K), 1e-30, np.float32)
+    V = (np.where(rng.random((J, K)) < 0.5, -1.0, 1.0) * 1e-30).astype(np.float32)
+    V[:, 1:] = V[:, :1]                      # a row is all −1e-30 or all +1e-30
+    mask = rng.random((140, J)) < 0.2
+    U, V, mask = (torch.as_tensor(x, device=dev) for x in (U, V, mask))
+    for layout in (topk_scores.shared_layout(140, J, K, 10, n_sms=10**9),
+                   topk_scores.shared_layout(140, J, K, 10, n_sms=1)):
+        vals, idx = topk_scores.shared_on_layout(U, V, mask, 10, layout)
+        for r, m in enumerate(mask.cpu().numpy()):
+            assert idx[r].tolist() == np.flatnonzero(~m)[:10].tolist(), (layout, r)
+        # the chain rounds a negative product below the subnormals to −0.0
+        assert bool((vals == 0).all()) and bool(torch.signbit(vals).any())
+        assert bool((~torch.signbit(vals)).any())
+
+
+@pytest.mark.parametrize("Cw", [1, 33, 128, 384, 1000])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_serve_topk_window_kernel_layouts(dev, Cw, k):
+    """Kernel 1 against its plain version at R=1 and R=37 (one warp and
+    several a request, ragged Cw, k above the live candidates), and every
+    layout against the wrapper's bit for bit."""
+    rng = np.random.default_rng(Cw + k)
+    for R in (1, 37):
+        U = rng.normal(size=(R, 10)).astype(np.float32)
+        Vw = rng.normal(size=(R, Cw, 10)).astype(np.float32)
+        Vw[:, ::3] = Vw[:, :1]
+        cand = np.full((R, Cw), -1, np.int32)
+        for r in range(R):
+            n = Cw if r == 0 else min(Cw, int(rng.integers(0, 12)))
+            cand[r, :n] = np.sort(rng.choice(5000, n, replace=False))
+        seen = (rng.random((R, Cw)) < 0.1).astype(np.int8)
+        U, Vw, cand, seen = (torch.as_tensor(x, device=dev) for x in (U, Vw, cand, seen))
+        got = ops.serve_topk_window(U, Vw, cand, seen, k)
+        sc = (U[:, None] * Vw).sum(-1).masked_fill((cand < 0) | (seen != 0), ref.NEG_INF)
+        sc, ids = sc.cpu().numpy(), cand.cpu().numpy()
+        _hold(got, ref.serve_topk_window_ref(U, Vw, cand, seen, k),
+              lambda r, item: sc[r, np.flatnonzero(ids[r] == item)[0]])
+        for warps, rpb in ((1, 1), (1, 4), (2, 2), (4, 1), (16, 1)):
+            per_lane = max(1, -(-Cw // (32 * warps)))
+            layout = dict(warps=warps, rpb=rpb, slots=serve_topk.slots_for(k, per_lane))
+            other = serve_topk.window_on_layout(U, Vw, cand, seen, k, layout)
+            assert torch.equal(other[0], got[0]) and torch.equal(other[1], got[1]), layout
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["block", "slots", "smem"])
+def test_top_k_kernels_refuse_layouts_they_cannot_run(dev, case):
+    U = torch.zeros(4, 10, device=dev)
+    Vw = torch.zeros(4, 384, 10, device=dev)
+    cand = torch.zeros(4, 384, dtype=torch.int32, device=dev)
+    seen = torch.zeros(4, 384, dtype=torch.int8, device=dev)
+    V, mask = Vw[0], seen.bool()
+    with pytest.raises(RuntimeError):
+        if case == "block":          # 32 warps × 1 request: past the kernel's 512 threads
+            serve_topk.window_on_layout(U, Vw, cand, seen, 10, dict(warps=32, rpb=1, slots=4))
+        elif case == "slots":        # 12 candidates a lane need 16 slots for k=10
+            serve_topk.window_on_layout(U, Vw, cand, seen, 10, dict(warps=1, rpb=1, slots=8))
+        else:                        # a J tile past 227 KB of shared memory
+            layout = topk_scores.shared_layout(4, 384, 10, 10, n_sms=1)
+            topk_scores.shared_on_layout(U, V, mask, 10, dict(layout, tile=6000))
 
 
 def _grads_inputs(rng, B, K, dev):

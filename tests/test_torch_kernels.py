@@ -331,3 +331,50 @@ def test_tiled_wrappers_reject_what_the_kernels_do_not_take(case):
             ops.serve_topk(U.to("meta"), V.to("meta"), cand.to("meta"), seen.to("meta"), 5)
         with pytest.raises(ValueError):
             ops.serve_topk_window_quant(U, codes.to("meta"), scale, cand, seen_w, 5)
+
+
+@pytest.mark.parametrize("R", [1, 37, 64, 128])
+@pytest.mark.parametrize("Cw", [1, 33, 128, 129, 384, 1000, 5000])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_serve_window_layout_fits_the_card_and_covers_every_request(R, Cw, k):
+    """The host's choice of kernel 1's layout (shared by kernels 5 and 6),
+    pinned on the CPU: one warp a request for Cw ≤ 128, four requests a
+    block; ceil(Cw / 128) warps above, at most 16; every request covered,
+    within 512 threads and the H100's 232,448 bytes of shared memory a
+    block, lane lists long enough for k."""
+    from repro_torch.kernels import serve_topk
+    lay = serve_topk.window_layout(R, Cw, k)
+    if Cw <= 128:
+        assert (lay["warps"], lay["rpb"]) == (1, 4)
+    else:
+        assert lay["warps"] == min(16, -(-Cw // 128))
+    assert lay["threads"] == 32 * lay["warps"] * lay["rpb"] <= 512
+    assert lay["blocks"] * lay["rpb"] >= R > (lay["blocks"] - 1) * lay["rpb"]
+    assert lay["smem_bytes"] <= 232_448
+    assert lay["slots"] in (4, 8, 16)
+    assert lay["slots"] >= min(k, -(-Cw // (32 * lay["warps"])))
+
+
+def test_serve_window_layout_of_the_main_paths():
+    """Serving (R=64, Cw=384): 3 warps a request, 4 candidates a lane;
+    tiled (R=128, Cw=128): a warp a request, 4 requests a block."""
+    from repro_torch.kernels import serve_topk
+    assert {k: v for k, v in serve_topk.window_layout(64, 384, 10).items()
+            if k != "smem_bytes"} == dict(warps=3, rpb=1, slots=4, blocks=64, threads=96)
+    assert {k: v for k, v in serve_topk.window_layout(128, 128, 10).items()
+            if k != "smem_bytes"} == dict(warps=1, rpb=4, slots=4, blocks=32, threads=128)
+
+
+@pytest.mark.parametrize("k", [10, 16])
+def test_serve_topk_window_per_request_shape_matches_reference_kernel(k):
+    """One request (R=1) of the serving shape (Cw=384): the plain version
+    against the reference's Pallas kernel, for a random user and an
+    all-zero user (every score 0: the lowest unseen candidate ids)."""
+    U, Vw, cand, seen = (x[:1] for x in _window_inputs(5, R=8, Cw=384))
+    for u in (U, np.zeros_like(U)):
+        expect = ref_ops.serve_topk_window(jnp.asarray(u), jnp.asarray(Vw), jnp.asarray(cand),
+                                           jnp.asarray(seen), k, interpret=True)
+        got = ref.serve_topk_window_ref(*_t(u, Vw, cand, seen), k)
+        _assert_topk(got, expect)
+    live = cand[0][(cand[0] >= 0) & (seen[0] == 0)][:k]
+    np.testing.assert_array_equal(got[1][0, :len(live)].numpy(), live)

@@ -211,3 +211,74 @@ def test_recommend_topk_rejects_bad_arguments():
         ops.recommend_topk(U, torch.zeros(5, 3), m, 2)
     with pytest.raises(TypeError):
         ops.recommend_topk(U.double(), V, m, 2)
+
+
+def _few_items_per_lane(J, threads, group):
+    """Items one lane of the few-users form scores: warp w copies the
+    groups of ``group`` 128-item chunks w, w + warps, ..., 4 items of each
+    chunk a lane."""
+    groups, warps = -(-J // (128 * group)), threads // 32
+    return 4 * group * -(-groups // warps)
+
+
+@pytest.mark.parametrize("R", [1, 2, 7, 131, 132, 133, 1100, 6524])
+@pytest.mark.parametrize("J,K", [(1, 10), (31, 10), (3197, 10), (6000, 10), (3197, 12),
+                                 (500, 64), (100, 400)])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_recommend_topk_layout_fits_the_card_and_covers_every_row(R, J, K, k):
+    """The host's choice of kernel 4's layout, pinned on the CPU: below a
+    block an SM the few-users form (a block per user), at or above it the
+    many-users form; shared memory within the H100's 232,448 bytes a block;
+    every user and item covered; lane lists long enough for k."""
+    from repro_torch.kernels import topk_scores
+    lay = topk_scores.shared_layout(R, J, K, k)
+    assert lay["many"] == (R >= 132)
+    assert lay["smem_bytes"] <= 232_448
+    assert lay["threads"] % 32 == 0 and 32 <= lay["threads"] <= 512
+    assert lay["slots"] in (4, 8, 16)
+    if lay["many"]:
+        assert lay["threads"] == 512 and 1 <= lay["blocks"] <= 132
+        tiles = -(-R // 2)                                 # 2 users a warp
+        ranges = [(b * tiles // lay["blocks"], (b + 1) * tiles // lay["blocks"])
+                  for b in range(lay["blocks"])]
+        assert ranges[0][0] == 0 and ranges[-1][1] == tiles
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        j_tile = lay["tile"]
+        assert j_tile % 4 == 0 and 4 * K * j_tile + 2048 == lay["smem_bytes"]
+        assert -(-J // j_tile) * j_tile >= J
+        per_lane = 4 * -(-J // 128)                        # 4 items a lane a pass
+    else:
+        assert lay["blocks"] == R and lay["tile"] in (1, 2)
+        assert 4 * K * 128 * lay["tile"] * lay["threads"] // 32 + 2048 == lay["smem_bytes"]
+        per_lane = _few_items_per_lane(J, lay["threads"], lay["tile"])
+    assert lay["slots"] >= min(k, per_lane)
+
+
+def test_recommend_topk_layout_of_the_main_paths():
+    """One DMF request (R=1) takes the few-users form in 13 warps with
+    8-slot lists; the MF/BPR states (R=6,524) the many-users form on 132
+    blocks with V staged in one tile."""
+    from repro_torch.kernels import topk_scores
+    one = topk_scores.shared_layout(1, 3197, 10, 10)
+    assert (one["many"], one["threads"], one["blocks"], one["slots"], one["tile"]) == (
+        False, 416, 1, 8, 2)
+    mf = topk_scores.shared_layout(6524, 3197, 10, 10)
+    assert (mf["many"], mf["blocks"], mf["slots"], mf["tile"]) == (True, 132, 16, 3200)
+    with pytest.raises(ValueError):           # a row too wide to stage 4 items
+        topk_scores.shared_layout(6524, 100, 20_000, 10)
+
+
+@pytest.mark.parametrize("k", [10, 16])
+def test_recommend_topk_per_request_shape_matches_reference(k):
+    """The per-request loop's shape (R=1, J=3,197, K=10): the plain version
+    against the reference's Pallas kernel (values) and dense oracle (ids),
+    for a trained-like user and an all-zero user (every score 0: the lowest
+    unmasked ids)."""
+    rng = np.random.default_rng(17 + k)
+    U, V, mask = _topk_case(rng, 1, 3197, 10, p_mask=0.01)
+    _hold_topk(U, V, mask, k, tie_free=True)
+    zero = np.zeros_like(U)
+    _hold_topk(zero, V, mask, k, tie_free=False)
+    got = ops.recommend_topk(*(torch.from_numpy(x) for x in (zero, V, mask)), k)
+    assert got[1][0].tolist() == np.flatnonzero(~mask[0])[:k].tolist()
+    assert (got[0] == 0).all()
