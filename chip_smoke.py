@@ -7,12 +7,10 @@ tiled serving at the reference's million configuration, and times each
 kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
-    python3 chip_smoke.py --parent DIR    # also hold kernels 1 and 4, the
-                                          # fused steps (kernels 3, 7) and, at
-                                          # the main shapes, kernels 2, 5, 6
-                                          # against the build of the checkout
-                                          # unpacked in DIR, bit for bit, and
-                                          # time both builds' top-k kernels
+    python3 chip_smoke.py --parent DIR    # also hold kernels 2 (every form),
+                                          # 4 and 8 against the build of the
+                                          # checkout unpacked in DIR, bit for
+                                          # bit, and time both builds
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -30,6 +28,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    window kernel (kernel 6, with an all-zero int8 request) within 1e-5,
    and bit for bit against the fp32 window kernel (kernel 1) on the
    windows gathered from the same rows, resp. on the dequantized windows.
+   Kernel 2 also reading its rows in place (``rows`` repeated, odd and
+   unsorted, with and without Q, and slices of P and Q at an odd start),
+   bit for bit against the call on the materialized rows.
    The shared-V top-k (kernel 4) at `tests/test_kernels.py`'s shapes and
    on all-zero users (each slate the lowest unmasked ids); the gradients
    (kernel 9) at B 64/256/300/1024 × K 5/10/15/128 within 2e-5 abs + rel
@@ -65,7 +66,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       1e-5 absolute), the same 2 epochs of `fit` DP off and on and of
       `fit_mf` and `fit_bpr` run twice on the card (bitwise-equal factors:
       the scatters are deterministic), and kernel 8 on one batch's raw
-      message against kernel 7's message (within 1e-6).
+      message against kernel 7's message (within 1e-6). The training line
+      also prints the device memory `evaluate` (unchunked and chunked)
+      and the materializing sequence (V = P + Q, then kernel 2) allocate
+      above the resident state at R=6,524.
    c. tiled: the reference's million configuration
       (`benchmarks/serving_bench.py` `million_section`: 1,000,000 users,
       100,000 POIs, 1,024 cities, K=8, cell cap 128, microbatch 128, k=10,
@@ -96,20 +100,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
    host readback and its fill and product alone), and a one-element
-   ``fill_`` as the launch floor. Then the ``forms`` line: kernels 1 and 4
-   at their four main shapes (serving R=64 Cw=384, tiled R=128 Cw=128, MF
-   R=6,524, one DMF request R=1) in the wrapper's layout, in other layouts
-   (each held against the wrapper's slate bit for bit first) and scoring
-   without the merge, timed in turns, every form down the list and back up.
-   With ``--parent DIR``, build the checkout in DIR (the commit before the
-   warp-level merge) and hold against it, bit for bit: kernel 1 on phase
-   2's windows at k 1/10/16, one request of 33 slots with 5 live at k=10
-   and seven at k=16, and a serving and a tiled microbatch; kernel 4 at
-   phase 2's shapes, its all-zero users, the MF and BPR states at R=6,524
-   and 16 per-request rows at R=1; kernels 3 and 7 on 20 batches; and
-   kernels 1, 4, 2, 5 and 6 (int8) at the main shapes, which are also
-   timed against the parent's in turns (parent, this, this, parent) on the
-   ``parent build`` line. Last, print the ``{"kernels": [...]}`` line.
+   ``fill_`` as the launch floor. Kernel 2's row adds the serving
+   microbatch read in place, evaluate on V, through P and Q and on one
+   1,024-user chunk, and the callers' old sequences (the gathers then the
+   kernel; P + Q then the kernel). Then the ``forms`` line: kernels 1, 2
+   and 4 at their main shapes (kernel 1 serving R=64 Cw=384 and tiled
+   R=128 Cw=128; kernel 2 at R=64, a 1,024-user chunk and R=6,524; kernel
+   4 on the MF state R=6,524 and one DMF request R=1) in the wrapper's
+   layout, in other layouts (each held against the wrapper's slate bit for
+   bit first) and scoring without the merge, timed in turns, every form
+   down the list and back up. With ``--parent DIR``, build the checkout in
+   DIR (the commit before kernel 2 read rows in place) and hold
+   against it, bit for bit: kernel 2 in every form (the wrapper and each
+   layout of the forms line, on rows in place and through P and Q) on
+   phase 2's inputs and at the main shapes, against the parent's kernel on
+   the materialized rows; kernel 4 at phase 2's shapes, its all-zero
+   users, the MF and BPR states and 16 per-request rows; kernel 8 on 20
+   batches (B 1 to 5,000, K 8/10/16, clip inf/0.5, noise 0/1, zero and NaN
+   rows). Both builds are timed in turns (parent, this, this, parent) on
+   the ``parent build`` line, the parent with its callers' sequence where
+   this build reads rows in place. Last, print the ``{"kernels": [...]}``
+   line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
@@ -329,6 +340,8 @@ def check_kernels(dev, J: int) -> dict[str, float]:
     errs["recommend_topk_peruser"] = max(
         hold_dense(f"recommend_topk_peruser k={k}", ops.recommend_topk_peruser(U, V, mask, k),
                    U, V, mask, k) for k in (1, K_TOP, 16))
+    errs["recommend_topk_peruser"] = max(errs["recommend_topk_peruser"],
+                                         check_peruser_rows(dev, J))
     sync(dev)
     hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
     errs["dmf_fused_step"] = max(
@@ -360,6 +373,59 @@ def check_kernels(dev, J: int) -> dict[str, float]:
     errs["gossip_mix_op"] = check_mix(dev)
     sync(dev)
     return errs
+
+
+def rows_inputs(rng, N, J, K, dev):
+    """Kernel 2's row sources: U (N, K), P and Q (N, J, K) and a mask
+    (N, J), with exact ties (a zero user, v = 0 items, repeated items), an
+    all-masked row and a row with three unmasked items."""
+    U, P, mask = (x.cpu().numpy() for x in dense_inputs(rng, N, J, K, dev))
+    Q = rng.normal(0, 1, (N, J, K)).astype(np.float32)
+    P[1, ::3] = -Q[1, ::3]                  # v = p + q = 0 exactly
+    Q[3, 100:200] = Q[3, 7]                 # with P's repeated items: repeated v
+    return tuple(torch.as_tensor(x, device=dev) for x in (U, P, Q, mask))
+
+
+def peruser_row_cases(dev, J: int) -> list:
+    """[(name, U, V, mask, k, Q, rows)] of kernel 2 reading rows in place:
+    rows repeated, unsorted, odd (8 bytes off a 16-byte boundary at K=10),
+    with and without Q, and slices of P and Q at an odd start, each at k
+    1/10/16. The materialized equivalent of each is
+    `materialize`'s."""
+    rng = np.random.default_rng(SEED + 5)
+    U, P, Q, mask = rows_inputs(rng, MICROBATCH + 9, J, 10, dev)
+    rows = torch.as_tensor(rng.permutation(MICROBATCH + 9)[:MICROBATCH], device=dev)
+    rows[1], rows[2], rows[3] = rows[0], 1, 4           # repeated, odd, the all-masked row
+    Ur = U[:MICROBATCH].contiguous()
+    cases = []
+    for k in (1, K_TOP, 16):
+        cases += [(f"rows k={k}", Ur, P, mask, k, None, rows),
+                  (f"rows+Q k={k}", Ur, P, mask, k, Q, rows),
+                  (f"slice [1:65]+Q k={k}", U[1:1 + MICROBATCH], P[1:1 + MICROBATCH],
+                   mask[1:1 + MICROBATCH], k, Q[1:1 + MICROBATCH], None)]
+    return cases
+
+
+def materialize(V, mask, Q, rows):
+    """The V rows and mask rows a rows/Q call of kernel 2 reads."""
+    if rows is not None:
+        V, mask, Q = V[rows], mask[rows], None if Q is None else Q[rows]
+    return (V if Q is None else V + Q).contiguous(), mask.contiguous()
+
+
+def check_peruser_rows(dev, J: int) -> float:
+    """Kernel 2 on rows in place (`peruser_row_cases`): against its plain
+    version, and bit for bit against the kernel on the materialized rows."""
+    from repro_torch.kernels import ops
+    err = 0.0
+    for name, U, V, mask, k, Q, rows in peruser_row_cases(dev, J):
+        got = ops.recommend_topk_peruser(U, V, mask, k, Q=Q, rows=rows)
+        Vm, Mm = materialize(V, mask, Q, rows)
+        err = max(err, hold_dense(f"recommend_topk_peruser {name}", got, U, Vm, Mm, k))
+        same_bits(f"recommend_topk_peruser {name} vs materialized rows", got,
+                  ops.recommend_topk_peruser(U, Vm, Mm, k))
+    sync(dev)
+    return err
 
 
 def hold_shared(name, got, U, V, mask, k) -> float:
@@ -1000,6 +1066,34 @@ def drive_training(ds, nbr, index, cfg, dev) -> dict:
     return out
 
 
+def evaluate_peaks(ds, tr, dev) -> dict:
+    """Device memory `evaluate` allocates above what is resident, at
+    R=6,524 on the DP-off trained state: the peak reset just before the
+    call and read just after. Beside it the same for the materializing
+    sequence (V = P + Q, then kernel 2 on V)."""
+    from repro_torch.core import dmf, metrics
+    from repro_torch.kernels import ops
+    st = tr["dp_off"]["fit"].state
+
+    def peak_above(fn) -> float:
+        sync(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        sync(dev)
+        return (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+
+    mask = torch.as_tensor(metrics.masks_from_interactions(ds.n_users, ds.n_items, ds.train),
+                           device=dev)
+    return {"evaluate_gb": peak_above(lambda: dmf.evaluate(
+                st, ds.train, ds.test, ds.n_users, ds.n_items, device=dev)),
+            "evaluate_chunked_gb": peak_above(lambda: dmf.evaluate(
+                st, ds.train, ds.test, ds.n_users, ds.n_items, chunk_users=EVAL_CHUNK,
+                device=dev)),
+            "materialized_v_then_kernel_gb": peak_above(lambda: ops.recommend_topk_peruser(
+                st.U, st.P + st.Q, mask, K_TOP))}
+
+
 def check_training(tr) -> None:
     for tag in ("dp_off", "dp_on"):
         got, base = tr[tag]["metrics"]["P@10"], tr["untrained"]["P@10"]
@@ -1250,7 +1344,7 @@ def check_baselines(ds, bl, nbr, run_rps: float, dev) -> tuple[dict, dict]:
     users, pv, pi = bl["per_request"]
     st = bl["dmf_state"]
     uid = torch.as_tensor(users, device=dev)
-    kv, ki = ops.recommend_topk_peruser(st.U[uid], st.P[uid] + st.Q[uid], train_mask[uid], K_TOP)
+    kv, ki = ops.recommend_topk_peruser(st.U[uid], st.P, train_mask, K_TOP, Q=st.Q, rows=uid)
     scores = (st.U[uid][:, None, :] * (st.P[uid] + st.Q[uid])).sum(-1)
     scores = scores.masked_fill(train_mask[uid], ref.NEG_INF).cpu().numpy()
     hold_topk("recommend_topk per request vs kernel 2", (pv, pi), (kv, ki),
@@ -1350,9 +1444,10 @@ def main_shapes(run, tl, bl, tr) -> dict:
     kernel 1 on one serving microbatch of pruned requests (R=64, Cw=384,
     K=10) and one tiled microbatch (the million shape, R=128, Cw=128, K=8);
     kernel 4 on the trained MF state (R=6,524) and on one DMF request (R=1);
-    kernel 2 on the serving microbatch's whole rows and at the evaluate shape
-    (every user of the DP-trained state); kernel 5 on the serving
-    microbatch's slabs; kernel 6 (int8) on the tiled microbatch."""
+    kernel 2 on the serving microbatch's whole rows (and their ids) and at
+    the evaluate shape (every user of the DP-trained state: on V = P + Q,
+    on P and Q, and the second 1,024-user chunk of P and Q); kernel 5 on the
+    serving microbatch's slabs; kernel 6 (int8) on the tiled microbatch."""
     eng = run["engine"]
     dev = eng.device
     uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
@@ -1372,8 +1467,10 @@ def main_shapes(run, tl, bl, tr) -> dict:
             "MF": (mf.U, mf.V, mask),
             "per_request": (dmf_st.U[u0][None], (dmf_st.P[u0] + dmf_st.Q[u0]).contiguous(),
                             mask[u0][None]),
-            "dense": (u, eng.V[uids], eng.seen[uids]),
+            "dense": (u, eng.V[uids], eng.seen[uids]), "serving_uids": uids,
             "evaluate": (dp.U, dp.P + dp.Q, mask),
+            "evaluate_pq": (dp.U, dp.P, mask, dp.Q),
+            "chunk": tuple(x[EVAL_CHUNK:2 * EVAL_CHUNK] for x in (dp.U, dp.P, mask, dp.Q)),
             "slab": (u, eng.V[uids], cand, eng.seen[uids]),
             "int8": (st.U[ids], st.q_codes[ids], st.q_scale[ids], mcand, st.seen[ids])}
 
@@ -1386,6 +1483,7 @@ def serving_specs(run, shapes) -> list[dict]:
     eng = run["engine"]
     st, dev = eng.state, eng.device
     u = shapes["dense"][0]
+    uids = shapes["serving_uids"]
     # one refresh batch of the main path: test check-ins + their negatives
     ui, vj, r, conf = dmf.sample_with_negatives(
         run["test_events"], eng.index.n_items, 3, np.random.default_rng(SEED + 1))
@@ -1397,7 +1495,14 @@ def serving_specs(run, shapes) -> list[dict]:
     K = u.shape[1]
     return [
         window_spec(*shapes["serving"], "serving microbatch"),
-        dense_spec(*shapes["dense"], "serving microbatch"),
+        dense_spec(*shapes["dense"], "serving microbatch, gathered V rows"),
+        dict(dense_spec(u, eng.V, eng.seen, "serving microbatch, V rows in place",
+                        rows=uids), variant="serving_rows"),
+        dict(dense_spec(*shapes["dense"], "serving microbatch, today's sequence: the "
+                        "gathers of U, V, seen rows, then the kernel",
+                        call=lambda: ops.recommend_topk_peruser(st.U[uids], eng.V[uids],
+                                                                eng.seen[uids], K_TOP)),
+             variant="serving_caller_sequence"),
         dict(name="dmf_fused_step", src="dmf_update.cu",
              replaces="src/repro/kernels/dmf_update.py:61",
              kern=lambda: ops.dmf_fused_step(*sx, **hp),
@@ -1428,25 +1533,37 @@ def window_spec(u, vw, cand, seen_w, where: str) -> dict:
                 flops=2 * live_w * K, shape=f"{where}: R={R} Cw={cand.shape[1]} K={K} k={K_TOP}")
 
 
-def dense_spec(u, v_rows, mask, where: str) -> dict:
-    """Kernel 2's row on (R, J, K) per-user item rows."""
+def dense_spec(u, V, mask, where: str, Q=None, rows=None, call=None) -> dict:
+    """Kernel 2's row: U (R, K) over per-user item rows V (R, J, K), or
+    reading rows ``rows`` of V (and of Q: v = p + q) and of the mask in
+    place. The bound counts the rows read once (P and Q both, through Q),
+    the library call one `einsum` + `topk` on the same rows (the gather and
+    the add included). ``call`` times a caller's whole sequence instead of
+    the kernel (same function, same bound)."""
     from repro_torch.kernels import ops, ref
     R, K = u.shape
+    idx = rows.long() if rows is not None else slice(None)
+
+    def rows_of():
+        return (V[idx] if Q is None else V[idx] + Q[idx]), mask[idx]
 
     def einsum_topk_dense():
-        s = torch.einsum("rk,rjk->rj", u, v_rows).masked_fill(mask != 0, ref.NEG_INF)
+        v, m = rows_of()
+        s = torch.einsum("rk,rjk->rj", u, v).masked_fill(m != 0, ref.NEG_INF)
         return torch.topk(s, K_TOP, dim=1)
 
-    live_d = int((mask == 0).sum())
+    live_d = int((mask[idx] == 0).sum())
     return dict(name="recommend_topk_peruser", src="topk_scores.cu",
                 replaces="src/repro/kernels/topk_scores.py:68",
-                kern=lambda: ops.recommend_topk_peruser(u, v_rows, mask, K_TOP),
-                plain=lambda: ref.topk_scores_peruser_ref(u, v_rows, mask, K_TOP),
+                kern=call or (lambda: ops.recommend_topk_peruser(u, V, mask, K_TOP, Q=Q,
+                                                                rows=rows)),
+                plain=lambda: ref.topk_scores_peruser_ref(u, *rows_of(), K_TOP),
                 lib=einsum_topk_dense,
-                hold=lambda got: hold_dense("recommend_topk_peruser", got, u, v_rows, mask, K_TOP),
-                nbytes=u.nbytes + mask.nbytes + live_d * K * 4 + R * K_TOP * 8,
-                flops=2 * live_d * K,
-                shape=f"{where}: R={R} J={v_rows.shape[1]} K={K} k={K_TOP}")
+                hold=lambda got: hold_dense("recommend_topk_peruser", got, u, *rows_of(), K_TOP),
+                nbytes=(u.nbytes + R * V.shape[1] + live_d * K * 4 * (1 if Q is None else 2)
+                        + (0 if rows is None else rows.nbytes) + R * K_TOP * 8),
+                flops=live_d * K * (2 if Q is None else 3),
+                shape=f"{where}: R={R} J={V.shape[1]} K={K} k={K_TOP}")
 
 
 def tiled_specs(tl, shapes) -> list[dict]:
@@ -1555,8 +1672,24 @@ def training_specs(tr, mb, shapes) -> list[dict]:
              lib=None, hold=hold_draws,
              nbytes=block_rid.nbytes + N * K * 4, flops=N * K * draw_ops,
              shape=f"N={N} n_cols={K}"),
-        dict(dense_spec(*shapes["evaluate"], "evaluate"), variant="evaluate_shape"),
+        dict(dense_spec(*shapes["evaluate"], "evaluate, on V"), variant="evaluate_shape"),
+        dict(evaluate_pq_spec(*shapes["evaluate_pq"], "evaluate, P and Q in place"),
+             variant="evaluate_pq"),
+        dict(evaluate_pq_spec(*shapes["chunk"], "evaluate, a 1,024-user chunk of P and Q"),
+             variant="evaluate_chunk"),
+        dict(evaluate_pq_spec(*shapes["evaluate_pq"], "evaluate, today's sequence: P + Q, "
+                              "then the kernel", sequence=True),
+             variant="evaluate_caller_sequence"),
     ]
+
+
+def evaluate_pq_spec(U, P, mask, Q, where: str, sequence: bool = False) -> dict:
+    """Kernel 2 at the evaluate shape through P and Q (the bound counts the
+    P and Q rows), or, with ``sequence``, the materializing caller's
+    ``P + Q`` then the kernel on V."""
+    from repro_torch.kernels import ops
+    call = (lambda: ops.recommend_topk_peruser(U, P + Q, mask, K_TOP)) if sequence else None
+    return dense_spec(U, P, mask, where, Q=Q, call=call)
 
 
 def baseline_specs(bl, shapes) -> list[dict]:
@@ -1668,31 +1801,55 @@ def time_spec(spec, errs, launches) -> dict:
 
 
 def brief(layout: dict) -> str:
-    keys = ("many", "threads", "blocks", "warps", "rpb", "slots", "tile")
+    keys = ("many", "cluster", "threads", "blocks", "warps", "stages", "rpb", "slots", "tile")
     return " ".join(f"{k}={layout[k]}" for k in keys if k in layout)
 
 
+def peruser_layouts(R: int, J: int, K: int, fused: bool, n_sms: int) -> list:
+    """[(name, layout)] of kernel 2 at R requests: the wrapper's choice,
+    the few-users form on clusters of 1, 2 and 4 blocks (16 warps a user)
+    and the many-users form (a block of 4 warps a user)."""
+    from repro_torch.kernels import topk_scores
+    out = [("wrapper", topk_scores.peruser_layout(R, J, K, K_TOP, n_sms, fused))]
+    for cluster in (1, 2, 4):
+        out.append((f"few users, cluster {cluster}", topk_scores.rows_layout(
+            J, K, K_TOP, cluster, 16 // cluster, topk_scores.RING_STAGES, fused, R)))
+    out.append(("many users", topk_scores.peruser_layout(R, J, K, K_TOP, 1, fused)))
+    return out
+
+
 def kernel_forms(shapes) -> dict[str, list]:
-    """[(form, call)] at each of the four main shapes of kernels 1 and 4:
-    the wrapper's layout first, then other layouts, then the wrapper's
-    layout scoring without merging (its outputs are list checksums, not a
-    slate). Every other form gives the wrapper's slate bit for bit."""
+    """[(form, call)] at the main shapes of kernels 1, 2 and 4: the
+    wrapper's layout first, then other layouts, then the wrapper's layout
+    scoring without merging (its outputs are list checksums, not a slate).
+    Every other form gives the wrapper's slate bit for bit."""
     from repro_torch.kernels import serve_topk, topk_scores
     out = {}
+    for key, (U, V, m, Q) in (("kernel 2 R=64", (*shapes["dense"], None)),
+                              ("kernel 2 R=1,024 P+Q", shapes["chunk"]),
+                              ("kernel 2 R=6,524", (*shapes["evaluate"], None)),
+                              ("kernel 2 R=6,524 P+Q", shapes["evaluate_pq"])):
+        R, K = U.shape
+        layouts = peruser_layouts(R, V.shape[1], K, Q is not None,
+                                  topk_scores._n_sms(U.device.index))
+        out[key] = [(f"{name} ({brief(lay)})", functools.partial(
+            topk_scores.peruser_on_layout, U, V, m, K_TOP, lay, Q=Q)) for name, lay in layouts]
+        out[key].append(("wrapper, score only", functools.partial(
+            topk_scores.peruser_on_layout, U, V, m, K_TOP, layouts[0][1], Q=Q, merge=False)))
     for key in ("MF", "per_request"):
         U, V, m = shapes[key]
         R, K = U.shape
         J = V.shape[0]
-        own = topk_scores.shared_layout(R, J, K, K_TOP, topk_scores._n_sms(U.device.index))
+        n_sms = topk_scores._n_sms(U.device.index)
+        own = topk_scores.shared_layout(R, J, K, K_TOP, n_sms)
         layouts = [("wrapper", own)]
         if own["many"]:
-            layouts.append(("few users, a block each",
-                            topk_scores.shared_layout(R, J, K, K_TOP, n_sms=10**9)))
+            layouts.append(("few users", topk_scores.shared_layout(R, J, K, K_TOP, n_sms=10**9)))
         else:
-            for warps in (4, 8, 16):
-                layouts.append((f"few users, {warps} warps", dict(
-                    own, threads=32 * warps,
-                    slots=topk_scores.few_slots(J, warps, own["tile"], K_TOP))))
+            for name, lay in peruser_layouts(R, J, K, False, n_sms)[1:4]:
+                layouts.append((name, dict(many=False, threads=lay["threads"],
+                                           blocks=lay["blocks"], slots=lay["slots"],
+                                           tile=lay["stages"], cluster=lay["cluster"])))
             layouts.append(("many users", topk_scores.shared_layout(R, J, K, K_TOP, n_sms=1)))
         out[key] = [(f"{name} ({brief(lay)})", functools.partial(
             topk_scores.shared_on_layout, U, V, m, K_TOP, lay)) for name, lay in layouts]
@@ -1714,16 +1871,17 @@ def kernel_forms(shapes) -> dict[str, list]:
     return out
 
 
-def time_forms(shapes, n: int = 200) -> dict:
+def time_forms(shapes) -> dict:
     """Each form of `kernel_forms`, held against the wrapper's form, then
     timed in turns in one call: every form once down the list and once back
-    up (device ms a call, ``n`` calls a timed run)."""
+    up (device ms a call; 200 calls a timed run, 40 at R=6,524)."""
     result = {}
     for key, forms in kernel_forms(shapes).items():
         want = forms[0][1]()
         for name, call in forms[1:]:
             if "score only" not in name:
                 same_bits(f"{key} form {name} vs the wrapper's", call(), want)
+        n = 40 if "6,524" in key or key == "MF" else 200
         times = {name: [] for name, _ in forms}
         for name, call in forms + forms[::-1]:
             times[name].append(device_ms(call, n))
@@ -1731,184 +1889,203 @@ def time_forms(shapes, n: int = 200) -> dict:
     return result
 
 
-def hold_parent_build(parent: pathlib.Path, cases, shared_cases, step_cases, shapes) -> dict:
+def load_parent(parent: pathlib.Path) -> dict:
     """Build the kernel library of the checkout unpacked in ``parent`` (the
-    commit before the warp-level merge: C launches without layout
-    arguments) and hold, bit for bit, its fp32 window kernel (kernel 1)
-    against this build's on each case (U, Vw, cand, seen_w, k), its
-    shared-V top-k (kernel 4) on each shared case (U, V, mask, k), and its
-    fused steps (kernels 3 and 7) on each step case (sx, z or None, hp,
-    clip): du, gp, dq and the loss. Then, at the main ``shapes``, hold the
-    parent's kernels 1, 4, 2, 5 and 6 (int8) against this build's bit for
-    bit and time them beside this build's, in turns (parent, this, this,
-    parent). Returns the numbers of cases held and the times."""
+    commit before kernel 2 read rows in place, whose C launches of kernels
+    2 and 4 take no row source and no cluster) and return callables of its
+    kernels 2, 4 and 8, each launching on this build's inputs with the
+    layout the parent's wrappers chose."""
     import ctypes
+    import importlib.util
 
-    from repro_torch.kernels import build, ops
-    out_dir = build.BUILD_ROOT / "parent"
-    lib = ctypes.CDLL(str(build.build(out_dir, parent / "src/repro_torch/kernels/csrc")))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    window = lib.serve_topk_window_launch
-    window.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
-    window.restype = i32
-    shared = lib.topk_shared_launch
-    shared.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    shared.restype = i32
+    from repro_torch.kernels import build
+    src = parent / "src/repro_torch/kernels"
+    lib = ctypes.CDLL(str(build.build(build.BUILD_ROOT / "parent", src / "csrc")))
+    spec = importlib.util.spec_from_file_location("parent_topk_scores", src / "topk_scores.py")
+    layouts = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(layouts)
+    ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     peruser = lib.topk_peruser_launch
-    peruser.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
-    peruser.restype = i32
-    slab = lib.serve_topk_launch
-    slab.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
-    slab.restype = i32
-    quant = lib.serve_topk_window_quant_launch
-    quant.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-    quant.restype = i32
+    peruser.argtypes, peruser.restype = [ptr] * 5 + [i32] * 5 + [ptr], i32
+    shared = lib.topk_shared_launch
+    shared.argtypes, shared.restype = [ptr] * 5 + [i32] * 10 + [ptr], i32
+    clip = lib.dp_clip_noise_launch
+    clip.argtypes, clip.restype = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr], i32
     stream = torch.cuda.current_stream().cuda_stream
 
     def outputs(R, k, dev):
         return (torch.empty((R, k), dtype=torch.float32, device=dev),
                 torch.empty((R, k), dtype=torch.int32, device=dev))
 
-    def parent_window(U, Vw, cand, seen, k):
-        vals, idx = outputs(U.shape[0], k, U.device)
-        err = window(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(),
-                     seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                     U.shape[0], cand.shape[1], U.shape[1], k, stream)
-        assert err == 0, f"parent build: kernel 1 launch error {err}"
-        return vals, idx
-
-    def parent_shared(U, V, mask, k):
-        vals, idx = outputs(U.shape[0], k, U.device)
-        err = shared(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
-                     vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[0], U.shape[1], k,
-                     stream)
-        assert err == 0, f"parent build: kernel 4 launch error {err}"
-        return vals, idx
-
-    def parent_peruser(U, V, mask, k):
-        vals, idx = outputs(U.shape[0], k, U.device)
+    def kernel2(U, V, mask, k):
+        R, J, K = V.shape
+        vals, idx = outputs(R, k, U.device)
         err = peruser(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
-                      vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[1], U.shape[1], k,
-                      stream)
+                      vals.data_ptr(), idx.data_ptr(), R, J, K, k,
+                      layouts.peruser_slots(J, k), stream)
         assert err == 0, f"parent build: kernel 2 launch error {err}"
         return vals, idx
 
-    def parent_slab(U, V, cand, seen, k):
-        vals, idx = outputs(U.shape[0], k, U.device)
-        err = slab(U.data_ptr(), V.data_ptr(), cand.data_ptr(), seen.view(torch.int8).data_ptr(),
-                   vals.data_ptr(), idx.data_ptr(), U.shape[0], V.shape[1], cand.shape[1],
-                   U.shape[1], k, stream)
-        assert err == 0, f"parent build: kernel 5 launch error {err}"
+    def kernel4(U, V, mask, k):
+        (R, K), J = U.shape, V.shape[0]
+        lay = layouts.shared_layout(R, J, K, k, layouts._n_sms(U.device.index))
+        vals, idx = outputs(R, k, U.device)
+        err = shared(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
+                     vals.data_ptr(), idx.data_ptr(), R, J, K, k, int(lay["many"]),
+                     lay["threads"], lay["blocks"], lay["slots"], lay["tile"], 1, stream)
+        assert err == 0, f"parent build: kernel 4 launch error {err}"
         return vals, idx
 
-    def parent_quant(U, Vq, scale, cand, seen, k):
-        vals, idx = outputs(U.shape[0], k, U.device)
-        err = quant(U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
-                    seen.view(torch.int8).data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                    U.shape[0], cand.shape[1], U.shape[1], k, int(Vq.dtype == torch.bfloat16),
-                    stream)
-        assert err == 0, f"parent build: kernel 6 launch error {err}"
-        return vals, idx
+    def kernel8(g, rid, seed, clip_, noise_std):
+        out = torch.empty_like(g)
+        err = clip(g.data_ptr(), rid.data_ptr(), out.data_ptr(), g.shape[0], g.shape[1],
+                   int(seed) & 0xFFFFFFFF, clip_, noise_std, stream)
+        assert err == 0, f"parent build: kernel 8 launch error {err}"
+        return out
 
-    for n, (U, Vw, cand, seen, k) in enumerate(cases):
-        same_bits(f"serve_topk_window: this build vs the parent's, case {n} "
-                  f"(R={U.shape[0]} Cw={cand.shape[1]} k={k})",
-                  ops.serve_topk_window(U, Vw, cand, seen, k), parent_window(U, Vw, cand, seen, k))
-    for n, (U, V, mask, k) in enumerate(shared_cases):
-        same_bits(f"recommend_topk: this build vs the parent's, case {n} "
-                  f"(R={U.shape[0]} J={V.shape[0]} k={k})",
-                  ops.recommend_topk(U, V, mask, k), parent_shared(U, V, mask, k))
-    # the fused steps' scratch: the loss partials of the two-launch form
-    # (dmf_step_blocks) or the ticket and partials of the one-launch form
-    # (dmf_step_scratch, zeroed)
-    scratch_fn = lib.dmf_step_scratch if hasattr(lib, "dmf_step_scratch") else lib.dmf_step_blocks
-    scratch_fn.argtypes, scratch_fn.restype = [i32], i32
-    step = lib.dmf_fused_step_launch
-    step.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
-    step.restype = i32
-    step_dp = lib.dmf_fused_step_dp_launch
-    step_dp.argtypes = [ptr] * 11 + [i32] * 2 + [f32] * 5 + [ptr]
-    step_dp.restype = i32
-    for n, (sx, z, hp, clip) in enumerate(step_cases):
-        B, K = sx[0].shape
-        out = [torch.empty_like(sx[0]) for _ in range(3)]
-        loss = torch.empty((), dtype=torch.float32, device=sx[0].device)
-        scratch = torch.zeros(max(scratch_fn(B), 1), dtype=torch.float32, device=sx[0].device)
-        ptrs = [x.data_ptr() for x in sx]
-        tail = [*(o.data_ptr() for o in out), scratch.data_ptr(), loss.data_ptr(), B, K,
-                *hp.values()]
-        if z is None:
-            err = step(*ptrs, *tail, stream)
-            got = ops.dmf_fused_step(*sx, **hp)
-        else:
-            err = step_dp(*ptrs, z.data_ptr(), *tail, clip, stream)
-            got = ops.dmf_fused_step_dp(*sx, z, **hp, clip=clip)
-        assert err == 0, f"parent build: step launch error {err}"
-        same_bits(f"dmf_fused_step{'' if z is None else '_dp'}: this build vs the parent's, "
-                  f"case {n} (B={B})", got, (*out, loss))
-    sync(sx[0].device)
-
-    times = {}
-    for key, shape, this, theirs in (
-            ("kernel 4 MF R=6,524", "MF", ops.recommend_topk, parent_shared),
-            ("kernel 4 per request R=1", "per_request", ops.recommend_topk, parent_shared),
-            ("kernel 1 serving R=64 Cw=384", "serving", ops.serve_topk_window, parent_window),
-            ("kernel 1 tiled R=128 Cw=128", "tiled", ops.serve_topk_window, parent_window),
-            ("kernel 2 serving R=64", "dense", ops.recommend_topk_peruser, parent_peruser),
-            ("kernel 2 evaluate R=6,524", "evaluate", ops.recommend_topk_peruser, parent_peruser),
-            ("kernel 5 serving R=64", "slab", ops.serve_topk, parent_slab),
-            ("kernel 6 int8 R=128", "int8", ops.serve_topk_window_quant, parent_quant)):
-        args = shapes[shape] + (K_TOP,)
-        same_bits(f"{key}: this build vs the parent's", this(*args), theirs(*args))
-        t = {"parent": [], "this": []}
-        for who in ("parent", "this", "this", "parent"):
-            t[who].append(device_ms(functools.partial(theirs if who == "parent" else this, *args),
-                                    200))
-        times[key] = t
-    return {"kernel1_cases": len(cases), "kernel4_cases": len(shared_cases),
-            "step_cases": len(step_cases), "device_ms": times}
+    return {"kernel2": kernel2, "kernel4": kernel4, "kernel8": kernel8}
 
 
-def parent_step_cases(dev, mb) -> list:
-    """Kernels 3 and 7 for the parent hold: seeded batches at B 1, 256,
-    1,000 and 5,000 (one block and several) with K=10, and at K 8 and 16,
-    clip inf/0.5, and the DP training batch of the main path."""
-    rng = np.random.default_rng(SEED + 11)
-    hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
-    cases = []
-    for B, K in ((1, 10), (256, 10), (1000, 10), (5000, 10), (256, 8), (1000, 16)):
-        sx = step_inputs(rng, B, K, dev)
-        z = torch.as_tensor((0.5 * rng.normal(size=(B, K))).astype(np.float32), device=dev)
-        cases += [(sx, None, hp, None), (sx, z, hp, float("inf")), (sx, z, hp, 0.5)]
-    c = mb["cfg"]
-    mhp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
-    cases += [(mb["sx"], None, mhp, None), (mb["sx"], mb["z"], mhp, c.dp_clip)]
+def same_bits_nan(name, got, want) -> None:
+    """Equal bit for bit, NaN payloads included."""
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+        f"{name}: not equal bit for bit")
+
+
+def peruser_forms(U, V, mask, k, Q=None, rows=None) -> list:
+    """[(form, call)] of kernel 2 on these rows: the wrapper, and every
+    layout of `peruser_layouts` with the same row source."""
+    from repro_torch.kernels import ops, topk_scores
+    R, K = U.shape
+    forms = [("wrapper", functools.partial(ops.recommend_topk_peruser, U, V, mask, k, Q=Q,
+                                           rows=rows))]
+    for name, lay in peruser_layouts(R, V.shape[1], K, Q is not None,
+                                     topk_scores._n_sms(U.device.index)):
+        lay = dict(lay, slots=topk_scores.rows_layout(
+            V.shape[1], K, k, lay["cluster"], lay["warps"], lay["stages"], Q is not None,
+            R)["slots"])
+        forms.append((f"{name} ({brief(lay)})", functools.partial(
+            topk_scores.peruser_on_layout, U, V, mask, k, lay, Q=Q, rows=rows)))
+    return forms
+
+
+def parent_peruser_cases(dev, J: int, shapes) -> list:
+    """Kernel 2's inputs for the parent hold, (name, U, V, mask, k, Q,
+    rows): phase 2's dense shapes at k 1/10/16 and its rows cases, and the
+    main shapes (the serving microbatch gathered and in place, evaluate on
+    V and on P and Q, the 1,024-user chunk)."""
+    rng = np.random.default_rng(SEED + 13)
+    U, V, mask = dense_inputs(rng, MICROBATCH, J, 10, dev)
+    cases = [(f"phase 2 k={k}", U, V, mask, k, None, None) for k in (1, K_TOP, 16)]
+    cases += peruser_row_cases(dev, J)
+    u, Ve, seen = shapes["dense"]
+    cases += [("serving R=64 gathered", u, Ve, seen, K_TOP, None, None),
+              ("evaluate R=6,524 on V", *shapes["evaluate"], K_TOP, None, None)]
+    for name, key in (("evaluate R=6,524 P and Q", "evaluate_pq"),
+                      ("chunk R=1,024 P and Q", "chunk")):
+        U_, P_, m_, Q_ = shapes[key]
+        cases.append((name, U_, P_, m_, K_TOP, Q_, None))
     return cases
 
 
-def parent_cases(dev, J, run, tl) -> list:
-    """Kernel 1's inputs for the parent hold: phase 2's tie-heavy windows
-    at k 1/10/16; one request of 33 slots (not a multiple of 32) with 5
-    live candidates at k=10, and 7 such requests at k=16; one microbatch of
-    each of the serving and the tiled paths."""
-    rng = np.random.default_rng(SEED + 7)
-    U, Vw, cand, seen = window_inputs(rng, MICROBATCH, 384, J, 10, dev)
-    cases = [(U, Vw, cand, seen, k) for k in (1, K_TOP, 16)]
-    for R, k in ((1, K_TOP), (7, 16)):
-        U, Vw, cand, seen = window_inputs(rng, max(R, 7), 33, J, 10, dev)
-        cand[:, 5:] = -1                       # 5 live slots at most: k above them
-        cases.append((U[:R].contiguous(), Vw[:R].contiguous(), cand[:R].contiguous(),
-                      seen[:R].contiguous(), k))
+def hold_parent_build(parent: pathlib.Path, shapes, run, shared_cases, clip_cases, mb) -> dict:
+    """Hold this build's kernels 2, 4 and 8 against the parent build's
+    (`load_parent`), bit for bit: kernel 2 in every form of
+    `peruser_forms` on each of `parent_peruser_cases` against the parent's
+    kernel on the materialized rows; kernel 4 on each shared case (U, V,
+    mask, k); kernel 8 on each clip case (g, rid, seed, clip, noise_std).
+    Then time both builds in turns (parent, this, this, parent) at the main
+    shapes, the parent with its callers' sequence where this build reads
+    rows in place. Returns the numbers of cases held and the times."""
+    from repro_torch.kernels import ops
+    theirs = load_parent(parent)
+    dev = shapes["dense"][0].device
     eng = run["engine"]
-    uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
-    cand = eng._bucket_items[eng._user_bucket[uids]]
-    vw, sw = gather_windows(eng.V[uids], eng.seen[uids], cand)
-    cases.append((eng.state.U[uids], vw, cand, sw, K_TOP))
-    st = tl["store"]
-    ids = torch.as_tensor(tl["fp32"][0][:M_MICROBATCH], device=dev)
-    mcand = torch.as_tensor(st.index.bucket_items, device=dev)[
-        torch.as_tensor(st.index.user_bucket, device=dev).long()[ids]]
-    cases.append((st.U[ids], st.slab[ids], mcand, st.seen[ids], K_TOP))
+    uids = shapes["serving_uids"]
+    n2 = 0
+    for name, U, V, mask, k, Q, rows in parent_peruser_cases(dev, shapes["dense"][1].shape[1],
+                                                             shapes):
+        want = theirs["kernel2"](U, *materialize(V, mask, Q, rows), k)
+        for form, call in peruser_forms(U, V, mask, k, Q, rows):
+            same_bits(f"kernel 2 {name}, {form}: this build vs the parent's", call(), want)
+            n2 += 1
+    u, Vr, seen_r = shapes["dense"]
+    same_bits("kernel 2 serving R=64 in place vs the parent's",
+              ops.recommend_topk_peruser(u, eng.V, eng.seen, K_TOP, rows=uids),
+              theirs["kernel2"](u, Vr, seen_r, K_TOP))
+    sync(dev)
+    for n, (U, V, mask, k) in enumerate(shared_cases):
+        same_bits(f"kernel 4: this build vs the parent's, case {n} "
+                  f"(R={U.shape[0]} J={V.shape[0]} k={k})",
+                  ops.recommend_topk(U, V, mask, k), theirs["kernel4"](U, V, mask, k))
+    for n, (g, rid, seed, clip, std) in enumerate(clip_cases):
+        same_bits_nan(f"kernel 8: this build vs the parent's, case {n} (B={g.shape[0]} "
+                      f"K={g.shape[1]} clip={clip} noise={std})",
+                      ops.dp_clip_noise(g, rid, seed, clip=clip, noise_std=std),
+                      theirs["kernel8"](g, rid, seed, clip, std))
+    sync(dev)
+
+    U, P, mask, Q = shapes["evaluate_pq"]
+    Uc, Pc, mc, Qc = shapes["chunk"]
+    c = mb["cfg"]
+    raw = ops.dmf_fused_step(*mb["sx"], theta=c.lr, alpha=c.alpha, beta=c.beta,
+                             gamma=c.gamma)[1]
+    rid_b = mb["rid"][:raw.shape[0]]
+    std = c.dp_sigma * c.dp_clip
+    pairs = {
+        "kernel 2 serving R=64, gathered rows": (
+            lambda: theirs["kernel2"](u, Vr, seen_r, K_TOP),
+            lambda: ops.recommend_topk_peruser(u, Vr, seen_r, K_TOP)),
+        "kernel 2 serving R=64: parent gathers U, V, seen rows + kernel; this reads in place": (
+            lambda: theirs["kernel2"](eng.state.U[uids], eng.V[uids], eng.seen[uids], K_TOP),
+            lambda: ops.recommend_topk_peruser(eng.state.U[uids], eng.V, eng.seen, K_TOP,
+                                               rows=uids)),
+        "kernel 2 evaluate R=6,524 on V": (
+            lambda: theirs["kernel2"](*shapes["evaluate"], K_TOP),
+            lambda: ops.recommend_topk_peruser(*shapes["evaluate"], K_TOP)),
+        "kernel 2 evaluate R=6,524: parent P + Q + kernel; this P and Q in place": (
+            lambda: theirs["kernel2"](U, P + Q, mask, K_TOP),
+            lambda: ops.recommend_topk_peruser(U, P, mask, K_TOP, Q=Q)),
+        "kernel 2 chunk R=1,024: parent P + Q + kernel; this P and Q in place": (
+            lambda: theirs["kernel2"](Uc, Pc + Qc, mc, K_TOP),
+            lambda: ops.recommend_topk_peruser(Uc, Pc, mc, K_TOP, Q=Qc)),
+        "kernel 8 B=256 K=10": (
+            lambda: theirs["kernel8"](raw, rid_b, mb["seed"], c.dp_clip, std),
+            lambda: ops.dp_clip_noise(raw, rid_b, mb["seed"], clip=c.dp_clip, noise_std=std)),
+        "kernel 4 per request R=1": (
+            lambda: theirs["kernel4"](*shapes["per_request"], K_TOP),
+            lambda: ops.recommend_topk(*shapes["per_request"], K_TOP)),
+        "kernel 4 MF R=6,524": (
+            lambda: theirs["kernel4"](*shapes["MF"], K_TOP),
+            lambda: ops.recommend_topk(*shapes["MF"], K_TOP)),
+    }
+    times = {}
+    for key, (parent_call, this_call) in pairs.items():
+        n = 40 if "6,524" in key else 200
+        t = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            t[who].append(device_ms(parent_call if who == "parent" else this_call, n))
+        times[key] = t
+    return {"kernel2_calls": n2, "kernel4_cases": len(shared_cases),
+            "kernel8_cases": len(clip_cases), "device_ms": times}
+
+
+def parent_clip_cases(dev) -> list:
+    """Kernel 8's 20 batches for the parent hold: B 1, 33, 256, 1,000 and
+    5,000, each at four of K 8/10/16 × clip inf/0.5 × noise 0/1, with a
+    zero row and (from B=33) a NaN row."""
+    rng = np.random.default_rng(SEED + 17)
+    cases = []
+    for i, B in enumerate((1, 33, 256, 1000, 5000)):
+        for j in range(4):
+            K = (8, 10, 16)[(i + j) % 3]
+            g = rng.normal(0, 1, (B, K)).astype(np.float32)
+            g[0] = 0.0
+            if B > 2:
+                g[2, K // 2] = np.nan
+            rid = ((1 << 23) - B // 2 + np.arange(B)).astype(np.int32)
+            cases.append((torch.as_tensor(g, device=dev), torch.as_tensor(rid, device=dev),
+                          7 + i, (float("inf"), 0.5)[j % 2], (0.0, 1.0)[j // 2]))
     return cases
 
 
@@ -2038,6 +2215,7 @@ def main(argv=None) -> int:
     summary = training_summary(tr)
     summary["card_vs_cpu"] = {k: tr["card_vs_cpu"][k] for k in ("loss_rel", "state_abs")}
     summary["determinism_bitwise"] = tr["determinism"]
+    summary["peak_above_resident"] = evaluate_peaks(ds, tr, dev)
     log("training", json.dumps(summary))
 
     tl, launches["tiled"] = counted("tiled", TILED_KERNELS, lambda: drive_tiled(dev))
@@ -2081,12 +2259,12 @@ def main(argv=None) -> int:
     log(f"phase 4 forms: {time.perf_counter() - t0} s")
     if parent is not None:
         t0 = time.perf_counter()
-        held = hold_parent_build(parent, parent_cases(dev, J, run, tl),
-                                 parent_shared_cases(dev, bl), parent_step_cases(dev, mb), shapes)
-        log(f"parent build: kernel 1 equal bit for bit on {held['kernel1_cases']} cases, "
-            f"kernel 4 on {held['kernel4_cases']}, kernels 3 and 7 on {held['step_cases']}, "
-            f"kernels 1, 4, 2, 5 and 6 at the {len(held['device_ms'])} main shapes "
-            f"({time.perf_counter() - t0} s); device ms {json.dumps(held['device_ms'])}")
+        held = hold_parent_build(parent, shapes, run, parent_shared_cases(dev, bl),
+                                 parent_clip_cases(dev), mb)
+        log(f"parent build: kernel 2 equal bit for bit in {held['kernel2_calls']} calls (every "
+            f"form), kernel 4 on {held['kernel4_cases']} cases, kernel 8 on "
+            f"{held['kernel8_cases']} ({time.perf_counter() - t0} s); device ms in turns "
+            f"{json.dumps(held['device_ms'])}")
     assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

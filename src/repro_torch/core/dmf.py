@@ -502,18 +502,21 @@ def evaluate(
 ) -> dict[str, float]:
     """P@k / R@k through the per-user top-k kernel
     (`ops.recommend_topk_peruser`, kernel 2): the (I, J) score matrix never
-    materializes. Unchunked, V = P + Q is built once (I·J·K floats).
+    materializes, and neither does V = P + Q: the kernel reads the P and Q
+    rows in place and adds them in registers.
 
-    ``chunk_users`` streams the user axis: each chunk builds only its own V
-    rows and mask rows. Hit counts are integers reduced in the same global
-    user order, so the result is the same floats as unchunked."""
+    ``chunk_users`` streams the user axis: each chunk builds only its own
+    mask rows and reads its slices of U, P and Q (views, no copy). Hit
+    counts are integers reduced in the same global user order, so the
+    result is the same floats as unchunked."""
     dev = _require_state_on(state, device, "evaluate")
     kmax = max(ks)
     if chunk_users is None:
         train_mask = metrics_lib.masks_from_interactions(n_users, n_items, train)
         test_mask = metrics_lib.masks_from_interactions(n_users, n_items, test)
-        _, idx = ops.recommend_topk_peruser(state.U, state.P + state.Q,
-                                            torch.as_tensor(train_mask, device=dev), kmax)
+        _, idx = ops.recommend_topk_peruser(state.U, state.P,
+                                            torch.as_tensor(train_mask, device=dev), kmax,
+                                            Q=state.Q)
         return metrics_lib.evaluate_ranking_from_topk(idx.cpu().numpy(), test_mask, ks)
     hits: dict[int, list[np.ndarray]] = {k: [] for k in ks}
     n_test_parts: list[np.ndarray] = []
@@ -522,8 +525,9 @@ def evaluate(
         e = min(s + step, n_users)
         tm = metrics_lib.masks_from_interactions_rows(s, e - s, n_items, train)
         ts = metrics_lib.masks_from_interactions_rows(s, e - s, n_items, test)
-        _, idx = ops.recommend_topk_peruser(state.U[s:e], state.P[s:e] + state.Q[s:e],
-                                            torch.as_tensor(tm, device=dev), kmax)
+        _, idx = ops.recommend_topk_peruser(state.U[s:e], state.P[s:e],
+                                            torch.as_tensor(tm, device=dev), kmax,
+                                            Q=state.Q[s:e])
         rec = idx.cpu().numpy()
         for k in ks:
             hits[k].append(metrics_lib.topk_hits(rec, ts, k))

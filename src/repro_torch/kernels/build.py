@@ -106,7 +106,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.serve_topk_launch.restype = i32
     lib.serve_topk_window_quant_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.serve_topk_window_quant_launch.restype = i32
-    lib.topk_peruser_launch.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
+    lib.topk_peruser_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     lib.topk_peruser_launch.restype = i32
     lib.dmf_fused_step_launch.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
     lib.dmf_fused_step_launch.restype = i32
@@ -118,7 +118,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.counter_words_launch.restype = i32
     lib.dp_clip_noise_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr]
     lib.dp_clip_noise_launch.restype = i32
-    lib.topk_shared_launch.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
+    lib.topk_shared_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
     lib.topk_shared_launch.restype = i32
     lib.dmf_grads_launch.argtypes = [ptr] * 8 + [i32] * 2 + [f32] * 3 + [ptr]
     lib.dmf_grads_launch.restype = i32

@@ -20,11 +20,17 @@
 // `gauss_counter_launch` writes the epoch's (28,160 × 10) block: 1.1 MB
 // out, 113 KB of rids in, 0.37 us at 3.35 TB/s; its 281,600 draws at ~60
 // operations each (two hash words, log, cos, sqrt) are ~17 MOP, 0.25 us at
-// 67 TOP/s. `dp_clip_noise_launch` at B=256, K=10 moves 21 KB (6 ns).
+// 67 TOP/s. `dp_clip_noise_launch` at B=256, K=10 moves 21 KB (6 ns): its
+// time is the launch and one thread's chain of work.
 //
 // Design: one thread per element for the stream (no reuse between
-// elements), one thread per row for the clip (the row norm is a
-// sequential sum over K). The noise add is skipped when noise_std == 0,
+// elements) and for the clip + noise, whose draws are independent of the
+// row's norm: a block holds whole rows (256 / K of them), each thread
+// stages its element in shared memory and draws its noise, one barrier,
+// the row's first thread sums the row's squares in ascending column order
+// (the order and expression of the one-thread-a-row form it replaced, so
+// the same bits) and shares the scale, one barrier, each thread scales
+// and adds. The noise add (and the draw) is skipped when noise_std == 0,
 // so clip = inf with noise 0 returns g bit for bit (−0.0 + 0.0 would be
 // +0.0). The scale keeps NaN where the reference's minimum does.
 #include <cstdint>
@@ -86,21 +92,36 @@ counter_words_kernel(const int32_t* __restrict__ rid, uint32_t* __restrict__ h1,
 
 __global__ void __launch_bounds__(kThreads)
 dp_clip_noise_kernel(const float* __restrict__ g, const int32_t* __restrict__ rid,
-                     float* __restrict__ out, int B, int K, uint32_t seed, float clip,
-                     float noise_std) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const size_t o = static_cast<size_t>(b) * K;
-  float ss = 0.f;
-  for (int c = 0; c < K; ++c) ss += g[o + c] * g[o + c];
-  const float ratio = clip / sqrtf(ss);             // inf/0 -> scale 1
-  const float scale = ratio >= 1.f ? 1.f : ratio;   // NaN stays NaN
-  const uint32_t r = static_cast<uint32_t>(rid[b]);
-  for (int c = 0; c < K; ++c) {
-    float v = __fmul_rn(g[o + c], scale);
+                     float* __restrict__ out, int B, int K, int rows_per_block, uint32_t seed,
+                     float clip, float noise_std) {
+  __shared__ float s_g[kThreads];
+  __shared__ float s_scale[kThreads];
+  const int b0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, B - b0);
+  const int t = threadIdx.x;
+  const int lr = t / K, c = t - lr * K;   // row within the block, column
+  const bool live = lr < rows;
+  const int64_t i = static_cast<int64_t>(b0) * K + t;
+  float x = 0.f, z = 0.f;
+  if (live) {
+    x = g[i];
+    s_g[t] = x;
     if (noise_std != 0.f)
-      v = __fadd_rn(v, __fmul_rn(noise_std, gauss_counter(seed, r, static_cast<uint32_t>(c))));
-    out[o + c] = v;
+      z = gauss_counter(seed, static_cast<uint32_t>(rid[b0 + lr]), static_cast<uint32_t>(c));
+  }
+  __syncthreads();
+  if (t < rows) {   // thread t: row t's scale
+    const float* row = s_g + t * K;
+    float ss = 0.f;
+    for (int cc = 0; cc < K; ++cc) ss += row[cc] * row[cc];
+    const float ratio = clip / sqrtf(ss);             // inf/0 -> scale 1
+    s_scale[t] = ratio >= 1.f ? 1.f : ratio;          // NaN stays NaN
+  }
+  __syncthreads();
+  if (live) {
+    float v = __fmul_rn(x, s_scale[lr]);
+    if (noise_std != 0.f) v = __fadd_rn(v, __fmul_rn(noise_std, z));
+    out[i] = v;
   }
 }
 
@@ -125,7 +146,10 @@ extern "C" int counter_words_launch(const int32_t* rid, uint32_t* h1, uint32_t* 
 extern "C" int dp_clip_noise_launch(const float* g, const int32_t* rid, float* out, int B,
                                     int K, uint32_t seed, float clip, float noise_std,
                                     void* stream) {
-  dp_clip_noise_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, rid, out, B, K, seed, clip, noise_std);
+  if (K < 1 || K > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows_per_block = kThreads / K;
+  dp_clip_noise_kernel<<<(B + rows_per_block - 1) / rows_per_block, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(g, rid, out, B, K, rows_per_block,
+                                                              seed, clip, noise_std);
   return static_cast<int>(cudaGetLastError());
 }

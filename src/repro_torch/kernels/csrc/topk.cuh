@@ -24,7 +24,9 @@
 // on the MF state (PERF.md §6). No block barrier. A block with several warps on one
 // request takes one barrier: each warp writes its k best to shared memory,
 // and one warp merges those lists, one a lane, through the same network
-// 16 keys a lane (`merge_request`).
+// 16 keys a lane (`merge_request`), or, for up to 16 warps' lists (a
+// block or a thread block cluster), eight lists at a time on each of two
+// warps, 4 keys a lane (`merge_lists`).
 #pragma once
 
 #include <climits>
@@ -174,13 +176,15 @@ __device__ __forceinline__ void exchange(unsigned long long (&x)[E], int mask, b
 // `stride` lanes up: a flip step (position i against the other run's
 // 2n − 1 − i), then half-cleaners; while n < 16 both halves are kept and
 // cleaned, after that only the lower run's 16. The best 16 end in lanes
-// [0, 16 / E), sorted. All 32 lanes call it.
+// [0, 16 / E), sorted. `first` > 1: the keys already form sorted runs of
+// `first` lanes (E · first keys each), and the network starts from them.
+// All 32 lanes call it.
 template <int E>
-__device__ __forceinline__ void net(unsigned long long (&x)[E], int lanes) {
+__device__ __forceinline__ void net(unsigned long long (&x)[E], int lanes, int first = 1) {
   static_assert(E == 4 || E == 16, "4 or 16 keys a lane");
   const int lane = threadIdx.x & 31;
-  int n = E, m = 1;
-  for (int stride = 1; stride < lanes; stride <<= 1) {
+  int n = E * first, m = first;
+  for (int stride = first; stride < lanes; stride <<= 1) {
     exchange(x, stride | (m - 1), true, (lane & stride) == 0);
     for (int d = (n < NET_KEEP ? n : NET_KEEP) / 2; d >= E; d >>= 1)
       exchange(x, d / E, false, (lane & (d / E)) == 0);
@@ -298,6 +302,52 @@ __device__ __forceinline__ void merge_request(const LaneTopK<SLOTS>& L, int k, i
     net(y, warps);
     if (out_v != nullptr) write_top(y, k, out_v, out_i);
   }
+}
+
+// Lists first, first + 1, ... (fewer than `lists`, at most 8) of `sm`,
+// each k sorted keys, as runs of 16 keys over 4 lanes (list first + l/4
+// in lanes l, slot 4·(l % 4) + s in key s; past k or past the lists, 0).
+__device__ __forceinline__ void load_runs(const MergeScratch& sm, int first, int lists, int k,
+                                          unsigned long long (&x)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int list = first + (lane >> 2);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int slot = 4 * (lane & 3) + s;
+    x[s] = list < lists && list < first + 8 && slot < k ? sm.key[list][slot] : 0;
+  }
+}
+
+// The k best of `lists` (at most MERGE_WARPS) sorted lists of k keys in
+// `sm`, in order, into (out_v, out_i), by warps 0 and 1 of the block (w,
+// block-uniform `lists`): eight lists at a time as runs of 16 keys over 4
+// lanes, merged by the 4-key network from runs of 16 (three steps for
+// eight lists). Above eight lists warp 1 merges lists 8-15 at the same
+// time, leaves its best 16 in list 8's slots, and after a barrier of the
+// two warps warp 0 takes them in with `merge16`. Both warps call it.
+__device__ __forceinline__ void merge_lists(MergeScratch& sm, int lists, int k, int w,
+                                            float* out_v, int* out_i) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long x[4];
+  load_runs(sm, w == 0 ? 0 : 8, lists, k, x);
+  if (w == 1 && lists <= 8) return;
+  net(x, 4 * (w == 0 ? (lists < 8 ? lists : 8) : lists - 8), 4);
+  if (lists > 8) {
+    if (w == 1) {
+      __syncwarp();   // every lane has read lists 8-15
+      if (lane < 4) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s) sm.key[8][4 * lane + s] = x[s];
+      }
+    }
+    asm volatile("bar.sync 1, 64;\n" ::: "memory");   // warps 0 and 1
+    if (w == 1) return;
+    unsigned long long y[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) y[s] = sm.key[8][4 * (lane & 3) + s];
+    merge16(x, y);
+  }
+  write_top(x, k, out_v, out_i);
 }
 
 // True if a lane list of `slots` entries can serve k from lanes that score

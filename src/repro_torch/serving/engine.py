@@ -13,8 +13,9 @@ Request path:
 2. **Dispatch** — gather each request's home-city candidate window
    (R, cap, K) out of the device-resident V = P + Q view (PyTorch
    indexing) and run the serve kernel (`ops.serve_topk_window`).
-   ``prune=False`` instead hands the full (R, J, K) rows to the dense
-   kernel (`ops.recommend_topk_peruser`).
+   ``prune=False`` instead has the dense kernel
+   (`ops.recommend_topk_peruser`) read the requests' full rows of V and of
+   the seen mask where they lie (``rows=uids``): no (R, J, K) gather.
 3. **Online refresh** — `ingest` streams new check-ins through
    `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
    on, also the mechanism kernel `ops.dp_clip_noise`), then
@@ -84,13 +85,16 @@ def _dispatch_pruned(U, V, seen, bucket_items, user_bucket, uids, k: int):
 
 
 def _dispatch_dense(U, V, seen, uids, k: int):
-    """Dense microbatch: the requests' full item rows, full-J top-k."""
-    return ops.recommend_topk_peruser(U[uids], V[uids], seen[uids], k)
+    """Dense microbatch: full-J top-k over the requests' item rows and seen
+    rows, which the kernel reads in place (rows ``uids`` of V and seen)."""
+    return ops.recommend_topk_peruser(U[uids], V, seen, k, rows=uids)
 
 
 def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune: bool):
     """Microbatch over the raw factor state, forming v = p + q of the
-    requested rows on the fly (gather-then-add equals gathering V)."""
+    requested rows on the fly (gather-then-add equals gathering V; the
+    dense kernel reads the P, Q and seen rows in place and adds in
+    registers)."""
     u = U[uids]
     rows = uids[:, None]
     if prune:
@@ -98,7 +102,7 @@ def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune
         safe = cand.clamp_min(0).long()
         vw = P[rows, safe] + Q[rows, safe]        # (R, cap, K)
         return ops.serve_topk_window(u, vw, cand, seen[rows, safe], k)
-    return ops.recommend_topk_peruser(u, P[uids] + Q[uids], seen[uids], k)
+    return ops.recommend_topk_peruser(u, P, seen, k, Q=Q, rows=uids)
 
 
 class ServingEngine:

@@ -16,7 +16,9 @@ DP step's deltas within 1e-5. The slab form of the serving kernel
 same rows, and the int8/bf16 form (`serve_topk_window_quant`) equals it on
 the dequantized windows, bit for bit; the tiled engine on the card agrees
 with the same store on the CPU (store tensors bit for bit, slates as
-above). The shared-V top-k (`recommend_topk`, kernel 4) is held like the
+above). The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
+and in every layout equals the call on the materialized rows bit for bit.
+The shared-V top-k (`recommend_topk`, kernel 4) is held like the
 other top-k kernels, and on one user with V = p^i + q^i equals the
 per-user kernel bit for bit; the gradients kernel (`dmf_grads`, kernel 9)
 is within 2e-5 abs + rel of its plain version, its gp equals the fused
@@ -152,6 +154,33 @@ def test_dp_clip_noise_kernel(dev, B, clip, std):
                                rtol=0, atol=DRAW_TOL)
     if clip == float("inf") and std == 0.0:
         assert torch.equal(got, g)                        # disabled: bit for bit
+
+
+@pytest.mark.parametrize("B", [25, 26, 1000, 5000])
+@pytest.mark.parametrize("K", [8, 10, 16, 256])
+def test_dp_clip_noise_kernel_across_blocks_with_nan_and_zero_rows(dev, B, K):
+    """One thread an element over several blocks (256 / K whole rows a
+    block): against the plain version with a zero row (scale 1) and a NaN
+    row (NaN everywhere in it, as the reference's minimum keeps it), and
+    the disabled mechanism g bit for bit on every finite row."""
+    rng = np.random.default_rng(B + K)
+    g = rng.normal(size=(B, K)).astype(np.float32)
+    g[0] = 0.0
+    g[B // 2, K // 2] = np.nan
+    rid = ((1 << 23) - B // 2 + np.arange(B)).astype(np.int32)
+    g, rid = (torch.as_tensor(x, device=dev) for x in (g, rid))
+    for clip, std in ((0.5, 0.0), (0.5, 0.7), (float("inf"), 1.0)):
+        got = ops.dp_clip_noise(g, rid, 3, clip=clip, noise_std=std)
+        want = ref.dp_clip_noise_ref(g, rid, 3, clip, std)
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isnan(got[B // 2]).all())
+        fin = ~torch.isnan(want)
+        torch.testing.assert_close(got[fin], want[fin], rtol=0, atol=DRAW_TOL)
+    off = ops.dp_clip_noise(g, rid, 3, clip=float("inf"), noise_std=0.0)
+    finite = torch.ones(B, dtype=torch.bool, device=dev)
+    finite[B // 2] = False
+    assert torch.equal(off[finite].view(torch.int32), g[finite].view(torch.int32))
+    assert bool(torch.isnan(off[B // 2]).all())
 
 
 @pytest.mark.parametrize("B", [256, 100, 1])
@@ -321,6 +350,88 @@ def test_recommend_topk_one_user_equals_the_peruser_kernel(dev):
         assert torch.equal(many[0], per[0]) and torch.equal(many[1], per[1])
 
 
+def _rows_case(rng, N, J, K, dev):
+    """Kernel 2's row sources: U, P, Q over N rows with an all-zero user,
+    a row whose v = p + q is 0 on every third item, repeated items, an
+    all-masked row and a row with three unmasked items."""
+    U = rng.normal(size=(N, K)).astype(np.float32)
+    U[0] = 0.0
+    P = rng.normal(size=(N, J, K)).astype(np.float32)
+    Q = rng.normal(size=(N, J, K)).astype(np.float32)
+    P[1, ::3] = -Q[1, ::3]
+    P[2, J // 2:J // 2 + 20] = P[2, 0]
+    Q[2, J // 2:J // 2 + 20] = Q[2, 0]
+    mask = (rng.random((N, J)) < 0.1).astype(np.int8)
+    mask[0] = 0
+    mask[3] = 1
+    if N > 4:
+        mask[4] = 1
+        mask[4, rng.choice(J, min(J, 3), replace=False)] = 0
+    return tuple(torch.as_tensor(x, device=dev) for x in (U, P, Q, mask))
+
+
+@pytest.mark.parametrize("R", [1, 7, 64, 131, 133, 1024])
+@pytest.mark.parametrize("J", [1, 33, 127, 128, 129, 3197])
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_topk_peruser_kernel_across_layouts_and_row_sources(dev, R, J, k):
+    """Kernel 2 on materialized rows against its plain version; through
+    rows (repeated, unsorted, odd, so 8 bytes off a 16-byte boundary at
+    K=10) of V and of P and Q, and on slices of P and Q
+    at an odd start; and every layout (clusters 1/2/4, warps, ring stages,
+    V or P and Q) equal to the call on the materialized rows bit for bit."""
+    K = 10
+    rng = np.random.default_rng(R * J + k)
+    N = R + 5
+    U, P, Q, mask = _rows_case(rng, N, J, K, dev)
+    rows = torch.as_tensor(rng.permutation(N)[:R], device=dev)
+    if R > 4:
+        rows[1], rows[2], rows[3], rows[4] = rows[0], 1, 3, 0
+    Ur = U[:R].contiguous()
+    Vm, Mm = (P[rows] + Q[rows]).contiguous(), mask[rows].contiguous()
+    before = ops.recommend_topk_peruser.launches
+    want = ops.recommend_topk_peruser(Ur, Vm, Mm, k)
+    torch.cuda.synchronize()
+    assert ops.recommend_topk_peruser.launches == before + 1
+    sc = (Ur[:, None] * Vm).sum(-1).masked_fill(Mm != 0, ref.NEG_INF).cpu().numpy()
+    _hold(want, ref.topk_scores_peruser_ref(Ur, Vm, Mm, k), lambda r, item: sc[r, item])
+    V = (P + Q).contiguous()
+    calls = [ops.recommend_topk_peruser(Ur, V, mask, k, rows=rows),
+             ops.recommend_topk_peruser(Ur, P, mask, k, Q=Q, rows=rows)]
+    for cluster in (1, 2, 4):
+        for warps in {1, 4, 16 // cluster}:
+            for stages in (1, 2):
+                for fused in (False, True):
+                    lay = topk_scores.rows_layout(J, K, k, cluster, warps, stages, fused, R)
+                    calls.append(topk_scores.peruser_on_layout(
+                        Ur, P, mask, k, lay, Q=Q, rows=rows) if fused else
+                        topk_scores.peruser_on_layout(Ur, Vm, Mm, k, lay))
+    for got in calls:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    s = 1                                  # odd start: rows 8 bytes off 16 at K=10
+    sl = ops.recommend_topk_peruser(U[s:s + R], P[s:s + R], mask[s:s + R], k, Q=Q[s:s + R])
+    plain = ops.recommend_topk_peruser(U[s:s + R].contiguous(), V[s:s + R].contiguous(),
+                                       mask[s:s + R].contiguous(), k)
+    assert torch.equal(sl[0], plain[0]) and torch.equal(sl[1], plain[1])
+    torch.cuda.synchronize()
+
+
+def test_topk_peruser_signed_zero_scores_tie_on_id(dev):
+    """Scores of −0.0 and +0.0 rank equal in kernel 2 too: each slate is the
+    lowest unmasked ids, in the few- and many-users layouts."""
+    R, J, K = 140, 500, 10
+    rng = np.random.default_rng(4)
+    U = torch.full((R, K), 1e-30, device=dev)
+    sign = np.where(rng.random((R, J, 1)) < 0.5, -1.0, 1.0).astype(np.float32)
+    V = torch.as_tensor(np.broadcast_to(sign * 1e-30, (R, J, K)).copy(), device=dev)
+    mask = torch.as_tensor(rng.random((R, J)) < 0.2, device=dev)
+    for lay in (topk_scores.peruser_layout(R, J, K, 10, n_sms=10**9),
+                topk_scores.peruser_layout(R, J, K, 10, n_sms=1)):
+        vals, idx = topk_scores.peruser_on_layout(U, V, mask, 10, lay)
+        for r, m in enumerate(mask.cpu().numpy()):
+            assert idx[r].tolist() == np.flatnonzero(~m)[:10].tolist(), (lay, r)
+        assert bool((vals == 0).all()) and bool(torch.signbit(vals).any())
+
+
 def _shared_case(rng, R, J, K, dev):
     """Kernel 4's inputs with an all-zero user, repeated item rows, an
     all-masked row, and a row with fewer unmasked items than 16."""
@@ -416,7 +527,7 @@ def test_serve_topk_window_kernel_layouts(dev, Cw, k):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("case", ["block", "slots", "smem"])
+@pytest.mark.parametrize("case", ["block", "slots", "smem", "lists", "cluster"])
 def test_top_k_kernels_refuse_layouts_they_cannot_run(dev, case):
     U = torch.zeros(4, 10, device=dev)
     Vw = torch.zeros(4, 384, 10, device=dev)
@@ -428,9 +539,15 @@ def test_top_k_kernels_refuse_layouts_they_cannot_run(dev, case):
             serve_topk.window_on_layout(U, Vw, cand, seen, 10, dict(warps=32, rpb=1, slots=4))
         elif case == "slots":        # 12 candidates a lane need 16 slots for k=10
             serve_topk.window_on_layout(U, Vw, cand, seen, 10, dict(warps=1, rpb=1, slots=8))
-        else:                        # a J tile past 227 KB of shared memory
+        elif case == "smem":         # a J tile past 227 KB of shared memory
             layout = topk_scores.shared_layout(4, 384, 10, 10, n_sms=1)
             topk_scores.shared_on_layout(U, V, mask, 10, dict(layout, tile=6000))
+        elif case == "lists":        # 4 blocks × 8 warps: more lists than one merge takes
+            layout = topk_scores.rows_layout(384, 10, 10, 4, 8, 2, False, 4)
+            topk_scores.peruser_on_layout(U, Vw, seen, 10, layout)
+        else:                        # a cluster of 5 blocks
+            layout = topk_scores.rows_layout(384, 10, 10, 5, 2, 2, False, 4)
+            topk_scores.peruser_on_layout(U, Vw, seen, 10, layout)
 
 
 def _grads_inputs(rng, B, K, dev):

@@ -213,12 +213,13 @@ def test_recommend_topk_rejects_bad_arguments():
         ops.recommend_topk(U.double(), V, m, 2)
 
 
-def _few_items_per_lane(J, threads, group):
-    """Items one lane of the few-users form scores: warp w copies the
-    groups of ``group`` 128-item chunks w, w + warps, ..., 4 items of each
-    chunk a lane."""
-    groups, warps = -(-J // (128 * group)), threads // 32
-    return 4 * group * -(-groups // warps)
+def _few_items_per_lane(J, threads, cluster):
+    """Items one lane of the few-users form scores: a user's 128-item
+    chunks in contiguous shares over ``cluster`` blocks, warp w of a block
+    streaming its share's chunks w, w + warps, ..., 4 items of each chunk
+    a lane."""
+    chunks, warps = -(-J // 128), threads // 32
+    return max(1, 4 * -(-(-(-chunks // cluster)) // warps))
 
 
 @pytest.mark.parametrize("R", [1, 2, 7, 131, 132, 133, 1100, 6524])
@@ -248,20 +249,25 @@ def test_recommend_topk_layout_fits_the_card_and_covers_every_row(R, J, K, k):
         assert -(-J // j_tile) * j_tile >= J
         per_lane = 4 * -(-J // 128)                        # 4 items a lane a pass
     else:
-        assert lay["blocks"] == R and lay["tile"] in (1, 2)
-        assert 4 * K * 128 * lay["tile"] * lay["threads"] // 32 + 2048 == lay["smem_bytes"]
-        per_lane = _few_items_per_lane(J, lay["threads"], lay["tile"])
+        assert lay["cluster"] in (1, 2, 3, 4) and lay["blocks"] == R * lay["cluster"]
+        assert lay["cluster"] * lay["threads"] // 32 <= 16           # lists one merge takes
+        assert 1 <= lay["tile"] <= 4                                 # ring stages a warp
+        # a stage: the chunk's rows with 4 floats of alignment room, its mask window
+        stage = 4 * (128 * K + 4) + 144
+        assert stage * lay["tile"] * lay["threads"] // 32 + 2048 == lay["smem_bytes"]
+        per_lane = _few_items_per_lane(J, lay["threads"], lay["cluster"])
     assert lay["slots"] >= min(k, per_lane)
 
 
 def test_recommend_topk_layout_of_the_main_paths():
-    """One DMF request (R=1) takes the few-users form in 13 warps with
-    8-slot lists; the MF/BPR states (R=6,524) the many-users form on 132
-    blocks with V staged in one tile."""
+    """One DMF request (R=1) takes the few-users form on a cluster of 4
+    blocks of 4 warps with 8-slot lists and a 2-chunk ring; the MF/BPR
+    states (R=6,524) the many-users form on 132 blocks with V staged in
+    one tile."""
     from repro_torch.kernels import topk_scores
     one = topk_scores.shared_layout(1, 3197, 10, 10)
-    assert (one["many"], one["threads"], one["blocks"], one["slots"], one["tile"]) == (
-        False, 416, 1, 8, 2)
+    assert (one["many"], one["cluster"], one["threads"], one["blocks"], one["slots"],
+            one["tile"]) == (False, 4, 128, 4, 8, 2)
     mf = topk_scores.shared_layout(6524, 3197, 10, 10)
     assert (mf["many"], mf["blocks"], mf["slots"], mf["tile"]) == (True, 132, 16, 3200)
     with pytest.raises(ValueError):           # a row too wide to stage 4 items
