@@ -7,10 +7,11 @@ tiled serving at the reference's million configuration, and times each
 kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
-    python3 chip_smoke.py --parent DIR    # also hold kernels 2 (every form),
-                                          # 4 and 8 against the build of the
-                                          # checkout unpacked in DIR, bit for
-                                          # bit, and time both builds
+    python3 chip_smoke.py --parent DIR    # also hold kernels 6 (both sources),
+                                          # 1, 5, 8 and the noise stream
+                                          # against the build of the checkout
+                                          # unpacked in DIR, bit for bit, and
+                                          # time both builds
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -20,14 +21,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    all-seen rows and rows with fewer candidates than k. Values agree
    within 1e-5; an index may differ only where the plain version scores
    the two items within that tolerance. The DP kernels: the noise
-   stream's hash words exactly and its draws within 1e-6 (seeds 0, 7,
-   2^31-1; rids 0..29,999 and around 2^23), the clip + noise kernel within
+   stream's hash words exactly and its draws within 1e-6 and bit for bit
+   those of the clip + noise kernel on zero messages (seeds 0, 7, 2^31-1
+   at 10, 1 and 256 columns; rids 0..29,999 and around 2^23), the clip +
+   noise kernel within
    1e-6 (bit for bit with clip=inf and noise 0), the fused DP step's
    deltas within 1e-5 (B 256/100/1, clip inf/0.5/1e-3, noise zero and not,
    a zero-norm row). The slab serving kernel (kernel 5) and the int8/bf16
    window kernel (kernel 6, with an all-zero int8 request) within 1e-5,
    and bit for bit against the fp32 window kernel (kernel 1) on the
-   windows gathered from the same rows, resp. on the dequantized windows.
+   windows gathered from the same rows, resp. on the dequantized windows;
+   kernel 6 reading a store in place (user ids with repeats, a bucket of
+   padding only, an all-seen and an all-zero user) within 1e-5 and bit for
+   bit against the pre-gathered kernel 6 on the gathered windows.
    Kernel 2 also reading its rows in place (``rows`` repeated, odd and
    unsorted, with and without Q, and slices of P and Q at an odd start),
    bit for bit against the call on the materialized rows.
@@ -75,7 +81,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       100,000 POIs, 1,024 cities, K=8, cell cap 128, microbatch 128, k=10,
       seed 0; nothing cut): world, hierarchical index, store on the card,
       int8 and bf16 quantization, 16,384 requests of random users in each
-      of fp32 (kernel 1), int8 and bf16 (kernel 6) after one warm-up
+      of fp32 (kernel 1 on gathered windows), int8 and bf16 (kernel 6
+      reading the store in place, no gathers) after one warm-up
       dispatch each; 256 served slates per mode held against the plain
       versions; fp32 on 32 sampled users bit for bit against a
       `ServingEngine` on their dense rows, int8 and bf16 within the
@@ -103,24 +110,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``fill_`` as the launch floor. Kernel 2's row adds the serving
    microbatch read in place, evaluate on V, through P and Q and on one
    1,024-user chunk, and the callers' old sequences (the gathers then the
-   kernel; P + Q then the kernel). Then the ``forms`` line: kernels 1, 2
-   and 4 at their main shapes (kernel 1 serving R=64 Cw=384 and tiled
-   R=128 Cw=128; kernel 2 at R=64, a 1,024-user chunk and R=6,524; kernel
-   4 on the MF state R=6,524 and one DMF request R=1) in the wrapper's
-   layout, in other layouts (each held against the wrapper's slate bit for
-   bit first) and scoring without the merge, timed in turns, every form
-   down the list and back up. With ``--parent DIR``, build the checkout in
-   DIR (the commit before kernel 2 read rows in place) and hold
-   against it, bit for bit: kernel 2 in every form (the wrapper and each
-   layout of the forms line, on rows in place and through P and Q) on
-   phase 2's inputs and at the main shapes, against the parent's kernel on
-   the materialized rows; kernel 4 at phase 2's shapes, its all-zero
-   users, the MF and BPR states and 16 per-request rows; kernel 8 on 20
-   batches (B 1 to 5,000, K 8/10/16, clip inf/0.5, noise 0/1, zero and NaN
-   rows). Both builds are timed in turns (parent, this, this, parent) on
-   the ``parent build`` line, the parent with its callers' sequence where
-   this build reads rows in place. Last, print the ``{"kernels": [...]}``
-   line.
+   kernel; P + Q then the kernel). Kernel 6's rows: int8 and bf16 on the
+   tiled microbatch pre-gathered, in place on the store (the
+   ``serve_topk_tiled_quant`` row, the tiled dispatch's), and the
+   parent's sequence (six gathers, then the pre-gathered kernel). Then the
+   ``forms`` line: kernels 1, 2, 4 and 6 at their main shapes (kernel 1
+   serving R=64 Cw=384 and tiled R=128 Cw=128; kernel 2 at R=64, a
+   1,024-user chunk and R=6,524; kernel 4 on the MF state R=6,524 and one
+   DMF request R=1; kernel 6 in place at R=128 Cw=128, int8 and bf16, and
+   its pre-gathered form) in the wrapper's layout, in other layouts (each
+   held against the wrapper's slate bit for bit first) and scoring without
+   the merge, timed in turns, every form down the list and back up. With
+   ``--parent DIR``, build the checkout in DIR (the commit before kernel 6
+   read the store in place) and hold against it, bit for bit: kernel 6
+   pre-gathered and in place against the parent's kernel 6 on the gathered
+   windows (phase 2's stores and the tiled microbatch, k 1/10/16, int8 and
+   bf16); kernels 1 and 5 at their main shapes; the noise stream at N 1 to
+   300,000 rows, n_cols 1/8/10/16/256, seeds 0/7/2^31-1, rids from below
+   2^23 to 2^31-1; kernel 8 on 20 batches (B 1 to 5,000, K 8/10/16, clip
+   inf/0.5, noise 0/1, zero and NaN rows). Both builds are timed in turns
+   (parent, this, this, parent) on the ``parent build`` line, the parent
+   with its six gathers where this build reads the store in place. Last,
+   print the ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
@@ -161,7 +172,7 @@ CLI_ARGS = ["--full", "--epochs", "3", "--dp-sigma", "1", "--dp-clip", "0.5"]
 DP = dict(dp_sigma=1.0, dp_clip=0.5, dp_seed=0)
 SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_step",
                    "serve_topk")
-TILED_KERNELS = ("serve_topk_window", "serve_topk_window_quant")
+TILED_KERNELS = ("serve_topk_window", "serve_topk_tiled_quant")
 TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
                     "dp_clip_noise", "gauss_counter")
 BASELINE_KERNELS = ("recommend_topk", "dmf_grads", "gossip_mix_op")
@@ -363,7 +374,7 @@ def check_kernels(dev, J: int) -> dict[str, float]:
         same_bits(f"serve_topk vs serve_topk_window k={k}", ops.serve_topk(U, V, cand, seen, k),
                   ops.serve_topk_window(U, vw, cand, sw, k))
     sync(dev)
-    errs["serve_topk_window_quant"] = check_quant(rng, dev, J)
+    errs["serve_topk_window_quant"], errs["serve_topk_tiled_quant"] = check_quant(rng, dev, J)
     errs["gauss_counter"] = check_stream(dev)
     errs["dp_clip_noise"] = check_clip_noise(rng, dev)
     errs["dmf_fused_step_dp"] = max(check_step_dp(rng, dev, hp),
@@ -605,12 +616,15 @@ def check_mix_routes(dev) -> float:
     return err
 
 
-def check_quant(rng, dev, J: int) -> float:
+def check_quant(rng, dev, J: int) -> tuple[float, float]:
     """Kernel 6 in both forms at the serving and the million shape, with an
-    all-zero int8 request (scale 1e-12): against its plain version, and bit
-    for bit against kernel 1 on the dequantized windows."""
+    all-zero int8 request (scale 1e-12): pre-gathered against its plain
+    version and bit for bit against kernel 1 on the dequantized windows;
+    reading a store in place (`tiled_inputs`) against its plain version
+    and bit for bit against the pre-gathered form on the gathered windows.
+    Returns the two forms' max value errors."""
     from repro_torch.kernels import ops
-    err = 0.0
+    err = tiled_err = 0.0
     for R, Cw, n_items, K in ((MICROBATCH, 384, J, 10), (M_MICROBATCH, M_CELL_CAP, M_ITEMS, M_DIM)):
         U, Vw, cand, seen = window_inputs(rng, R, Cw, n_items, K, dev)
         Vw[7] = 0.0
@@ -624,8 +638,57 @@ def check_quant(rng, dev, J: int) -> float:
                                           U, Vq, scale, cand, seen, k))
                 same_bits(f"serve_topk_window_quant {form} vs serve_topk_window k={k}", got,
                           ops.serve_topk_window(U, deq, cand, seen, k))
+        store = tiled_inputs(rng, R, Cw, n_items, K, dev)
+        for form, args in store["forms"]:
+            for k in (1, K_TOP, 16):
+                got = ops.serve_topk_tiled_quant(*args, k)
+                tiled_err = max(tiled_err, hold_quant(
+                    f"serve_topk_tiled_quant {form} R={R} k={k}", got, *gathered(*args), k))
+                same_bits(f"serve_topk_tiled_quant {form} vs serve_topk_window_quant k={k}", got,
+                          ops.serve_topk_window_quant(*gathered(*args), k))
     sync(dev)
-    return err
+    return err, tiled_err
+
+
+def tiled_inputs(rng, R, cap, n_items, K, dev) -> dict:
+    """A tiled store's resident tensors for R requests of cap candidates:
+    3·R users (a zero user, an all-seen user, an all-zero int8 user),
+    R // 4 + 2 buckets of ascending ids (one all padding, one full), and R
+    user ids with repeats. ``forms``: [(form, (ids, U, Vq, scale,
+    user_bucket, bucket_items, seen))] for int8 (scale per user) and bf16
+    (no scale)."""
+    from repro_torch.serving.store import int8_rows
+    I, n_buckets = 3 * R, R // 4 + 2
+    bucket_items = np.full((n_buckets, cap), -1, np.int32)
+    for b in range(n_buckets):
+        n = (cap, 0)[b] if b < 2 else int(rng.integers(cap // 2, cap + 1))
+        bucket_items[b, :n] = np.sort(rng.choice(n_items, n, replace=False))
+    user_bucket = rng.integers(0, n_buckets, I).astype(np.int64)
+    U = rng.normal(0, 1, (I, K)).astype(np.float32)
+    U[1] = 0.0
+    V = rng.normal(0, 1, (I, cap, K)).astype(np.float32)
+    V[2] = 0.0
+    V[3, 10:40] = V[3, 5]
+    seen = (rng.random((I, cap)) < 0.05).astype(np.int8)
+    seen[4] = 1
+    ids = rng.integers(0, I, R).astype(np.int64)
+    ids[:5] = np.arange(5)
+    ids[6] = ids[5]
+    U, V, seen, bucket_items, user_bucket, ids = (
+        torch.as_tensor(x, device=dev) for x in (U, V, seen, bucket_items, user_bucket, ids))
+    codes, scale = int8_rows(V)
+    rest = (user_bucket, bucket_items, seen)
+    return {"forms": [("int8", (ids, U, codes, scale, *rest)),
+                      ("bf16", (ids, U, V.to(torch.bfloat16), None, *rest))]}
+
+
+def gathered(ids, U, Vq, scale, user_bucket, bucket_items, seen):
+    """The pre-gathered kernel 6's inputs (U, Vq, scale, cand, seen) for
+    the in-place form's: the six gathers the tiled dispatch made before it
+    read the store in place."""
+    sc = (torch.ones(ids.shape[0], dtype=torch.float32, device=ids.device) if scale is None
+          else scale[ids])
+    return U[ids], Vq[ids], sc, bucket_items[user_bucket[ids]], seen[ids]
 
 
 def stream_rids(dev) -> torch.Tensor:
@@ -635,17 +698,23 @@ def stream_rids(dev) -> torch.Tensor:
     return torch.as_tensor(rid.astype(np.int32), device=dev)
 
 
-def check_stream(dev, K: int = 10) -> float:
-    """The noise stream: hash words exact, draws within DRAW_TOL."""
+def check_stream(dev) -> float:
+    """The noise stream at 1, 10 and 256 columns: hash words exact, draws
+    within DRAW_TOL, and bit for bit those of the clip + noise kernel (one
+    thread an element through the same device function) on zero messages
+    with noise 1."""
     from repro_torch.kernels import dp_noise, ops
     rid = stream_rids(dev)
     err = 0.0
-    for seed in (0, 7, 2**31 - 1):
+    for seed, K in ((0, 10), (7, 1), (2**31 - 1, 256)):
         for got, plain in zip(dp_noise.counter_words(seed, rid, K),
                               dp_noise.counter_words_ref(seed, rid, K)):
             assert torch.equal(got, plain), f"gauss_counter: hash words differ at seed {seed}"
         draws = ops.gauss_counter(seed, rid, K)
         err = max(err, float((draws - dp_noise.gauss_counter_ref(seed, rid, K)).abs().max()))
+        msgs = ops.dp_clip_noise(torch.zeros_like(draws), rid, seed, clip=float("inf"),
+                                 noise_std=1.0)
+        same_bits(f"gauss_counter vs dp_clip_noise's draws, {K} columns", (draws + 0.0,), (msgs,))
     assert err <= DRAW_TOL, f"gauss_counter: max |draw diff| {err} > {DRAW_TOL}"
     return err
 
@@ -1472,7 +1541,18 @@ def main_shapes(run, tl, bl, tr) -> dict:
             "evaluate_pq": (dp.U, dp.P, mask, dp.Q),
             "chunk": tuple(x[EVAL_CHUNK:2 * EVAL_CHUNK] for x in (dp.U, dp.P, mask, dp.Q)),
             "slab": (u, eng.V[uids], cand, eng.seen[uids]),
-            "int8": (st.U[ids], st.q_codes[ids], st.q_scale[ids], mcand, st.seen[ids])}
+            "tiled_store": tiled_store_args(st, ids)}
+
+
+def tiled_store_args(st, ids) -> dict:
+    """{form: (ids, U, Vq, scale, user_bucket, bucket_items, seen)}: the
+    in-place kernel 6's inputs on the store for user ids ``ids``, as the
+    tiled engine passes them."""
+    dev = st.device
+    rest = (torch.as_tensor(st.index.user_bucket, dtype=torch.int64, device=dev),
+            torch.as_tensor(st.index.bucket_items, dtype=torch.int32, device=dev), st.seen)
+    return {"int8": (ids, st.U, st.q_codes, st.q_scale, *rest),
+            "bf16": (ids, st.U, st.slab_bf16, None, *rest)}
 
 
 def serving_specs(run, shapes) -> list[dict]:
@@ -1594,31 +1674,71 @@ def tiled_specs(tl, shapes) -> list[dict]:
                   flops=2 * live * K,
                   shape=f"R={R} J={J} Cw={cand.shape[1]} K={K} k={K_TOP}")]
 
-    st = tl["store"]
-    ids = torch.as_tensor(tl["int8"][0][:M_MICROBATCH], device=st.device)
-    mu, _, mcand, msw = shapes["tiled"]
-    mlive = int(((mcand >= 0) & (msw == 0)).sum())
     specs.append(dict(window_spec(*shapes["tiled"], "tiled fp32"), variant="tiled_shape"))
-    for form, Vq, scale in (("int8", st.q_codes[ids], st.q_scale[ids]),
-                            ("bf16", st.slab_bf16[ids], torch.ones(M_MICROBATCH, device=st.device))):
-        def dequant_einsum_topk(Vq=Vq, scale=scale):
-            s = torch.einsum("rk,rck->rc", mu, Vq.float() * scale[:, None, None])
-            return torch.topk(s.masked_fill((mcand < 0) | (msw != 0), ref.NEG_INF), K_TOP, dim=1)
+    return specs + quant_specs(shapes)
 
+
+def quant_specs(shapes) -> list[dict]:
+    """Phase 4 rows of kernel 6 on one microbatch of the tiled path's
+    requests (the million shape, R=128, Cw=128, K=8), int8 and bf16: the
+    pre-gathered form on the gathered windows, the in-place form on the
+    store (the tiled dispatch's), and the parent's sequence, the six
+    gathers then the pre-gathered kernel. Bounds count what each form must
+    read: the gathered windows' live rows, resp. the ids, and once for
+    each distinct user or bucket of the microbatch the user's u, scale,
+    bucket entry, seen row and live code rows and the bucket's row."""
+    from repro_torch.kernels import ops, ref
+    specs = []
+    for form, args in shapes["tiled_store"].items():
+        ids, U, Vq, scale = args[:4]
+        gu, gq, gs, gc, gsw = gathered(*args)
+        R, Cw = gc.shape
+        K = gu.shape[1]
+        live = int(((gc >= 0) & (gsw == 0)).sum())
+        rows = live * K * Vq.element_size()
+        out = R * K_TOP * 8
+
+        def dequant_einsum_topk(gu=gu, gq=gq, gs=gs, gc=gc, gsw=gsw):
+            sc = torch.einsum("rk,rck->rc", gu, gq.float() * gs[:, None, None])
+            return torch.topk(sc.masked_fill((gc < 0) | (gsw != 0), ref.NEG_INF), K_TOP, dim=1)
+
+        def gather_dequant_einsum_topk(args=args):
+            return dequant_einsum_topk(*gathered(*args))
+
+        where = f"{form}: R={R} Cw={Cw} K={K} k={K_TOP}"
+        hold = functools.partial(hold_quant, f"kernel 6 {form}", U=gu, Vq=gq, scale=gs, cand=gc,
+                                 seen_w=gsw, k=K_TOP)
         specs.append(dict(
             name="serve_topk_window_quant", src="serve_topk.cu", variant=form,
             replaces="src/repro/kernels/serve_topk.py:184",
-            kern=lambda Vq=Vq, scale=scale: ops.serve_topk_window_quant(mu, Vq, scale, mcand,
-                                                                       msw, K_TOP),
-            plain=lambda Vq=Vq, scale=scale: ref.serve_topk_window_quant_ref(
-                mu, Vq, scale, mcand, msw, K_TOP),
-            lib=dequant_einsum_topk,
-            hold=lambda got, Vq=Vq, scale=scale: hold_quant(
-                f"serve_topk_window_quant {form}", got, mu, Vq, scale, mcand, msw, K_TOP),
-            nbytes=(mu.nbytes + mcand.nbytes + msw.nbytes + scale.nbytes
-                    + mlive * M_DIM * Vq.element_size() + M_MICROBATCH * K_TOP * 8),
-            flops=3 * mlive * M_DIM,                   # dequantizing multiply, then FMA
-            shape=f"{form}: R={M_MICROBATCH} Cw={mcand.shape[1]} K={M_DIM} k={K_TOP}"))
+            kern=functools.partial(ops.serve_topk_window_quant, gu, gq, gs, gc, gsw, K_TOP),
+            plain=functools.partial(ref.serve_topk_window_quant_ref, gu, gq, gs, gc, gsw, K_TOP),
+            lib=dequant_einsum_topk, hold=hold,
+            nbytes=gu.nbytes + gc.nbytes + gsw.nbytes + gs.nbytes + rows + out,
+            flops=3 * live * K,                        # dequantizing multiply, then FMA
+            shape=f"pre-gathered windows, {where}"))
+        # in place, requests of one user share its rows and users of one
+        # bucket its candidate ids: each distinct row is read once
+        users = torch.unique(ids)
+        buckets = torch.unique(args[4][users])
+        _, _, _, uc, usw = gathered(users, *args[1:])
+        users_live = int(((uc >= 0) & (usw == 0)).sum())
+        in_place = (ids.nbytes + buckets.numel() * Cw * 4 + out
+                    + users_live * K * Vq.element_size()
+                    + users.numel() * (K * 4 + 8 + Cw + (0 if scale is None else 4)))
+        for variant, call, what in (
+                (form, functools.partial(ops.serve_topk_tiled_quant, *args, K_TOP),
+                 "the store read in place"),
+                (f"{form}_parent_sequence",
+                 lambda args=args: ops.serve_topk_window_quant(*gathered(*args), K_TOP),
+                 "the parent's sequence: six gathers, then the pre-gathered kernel")):
+            specs.append(dict(
+                name="serve_topk_tiled_quant", src="serve_topk.cu", variant=variant,
+                replaces="src/repro/kernels/serve_topk.py:184",
+                kern=call,
+                plain=functools.partial(ref.serve_topk_tiled_quant_ref, *args, K_TOP),
+                lib=gather_dequant_einsum_topk, hold=hold, nbytes=in_place, flops=3 * live * K,
+                shape=f"{what}, {where}"))
     return specs
 
 
@@ -1823,7 +1943,7 @@ def kernel_forms(shapes) -> dict[str, list]:
     wrapper's layout first, then other layouts, then the wrapper's layout
     scoring without merging (its outputs are list checksums, not a slate).
     Every other form gives the wrapper's slate bit for bit."""
-    from repro_torch.kernels import serve_topk, topk_scores
+    from repro_torch.kernels import ops, serve_topk, topk_scores
     out = {}
     for key, (U, V, m, Q) in (("kernel 2 R=64", (*shapes["dense"], None)),
                               ("kernel 2 R=1,024 P+Q", shapes["chunk"]),
@@ -1868,6 +1988,20 @@ def kernel_forms(shapes) -> dict[str, list]:
             serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, lay)) for name, lay in layouts]
         out[key].append(("wrapper, score only", functools.partial(
             serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, own, merge=False)))
+    for form, args in shapes["tiled_store"].items():
+        R, Cw = args[0].shape[0], args[5].shape[1]
+        own = serve_topk.window_layout(R, Cw, K_TOP)
+        layouts = [("wrapper", own)] + [
+            (f"{w} warps x {rpb} requests a block",
+             dict(warps=w, rpb=rpb, slots=serve_topk.slots_for(K_TOP, -(-Cw // (32 * w)))))
+            for w, rpb in ((1, 1), (1, 8), (2, 1), (4, 1))]
+        key = f"kernel 6 tiled {form}"
+        out[key] = [(f"{name} ({brief(lay)})", functools.partial(
+            serve_topk.tiled_quant_on_layout, *args, K_TOP, lay)) for name, lay in layouts]
+        out[key].append(("pre-gathered form on the gathered windows", functools.partial(
+            ops.serve_topk_window_quant, *gathered(*args), K_TOP)))
+        out[key].append(("wrapper, score only", functools.partial(
+            serve_topk.tiled_quant_on_layout, *args, K_TOP, own, merge=False)))
     return out
 
 
@@ -1891,24 +2025,29 @@ def time_forms(shapes) -> dict:
 
 def load_parent(parent: pathlib.Path) -> dict:
     """Build the kernel library of the checkout unpacked in ``parent`` (the
-    commit before kernel 2 read rows in place, whose C launches of kernels
-    2 and 4 take no row source and no cluster) and return callables of its
-    kernels 2, 4 and 8, each launching on this build's inputs with the
-    layout the parent's wrappers chose."""
+    commit before kernel 6 read the store in place and a stream thread drew
+    two columns; its C launches of kernels 1, 5, 6, 8 and the stream take
+    the arguments below) and return callables of those kernels, each
+    launching on this build's inputs with the layout the parent's wrappers
+    chose."""
     import ctypes
     import importlib.util
 
     from repro_torch.kernels import build
     src = parent / "src/repro_torch/kernels"
     lib = ctypes.CDLL(str(build.build(build.BUILD_ROOT / "parent", src / "csrc")))
-    spec = importlib.util.spec_from_file_location("parent_topk_scores", src / "topk_scores.py")
+    spec = importlib.util.spec_from_file_location("parent_serve_topk", src / "serve_topk.py")
     layouts = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(layouts)
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    peruser = lib.topk_peruser_launch
-    peruser.argtypes, peruser.restype = [ptr] * 5 + [i32] * 5 + [ptr], i32
-    shared = lib.topk_shared_launch
-    shared.argtypes, shared.restype = [ptr] * 5 + [i32] * 10 + [ptr], i32
+    window = lib.serve_topk_window_launch
+    window.argtypes, window.restype = [ptr] * 6 + [i32] * 8 + [ptr], i32
+    slab = lib.serve_topk_launch
+    slab.argtypes, slab.restype = [ptr] * 6 + [i32] * 9 + [ptr], i32
+    quant = lib.serve_topk_window_quant_launch
+    quant.argtypes, quant.restype = [ptr] * 7 + [i32] * 9 + [ptr], i32
+    stream_fn = lib.gauss_counter_launch
+    stream_fn.argtypes, stream_fn.restype = [ptr] * 2 + [i32] * 2 + [u32, ptr], i32
     clip = lib.dp_clip_noise_launch
     clip.argtypes, clip.restype = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr], i32
     stream = torch.cuda.current_stream().cuda_stream
@@ -1917,24 +2056,41 @@ def load_parent(parent: pathlib.Path) -> dict:
         return (torch.empty((R, k), dtype=torch.float32, device=dev),
                 torch.empty((R, k), dtype=torch.int32, device=dev))
 
-    def kernel2(U, V, mask, k):
-        R, J, K = V.shape
+    def lay(R, Cw, k):
+        w = layouts.window_layout(R, Cw, k)
+        return w["warps"], w["rpb"], w["slots"], 1
+
+    def kernel1(U, Vw, cand, seen, k):
+        (R, K), Cw = U.shape, cand.shape[1]
         vals, idx = outputs(R, k, U.device)
-        err = peruser(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
-                      vals.data_ptr(), idx.data_ptr(), R, J, K, k,
-                      layouts.peruser_slots(J, k), stream)
-        assert err == 0, f"parent build: kernel 2 launch error {err}"
+        err = window(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.data_ptr(),
+                     vals.data_ptr(), idx.data_ptr(), R, Cw, K, k, *lay(R, Cw, k), stream)
+        assert err == 0, f"parent build: kernel 1 launch error {err}"
         return vals, idx
 
-    def kernel4(U, V, mask, k):
-        (R, K), J = U.shape, V.shape[0]
-        lay = layouts.shared_layout(R, J, K, k, layouts._n_sms(U.device.index))
+    def kernel5(U, V, cand, seen, k):
+        (R, K), J, Cw = U.shape, V.shape[1], cand.shape[1]
         vals, idx = outputs(R, k, U.device)
-        err = shared(U.data_ptr(), V.data_ptr(), mask.view(torch.int8).data_ptr(),
-                     vals.data_ptr(), idx.data_ptr(), R, J, K, k, int(lay["many"]),
-                     lay["threads"], lay["blocks"], lay["slots"], lay["tile"], 1, stream)
-        assert err == 0, f"parent build: kernel 4 launch error {err}"
+        err = slab(U.data_ptr(), V.data_ptr(), cand.data_ptr(), seen.data_ptr(),
+                   vals.data_ptr(), idx.data_ptr(), R, J, Cw, K, k, *lay(R, Cw, k), stream)
+        assert err == 0, f"parent build: kernel 5 launch error {err}"
         return vals, idx
+
+    def kernel6(U, Vq, scale, cand, seen, k):
+        (R, K), Cw = U.shape, cand.shape[1]
+        vals, idx = outputs(R, k, U.device)
+        err = quant(U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
+                    seen.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, Cw, K, k,
+                    int(Vq.dtype == torch.bfloat16), *lay(R, Cw, k), stream)
+        assert err == 0, f"parent build: kernel 6 launch error {err}"
+        return vals, idx
+
+    def kernel8a(seed, rid, n_cols):
+        out = torch.empty((rid.shape[0], n_cols), dtype=torch.float32, device=rid.device)
+        err = stream_fn(rid.data_ptr(), out.data_ptr(), rid.shape[0], n_cols,
+                        int(seed) & 0xFFFFFFFF, stream)
+        assert err == 0, f"parent build: noise stream launch error {err}"
+        return out
 
     def kernel8(g, rid, seed, clip_, noise_std):
         out = torch.empty_like(g)
@@ -1943,7 +2099,8 @@ def load_parent(parent: pathlib.Path) -> dict:
         assert err == 0, f"parent build: kernel 8 launch error {err}"
         return out
 
-    return {"kernel2": kernel2, "kernel4": kernel4, "kernel8": kernel8}
+    return {"kernel1": kernel1, "kernel5": kernel5, "kernel6": kernel6, "kernel8a": kernel8a,
+            "kernel8": kernel8}
 
 
 def same_bits_nan(name, got, want) -> None:
@@ -1952,72 +2109,67 @@ def same_bits_nan(name, got, want) -> None:
         f"{name}: not equal bit for bit")
 
 
-def peruser_forms(U, V, mask, k, Q=None, rows=None) -> list:
-    """[(form, call)] of kernel 2 on these rows: the wrapper, and every
-    layout of `peruser_layouts` with the same row source."""
-    from repro_torch.kernels import ops, topk_scores
-    R, K = U.shape
-    forms = [("wrapper", functools.partial(ops.recommend_topk_peruser, U, V, mask, k, Q=Q,
-                                           rows=rows))]
-    for name, lay in peruser_layouts(R, V.shape[1], K, Q is not None,
-                                     topk_scores._n_sms(U.device.index)):
-        lay = dict(lay, slots=topk_scores.rows_layout(
-            V.shape[1], K, k, lay["cluster"], lay["warps"], lay["stages"], Q is not None,
-            R)["slots"])
-        forms.append((f"{name} ({brief(lay)})", functools.partial(
-            topk_scores.peruser_on_layout, U, V, mask, k, lay, Q=Q, rows=rows)))
-    return forms
-
-
-def parent_peruser_cases(dev, J: int, shapes) -> list:
-    """Kernel 2's inputs for the parent hold, (name, U, V, mask, k, Q,
-    rows): phase 2's dense shapes at k 1/10/16 and its rows cases, and the
-    main shapes (the serving microbatch gathered and in place, evaluate on
-    V and on P and Q, the 1,024-user chunk)."""
-    rng = np.random.default_rng(SEED + 13)
-    U, V, mask = dense_inputs(rng, MICROBATCH, J, 10, dev)
-    cases = [(f"phase 2 k={k}", U, V, mask, k, None, None) for k in (1, K_TOP, 16)]
-    cases += peruser_row_cases(dev, J)
-    u, Ve, seen = shapes["dense"]
-    cases += [("serving R=64 gathered", u, Ve, seen, K_TOP, None, None),
-              ("evaluate R=6,524 on V", *shapes["evaluate"], K_TOP, None, None)]
-    for name, key in (("evaluate R=6,524 P and Q", "evaluate_pq"),
-                      ("chunk R=1,024 P and Q", "chunk")):
-        U_, P_, m_, Q_ = shapes[key]
-        cases.append((name, U_, P_, m_, K_TOP, Q_, None))
+def parent_stream_cases(dev) -> list:
+    """The noise stream's cases for the parent hold, (seed, rid, n_cols):
+    rids from below 2^23 to beyond (and 2^31 - 1), n_cols 1, 8, 10, 16 and
+    256, N 1, 33, 28,160 (the epoch's block) and 300,000 (more rows than
+    one wave of blocks covers), seeds 0, 7 and 2^31 - 1."""
+    cases = []
+    for N in (1, 33, 28_160, 300_000):
+        rid = ((1 << 23) - N // 2 + np.arange(N)).astype(np.int32)
+        rid[-1] = 2**31 - 1
+        rid = torch.as_tensor(rid, device=dev)
+        cases += [(seed, rid, n) for n in (1, 8, 10, 16, 256) for seed in (0, 7, 2**31 - 1)]
     return cases
 
 
-def hold_parent_build(parent: pathlib.Path, shapes, run, shared_cases, clip_cases, mb) -> dict:
-    """Hold this build's kernels 2, 4 and 8 against the parent build's
-    (`load_parent`), bit for bit: kernel 2 in every form of
-    `peruser_forms` on each of `parent_peruser_cases` against the parent's
-    kernel on the materialized rows; kernel 4 on each shared case (U, V,
-    mask, k); kernel 8 on each clip case (g, rid, seed, clip, noise_std).
-    Then time both builds in turns (parent, this, this, parent) at the main
-    shapes, the parent with its callers' sequence where this build reads
-    rows in place. Returns the numbers of cases held and the times."""
+def parent_quant_cases(dev, J: int) -> list:
+    """Kernel 6's stores for the parent hold: phase 2's, at the serving and
+    the million shape, [(form, in-place args)]."""
+    rng = np.random.default_rng(SEED + 19)
+    cases = []
+    for R, Cw, n_items, K in ((MICROBATCH, 384, J, 10), (M_MICROBATCH, M_CELL_CAP, M_ITEMS, M_DIM)):
+        cases += tiled_inputs(rng, R, Cw, n_items, K, dev)["forms"]
+    return cases
+
+
+def hold_parent_build(parent: pathlib.Path, shapes, clip_cases, mb) -> dict:
+    """Hold this build against the parent build's (`load_parent`), bit for
+    bit: kernel 6 pre-gathered and in place (int8, bf16; k 1/10/16) against
+    the parent's kernel 6 on the gathered windows, on phase 2's stores and
+    the tiled microbatch; kernels 1 and 5 (the body they share with kernel
+    6) at their main shapes; the noise stream on every `parent_stream_cases`
+    case; kernel 8 on each clip case (g, rid, seed, clip, noise_std). Then
+    time both builds in turns (parent, this, this, parent), the parent with
+    its six gathers where this build reads the store in place. Returns the
+    numbers of cases held and the times."""
     from repro_torch.kernels import ops
     theirs = load_parent(parent)
     dev = shapes["dense"][0].device
-    eng = run["engine"]
-    uids = shapes["serving_uids"]
-    n2 = 0
-    for name, U, V, mask, k, Q, rows in parent_peruser_cases(dev, shapes["dense"][1].shape[1],
-                                                             shapes):
-        want = theirs["kernel2"](U, *materialize(V, mask, Q, rows), k)
-        for form, call in peruser_forms(U, V, mask, k, Q, rows):
-            same_bits(f"kernel 2 {name}, {form}: this build vs the parent's", call(), want)
-            n2 += 1
-    u, Vr, seen_r = shapes["dense"]
-    same_bits("kernel 2 serving R=64 in place vs the parent's",
-              ops.recommend_topk_peruser(u, eng.V, eng.seen, K_TOP, rows=uids),
-              theirs["kernel2"](u, Vr, seen_r, K_TOP))
+    cases = parent_quant_cases(dev, shapes["dense"][1].shape[1])
+    cases += list(shapes["tiled_store"].items())
+    n6 = 0
+    for n, (form, args) in enumerate(cases):
+        g = gathered(*args)
+        for k in (1, K_TOP, 16):
+            want = theirs["kernel6"](*g, k)
+            same_bits(f"kernel 6 {form} case {n} k={k}, pre-gathered: this build vs the parent's",
+                      ops.serve_topk_window_quant(*g, k), want)
+            same_bits(f"kernel 6 {form} case {n} k={k}, in place: this build vs the parent's",
+                      ops.serve_topk_tiled_quant(*args, k), want)
+            n6 += 2
+    for key in ("serving", "tiled"):
+        same_bits(f"kernel 1 {key}: this build vs the parent's",
+                  ops.serve_topk_window(*shapes[key], K_TOP),
+                  theirs["kernel1"](*shapes[key], K_TOP))
+    same_bits("kernel 5 serving: this build vs the parent's",
+              ops.serve_topk(*shapes["slab"], K_TOP), theirs["kernel5"](*shapes["slab"], K_TOP))
     sync(dev)
-    for n, (U, V, mask, k) in enumerate(shared_cases):
-        same_bits(f"kernel 4: this build vs the parent's, case {n} "
-                  f"(R={U.shape[0]} J={V.shape[0]} k={k})",
-                  ops.recommend_topk(U, V, mask, k), theirs["kernel4"](U, V, mask, k))
+    stream_cases = parent_stream_cases(dev)
+    for seed, rid, n_cols in stream_cases:
+        same_bits_nan(f"noise stream: this build vs the parent's (N={rid.shape[0]} "
+                      f"n_cols={n_cols} seed={seed})", ops.gauss_counter(seed, rid, n_cols),
+                      theirs["kernel8a"](seed, rid, n_cols))
     for n, (g, rid, seed, clip, std) in enumerate(clip_cases):
         same_bits_nan(f"kernel 8: this build vs the parent's, case {n} (B={g.shape[0]} "
                       f"K={g.shape[1]} clip={clip} noise={std})",
@@ -2025,48 +2177,42 @@ def hold_parent_build(parent: pathlib.Path, shapes, run, shared_cases, clip_case
                       theirs["kernel8"](g, rid, seed, clip, std))
     sync(dev)
 
-    U, P, mask, Q = shapes["evaluate_pq"]
-    Uc, Pc, mc, Qc = shapes["chunk"]
     c = mb["cfg"]
     raw = ops.dmf_fused_step(*mb["sx"], theta=c.lr, alpha=c.alpha, beta=c.beta,
                              gamma=c.gamma)[1]
     rid_b = mb["rid"][:raw.shape[0]]
     std = c.dp_sigma * c.dp_clip
-    pairs = {
-        "kernel 2 serving R=64, gathered rows": (
-            lambda: theirs["kernel2"](u, Vr, seen_r, K_TOP),
-            lambda: ops.recommend_topk_peruser(u, Vr, seen_r, K_TOP)),
-        "kernel 2 serving R=64: parent gathers U, V, seen rows + kernel; this reads in place": (
-            lambda: theirs["kernel2"](eng.state.U[uids], eng.V[uids], eng.seen[uids], K_TOP),
-            lambda: ops.recommend_topk_peruser(eng.state.U[uids], eng.V, eng.seen, K_TOP,
-                                               rows=uids)),
-        "kernel 2 evaluate R=6,524 on V": (
-            lambda: theirs["kernel2"](*shapes["evaluate"], K_TOP),
-            lambda: ops.recommend_topk_peruser(*shapes["evaluate"], K_TOP)),
-        "kernel 2 evaluate R=6,524: parent P + Q + kernel; this P and Q in place": (
-            lambda: theirs["kernel2"](U, P + Q, mask, K_TOP),
-            lambda: ops.recommend_topk_peruser(U, P, mask, K_TOP, Q=Q)),
-        "kernel 2 chunk R=1,024: parent P + Q + kernel; this P and Q in place": (
-            lambda: theirs["kernel2"](Uc, Pc + Qc, mc, K_TOP),
-            lambda: ops.recommend_topk_peruser(Uc, Pc, mc, K_TOP, Q=Qc)),
+    K = mb["z"].shape[1]
+    pairs = {}
+    for form, args in shapes["tiled_store"].items():
+        g = gathered(*args)
+        pairs[f"kernel 6 {form}, pre-gathered windows"] = (
+            functools.partial(theirs["kernel6"], *g, K_TOP),
+            functools.partial(ops.serve_topk_window_quant, *g, K_TOP))
+        pairs[f"kernel 6 {form}: parent six gathers + kernel; this reads the store in place"] = (
+            lambda args=args: theirs["kernel6"](*gathered(*args), K_TOP),
+            functools.partial(ops.serve_topk_tiled_quant, *args, K_TOP))
+    pairs.update({
+        "noise stream, the epoch's block": (
+            lambda: theirs["kernel8a"](mb["seed"], mb["rid"], K),
+            lambda: ops.gauss_counter(mb["seed"], mb["rid"], K)),
         "kernel 8 B=256 K=10": (
             lambda: theirs["kernel8"](raw, rid_b, mb["seed"], c.dp_clip, std),
             lambda: ops.dp_clip_noise(raw, rid_b, mb["seed"], clip=c.dp_clip, noise_std=std)),
-        "kernel 4 per request R=1": (
-            lambda: theirs["kernel4"](*shapes["per_request"], K_TOP),
-            lambda: ops.recommend_topk(*shapes["per_request"], K_TOP)),
-        "kernel 4 MF R=6,524": (
-            lambda: theirs["kernel4"](*shapes["MF"], K_TOP),
-            lambda: ops.recommend_topk(*shapes["MF"], K_TOP)),
-    }
+        "kernel 1 tiled R=128": (
+            lambda: theirs["kernel1"](*shapes["tiled"], K_TOP),
+            lambda: ops.serve_topk_window(*shapes["tiled"], K_TOP)),
+        "kernel 1 serving R=64": (
+            lambda: theirs["kernel1"](*shapes["serving"], K_TOP),
+            lambda: ops.serve_topk_window(*shapes["serving"], K_TOP)),
+    })
     times = {}
     for key, (parent_call, this_call) in pairs.items():
-        n = 40 if "6,524" in key else 200
         t = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
-            t[who].append(device_ms(parent_call if who == "parent" else this_call, n))
+            t[who].append(device_ms(parent_call if who == "parent" else this_call, 200))
         times[key] = t
-    return {"kernel2_calls": n2, "kernel4_cases": len(shared_cases),
+    return {"kernel6_calls": n6, "stream_cases": len(stream_cases),
             "kernel8_cases": len(clip_cases), "device_ms": times}
 
 
@@ -2086,23 +2232,6 @@ def parent_clip_cases(dev) -> list:
             rid = ((1 << 23) - B // 2 + np.arange(B)).astype(np.int32)
             cases.append((torch.as_tensor(g, device=dev), torch.as_tensor(rid, device=dev),
                           7 + i, (float("inf"), 0.5)[j % 2], (0.0, 1.0)[j // 2]))
-    return cases
-
-
-def parent_shared_cases(dev, bl) -> list:
-    """Kernel 4's inputs for the parent hold: phase 2's shapes and its
-    all-zero users, the trained MF and BPR states at full width, and 16 of
-    the per-request loop's DMF users one at a time (R=1)."""
-    cases = []
-    for R, J, K, k in SHARED_SHAPES:
-        cases.append((*shared_inputs(R + J + k, R, J, K, dev), k))
-    cases.append((*zero_user_inputs(dev), 16))
-    for name in ("MF", "BPR"):
-        cases.append((bl[name].U, bl[name].V, bl["train_mask"], K_TOP))
-    st = bl["dmf_state"]
-    for u in bl["per_request"][0][:16].tolist():
-        cases.append((st.U[u][None], (st.P[u] + st.Q[u]).contiguous(),
-                      bl["train_mask"][u][None], K_TOP))
     return cases
 
 
@@ -2223,8 +2352,8 @@ def main(argv=None) -> int:
     log(f"phase 3 tiled slates vs plain: {json.dumps(tiled_errs)}")
     log("tiled", json.dumps(tiled_summary(tl)))
     errs["serve_topk_window"] = max(errs["serve_topk_window"], tiled_errs["fp32"])
-    errs["serve_topk_window_quant"] = max(errs["serve_topk_window_quant"], tiled_errs["int8"],
-                                          tiled_errs["bf16"])
+    errs["serve_topk_tiled_quant"] = max(errs["serve_topk_tiled_quant"], tiled_errs["int8"],
+                                         tiled_errs["bf16"])
 
     bl, launches["baselines"] = counted("baselines", BASELINE_KERNELS,
                                         lambda: drive_baselines(ds, M, nbr, tr, cfg, dev))
@@ -2259,11 +2388,11 @@ def main(argv=None) -> int:
     log(f"phase 4 forms: {time.perf_counter() - t0} s")
     if parent is not None:
         t0 = time.perf_counter()
-        held = hold_parent_build(parent, shapes, run, parent_shared_cases(dev, bl),
-                                 parent_clip_cases(dev), mb)
-        log(f"parent build: kernel 2 equal bit for bit in {held['kernel2_calls']} calls (every "
-            f"form), kernel 4 on {held['kernel4_cases']} cases, kernel 8 on "
-            f"{held['kernel8_cases']} ({time.perf_counter() - t0} s); device ms in turns "
+        held = hold_parent_build(parent, shapes, parent_clip_cases(dev), mb)
+        log(f"parent build: kernel 6 equal bit for bit in {held['kernel6_calls']} calls "
+            f"(pre-gathered and in place), kernels 1 and 5 at their main shapes, the noise "
+            f"stream on {held['stream_cases']} cases, kernel 8 on {held['kernel8_cases']} "
+            f"({time.perf_counter() - t0} s); device ms in turns "
             f"{json.dumps(held['device_ms'])}")
     assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))

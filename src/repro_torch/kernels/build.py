@@ -106,15 +106,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.serve_topk_launch.restype = i32
     lib.serve_topk_window_quant_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.serve_topk_window_quant_launch.restype = i32
+    lib.serve_topk_tiled_quant_launch.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
+    lib.serve_topk_tiled_quant_launch.restype = i32
     lib.topk_peruser_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
     lib.topk_peruser_launch.restype = i32
     lib.dmf_fused_step_launch.argtypes = [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr]
     lib.dmf_fused_step_launch.restype = i32
     lib.dmf_fused_step_dp_launch.argtypes = [ptr] * 11 + [i32] * 2 + [f32] * 5 + [ptr]
     lib.dmf_fused_step_dp_launch.restype = i32
-    lib.gauss_counter_launch.argtypes = [ptr] * 2 + [i32] * 2 + [u32, ptr]
+    lib.gauss_counter_launch.argtypes = [ptr] * 2 + [i32] * 2 + [u32] + [i32] * 2 + [ptr]
     lib.gauss_counter_launch.restype = i32
-    lib.counter_words_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32, ptr]
+    lib.counter_words_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32] + [i32] * 2 + [ptr]
     lib.counter_words_launch.restype = i32
     lib.dp_clip_noise_launch.argtypes = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr]
     lib.dp_clip_noise_launch.restype = i32

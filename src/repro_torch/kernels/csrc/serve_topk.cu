@@ -1,7 +1,7 @@
 // Geo-pruned serving: per request, scores u·v over its candidate ids, pad
 // (cand < 0) and seen masking, and the running top-k that carries global
-// item ids. One kernel body, instantiated for three ways of reading a
-// candidate's seen bit and K factors:
+// item ids. One kernel body, instantiated for four ways of finding a
+// request's u, candidate ids, seen bits and candidate rows:
 //
 //   WindowF32        pre-gathered fp32 windows (R, Cw, K), seen (R, Cw).
 //                    Replaces `_serve_topk_window_kernel`
@@ -10,8 +10,13 @@
 //                    the candidates are gathered inside the kernel.
 //                    Replaces `_serve_topk_kernel` (serve_topk.py:64,
 //                    pallas_call :100).
-//   WindowQuant<T>   windows stored as int8 codes times a per-request f32
-//                    scale, or as bf16 (scale 1). Replaces
+//   WindowQuant<T>   pre-gathered windows stored as int8 codes times a
+//                    per-request f32 scale, or as bf16 (scale 1).
+//   TiledQuant<T>    the same codes read in place from the tiled store:
+//                    request r is user ids[r], whose u is U[id], whose
+//                    codes, seen bits and scale are the store's rows at id,
+//                    and whose candidate ids are bucket_items[user_bucket[id]].
+//                    Both quant sources replace
 //                    `_serve_topk_window_quant_kernel` (serve_topk.py:184,
 //                    pallas_call :227); int8 and bf16 are two
 //                    instantiations of one template.
@@ -24,21 +29,31 @@
 // 0.11 us). A form does 2 (fp32) or 3 (dequantizing) flops per factor,
 // nothing at 67 TFLOP/s fp32. So the launch and the chain of dependent
 // loads set the time: u and the candidate ids, then the rows, then the
-// merge.
+// merge. In place the chain is one step longer: the id, then (together)
+// u, the scale and the user's bucket, then the bucket's candidate ids
+// with the seen bits and code rows; the six gathers it replaces were six
+// launches.
 //
 // Design: `warps` warps per request, chosen by the wrapper from Cw (one
 // for Cw ≤ 128, with several requests a block; ceil(Cw / 128) above, so a
 // lane scores at most 4 candidates at the main shapes). A lane holds u in
 // registers (K = 8 and 10, the slices' widths, are fixed at build time;
-// other K read u and the row in place), scores its strided candidates
-// four at a time (in a window the four ids, seen bits and rows at once; in
-// a slab the ids, then the seen bits and rows; each row one contiguous run
-// of 16- or 8-byte loads where the rows are aligned, all issued before the
-// chains), and keeps a 4-, 8- or 16-slot list. A warp merges its lanes'
-// lists by the bitonic network of topk.cuh with no barrier, and a request
-// of several warps takes one barrier. The TPU layout changes
-// (K-major transpose, 128-lane padding) are not needed: windows stay
-// (R, Cw, K), slabs (R, J, K).
+// other K read u and the row in place, a factor at a time), scores its
+// strided candidates four at a time (in a window the four ids, seen bits
+// and rows at once; in a slab the ids, then the seen bits and rows; all
+// issued before any is used), and keeps a 4-, 8- or 16-slot list. A row
+// is one contiguous run of loads of one width: fp32 rows 16 or 8 bytes a
+// load where the rows are aligned; quant rows `wbytes` a load, the widest
+// of 16, 8, 4, 2 and 1 that divides both the row's bytes and the address
+// of the first row (int8 K=8: one 8-byte load; bf16 K=8: one 16-byte
+// load; bf16 K=10, 20-byte rows: five 4-byte loads). One width for the launch keeps every
+// lane on one path: a row size off 8 puts neighbouring rows on different
+// alignments, and a head/body/tail split per row would diverge the warp.
+// No byte outside the row is read. A warp merges its lanes' lists by the
+// bitonic network of topk.cuh with no barrier, and a request of several
+// warps takes one barrier. The TPU layout changes (K-major transpose,
+// 128-lane padding) are not needed: windows stay (R, Cw, K), slabs
+// (R, J, K), the store (I, cap, K).
 //
 // Bit-for-bit contracts, carried from the reference (serve_topk.py:42-46,
 // ops.py:228-230):
@@ -48,7 +63,8 @@
 //   kernel of the earlier one-block-a-request design;
 // - a quantized factor is dequantized as __fmul_rn(code, scale), rounded
 //   on its own before the chain, so the quant form on (codes, scale)
-//   equals the fp32 window form on codes.float() * scale.
+//   equals the fp32 window form on codes.float() * scale, and the in-place
+//   form equals the quant form on the gathered windows.
 #include <cuda_bf16.h>
 
 #include "topk.cuh"
@@ -58,35 +74,47 @@ namespace {
 constexpr int kMaxThreads = 512;   // 16 warps a block: up to 128 registers a thread
 constexpr int kBatch = 4;          // candidates a lane loads before it scores them
 
-__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Each form gives `row(r)`, a view of request r with `seen(c, id)`,
-// `load<KC>(c, id, f)` (the row's KC factors into registers) and
+// Each source gives `row(r)`, a view of request r with `ui` and `ci` (its
+// rows of U and of the candidate ids), `seen(c, id)`,
+// `fetch<KC>(c, id, buf)` (issue the loads of the row's KC factors),
+// `unpack(buf, f)` (the factors as fp32, after the loads) and
 // `score(u, c, id, K)` (K at run time), for candidate slot c holding item
 // id >= 0. kBySlot: the seen bit and the row are found by the slot alone
 // (a window), so they load beside the id.
+template <int KC>
+struct F32Buf {
+  float f[KC];
+};
+
 struct WindowF32 {
   const float* Vw;
   const int8_t* seen_w;
   int Cw, K, vec;
   struct Row {
+    long long ui, ci;
     const float* v;
     const int8_t* s;
     int K, vec;
     static constexpr bool kBySlot = true;
+    template <int KC>
+    using Buf = F32Buf<KC>;
     __device__ __forceinline__ bool seen(int c, int) const { return s[c] != 0; }
     __device__ __forceinline__ const float* at(int c, int) const { return v + (size_t)c * K; }
     template <int KC>
-    __device__ __forceinline__ void load(int c, int id, float (&f)[KC]) const {
-      load_row<KC>(at(c, id), f, vec);
+    __device__ __forceinline__ void fetch(int c, int id, Buf<KC>& b) const {
+      load_row<KC>(at(c, id), b.f, vec);
     }
-    __device__ __forceinline__ float score(const float* u, int c, int id, int K_) const {
-      return dot_chain(u, at(c, id), K_);
+    template <int KC>
+    __device__ __forceinline__ void unpack(const Buf<KC>& b, float (&f)[KC]) const {
+#pragma unroll
+      for (int j = 0; j < KC; ++j) f[j] = b.f[j];
+    }
+    __device__ __forceinline__ float score(const float* u_, int c, int id, int K_) const {
+      return dot_chain(u_, at(c, id), K_);
     }
   };
   __device__ __forceinline__ Row row(int r) const {
-    return {Vw + (size_t)r * Cw * K, seen_w + (size_t)r * Cw, K, vec};
+    return {r, r, Vw + (size_t)r * Cw * K, seen_w + (size_t)r * Cw, K, vec};
   }
 };
 
@@ -97,56 +125,149 @@ struct Slab {
   const int8_t* seen_j;
   int J, K, vec;
   struct Row {
+    long long ui, ci;
     const float* v;
     const int8_t* s;
     int J, K, vec;
     static constexpr bool kBySlot = false;
+    template <int KC>
+    using Buf = F32Buf<KC>;
     __device__ __forceinline__ bool seen(int, int id) const {
       return id < 0 || id >= J || s[id] != 0;
     }
     __device__ __forceinline__ const float* at(int, int id) const { return v + (size_t)id * K; }
     template <int KC>
-    __device__ __forceinline__ void load(int c, int id, float (&f)[KC]) const {
-      load_row<KC>(at(c, id), f, vec);
+    __device__ __forceinline__ void fetch(int c, int id, Buf<KC>& b) const {
+      load_row<KC>(at(c, id), b.f, vec);
     }
-    __device__ __forceinline__ float score(const float* u, int c, int id, int K_) const {
-      return dot_chain(u, at(c, id), K_);
+    template <int KC>
+    __device__ __forceinline__ void unpack(const Buf<KC>& b, float (&f)[KC]) const {
+#pragma unroll
+      for (int j = 0; j < KC; ++j) f[j] = b.f[j];
+    }
+    __device__ __forceinline__ float score(const float* u_, int c, int id, int K_) const {
+      return dot_chain(u_, at(c, id), K_);
     }
   };
   __device__ __forceinline__ Row row(int r) const {
-    return {V + (size_t)r * J * K, seen_j + (size_t)r * J, J, K, vec};
+    return {r, r, V + (size_t)r * J * K, seen_j + (size_t)r * J, J, K, vec};
+  }
+};
+
+// A code's storage type and its exact fp32 value.
+template <typename T>
+struct Code;
+template <>
+struct Code<int8_t> {
+  using Raw = signed char;
+  __device__ static __forceinline__ float value(Raw x) { return static_cast<float>(x); }
+};
+template <>
+struct Code<__nv_bfloat16> {
+  using Raw = unsigned short;
+  __device__ static __forceinline__ float value(Raw x) {
+    return __bfloat162float(__ushort_as_bfloat16(x));
+  }
+};
+
+// One candidate's KC codes as loaded: the same bytes seen as pieces of
+// each load width and as codes.
+template <typename Raw, int KC>
+union CodeBuf {
+  uint4 x16[(KC * sizeof(Raw) + 15) / 16];
+  uint2 x8[(KC * sizeof(Raw) + 7) / 8];
+  unsigned int x4[(KC * sizeof(Raw) + 3) / 4];
+  unsigned short x2[(KC * sizeof(Raw) + 1) / 2];
+  unsigned char x1[KC * sizeof(Raw)];
+  Raw e[KC];
+};
+
+template <typename V, int N>
+__device__ __forceinline__ void load_pieces(const void* p, V (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = __ldg(static_cast<const V*>(p) + i);
+}
+
+// A request's view of quantized rows, whichever source found them: u, the
+// candidate ids, the codes of slot c at v + c·K, the seen bits, the scale.
+template <typename T>
+struct QuantRow {
+  using Raw = typename Code<T>::Raw;
+  long long ui, ci;
+  const Raw* v;
+  const int8_t* s;
+  float scale;
+  int K, wbytes;
+  static constexpr bool kBySlot = true;
+  template <int KC>
+  using Buf = CodeBuf<Raw, KC>;
+  __device__ __forceinline__ bool seen(int c, int) const { return s[c] != 0; }
+  __device__ __forceinline__ float factor(Raw x) const {
+    return __fmul_rn(Code<T>::value(x), scale);
+  }
+  // The row's KC·sizeof(Raw) bytes, wbytes a load (uniform over the launch).
+  template <int KC>
+  __device__ __forceinline__ void fetch(int c, int, Buf<KC>& b) const {
+    constexpr int NB = KC * sizeof(Raw);
+    const Raw* p = v + (size_t)c * KC;
+    if constexpr (NB % 16 == 0)
+      if (wbytes == 16) return load_pieces(p, b.x16);
+    if constexpr (NB % 8 == 0)
+      if (wbytes == 8) return load_pieces(p, b.x8);
+    if constexpr (NB % 4 == 0)
+      if (wbytes == 4) return load_pieces(p, b.x4);
+    if constexpr (NB % 2 == 0)
+      if (wbytes == 2) return load_pieces(p, b.x2);
+    load_pieces(p, b.x1);
+  }
+  template <int KC>
+  __device__ __forceinline__ void unpack(const Buf<KC>& b, float (&f)[KC]) const {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) f[j] = factor(b.e[j]);
+  }
+  // K at run time: the same chain, one code at a time.
+  __device__ __forceinline__ float score(const float* u_, int c, int, int K_) const {
+    const Raw* p = v + (size_t)c * K_;
+    float acc = 0.f;
+    for (int j = 0; j < K_; ++j) acc = __fmaf_rn(__ldg(u_ + j), factor(__ldg(p + j)), acc);
+    return acc;
   }
 };
 
 template <typename T>
 struct WindowQuant {
-  const T* Vq;
+  using Row = QuantRow<T>;
+  const typename Row::Raw* Vq;
   const float* scale;
   const int8_t* seen_w;
-  int Cw, K;
-  struct Row {
-    const T* v;
-    const int8_t* s;
-    float scale;
-    int K;
-    static constexpr bool kBySlot = true;
-    __device__ __forceinline__ bool seen(int c, int) const { return s[c] != 0; }
-    __device__ __forceinline__ float factor(int c, int j) const {
-      return __fmul_rn(to_float(v[(size_t)c * K + j]), scale);
-    }
-    template <int KC>
-    __device__ __forceinline__ void load(int c, int, float (&f)[KC]) const {
-#pragma unroll
-      for (int j = 0; j < KC; ++j) f[j] = factor(c, j);
-    }
-    __device__ __forceinline__ float score(const float* u, int c, int, int K_) const {
-      float s = 0.f;
-      for (int j = 0; j < K_; ++j) s = __fmaf_rn(__ldg(u + j), factor(c, j), s);
-      return s;
-    }
-  };
+  int Cw, K, wbytes;
   __device__ __forceinline__ Row row(int r) const {
-    return {Vq + (size_t)r * Cw * K, seen_w + (size_t)r * Cw, scale[r], K};
+    return {r, r, Vq + (size_t)r * Cw * K, seen_w + (size_t)r * Cw, scale[r], K, wbytes};
+  }
+};
+
+// In place (the kernel's U is the store's, its candidate ids the
+// bucket rows): one load of the id, then the loads that depend on it alone
+// (u, the scale, the bucket), then in the body the bucket's candidate ids
+// beside the seen bits and code rows. An id outside [0, n_users), or a
+// bucket outside [0, n_buckets), traps, as the gather it replaces would
+// fault.
+template <typename T>
+struct TiledQuant {
+  using Row = QuantRow<T>;
+  const long long* ids;
+  const typename Row::Raw* Vq;
+  const float* scale;   // nullptr: 1
+  const int8_t* seen;
+  const long long* user_bucket;
+  int n_users, n_buckets, cap, K, wbytes;
+  __device__ __forceinline__ Row row(int r) const {
+    const long long i = __ldg(ids + r);
+    if (i < 0 || i >= n_users) __trap();
+    const long long b = __ldg(user_bucket + i);
+    if (b < 0 || b >= n_buckets) __trap();
+    return {i, b, Vq + i * cap * K, seen + i * cap, scale != nullptr ? __ldg(scale + i) : 1.f, K,
+            wbytes};
   }
 };
 
@@ -169,8 +290,8 @@ serve_topk_kernel(const float* __restrict__ U, const Src src, const int* __restr
   L.init();
   if (live) {
     const typename Src::Row row = src.row(r);
-    const int* crow = cand + (size_t)r * Cw;
-    const float* u = U + (size_t)r * K;
+    const int* crow = cand + row.ci * Cw;
+    const float* u = U + row.ui * K;
     if constexpr (KC > 0) {
       float ur[KC];
 #pragma unroll
@@ -178,33 +299,42 @@ serve_topk_kernel(const float* __restrict__ U, const Src src, const int* __restr
       // kBatch of the lane's candidates at a time, all their loads issued
       // before any is used: in a window the ids, seen bits and rows at once
       // (a pad slot's row is read and dropped); in a slab the ids, then the
-      // seen bits and rows at the valid ids.
+      // seen bits and rows at the valid ids. Issuing a window's rows before
+      // its ids, so that in place they need not wait for the bucket, was
+      // slower in every form (PERF.md §6).
       for (int c0 = t; c0 < Cw; c0 += kBatch * per_request) {
         int id[kBatch];
         bool ok[kBatch];
-        float f[kBatch][KC];
+        typename Src::Row::template Buf<KC> raw[kBatch];
+        if constexpr (Src::Row::kBySlot) {
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          const int c = c0 + b * per_request;
-          id[b] = c < Cw ? crow[c] : -1;
-          if constexpr (Src::Row::kBySlot) {
+          for (int b = 0; b < kBatch; ++b) {
+            const int c = c0 + b * per_request;
+            id[b] = c < Cw ? crow[c] : -1;
             ok[b] = c < Cw && !row.seen(c, 0);
-            if (c < Cw) row.template load<KC>(c, 0, f[b]);
+            if (c < Cw) row.template fetch<KC>(c, 0, raw[b]);
           }
-        }
 #pragma unroll
-        for (int b = 0; b < kBatch; ++b) {
-          if constexpr (Src::Row::kBySlot) {
-            ok[b] = ok[b] && id[b] >= 0;
-          } else {
-            ok[b] = !row.seen(c0 + b * per_request, id[b]);
-            if (ok[b]) row.template load<KC>(c0 + b * per_request, id[b], f[b]);
+          for (int b = 0; b < kBatch; ++b) ok[b] = ok[b] && id[b] >= 0;
+        } else {
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b) {
+            const int c = c0 + b * per_request;
+            id[b] = c < Cw ? crow[c] : -1;
+          }
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b) {
+            const int c = c0 + b * per_request;
+            ok[b] = !row.seen(c, id[b]);
+            if (ok[b]) row.template fetch<KC>(c, id[b], raw[b]);
           }
         }
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
           if (!ok[b]) continue;
-          const float s = dot_chain(ur, f[b]);
+          float f[KC];
+          row.unpack(raw[b], f);
+          const float s = dot_chain(ur, f);
           if (s > NEG_INF_F) L.push(s, id[b]);
         }
       }
@@ -266,6 +396,15 @@ int launch(const Launch& a, const Src& src) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The load width of quant rows of `row_bytes` bytes from `base`: the
+// widest of 16, 8, 4, 2, 1 that divides both.
+int code_wbytes(const void* base, int row_bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  for (int w = 16; w > 1; w /= 2)
+    if (a % w == 0 && row_bytes % w == 0) return w;
+  return 1;
+}
+
 }  // namespace
 
 extern "C" int serve_topk_window_launch(const float* U, const float* Vw, const int* cand,
@@ -294,8 +433,32 @@ extern "C" int serve_topk_window_quant_launch(const float* U, const void* Vq,
                                               int slots, int merge, void* stream) {
   const Launch a{U, cand, vals, idx, R, Cw, K, k, warps, rpb, slots, merge,
                  static_cast<cudaStream_t>(stream)};
+  const int wbytes = code_wbytes(Vq, K * (bf16 ? 2 : 1));
   if (bf16)
-    return launch(a, WindowQuant<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(Vq), scale,
-                                                seen, Cw, K});
-  return launch(a, WindowQuant<int8_t>{static_cast<const int8_t*>(Vq), scale, seen, Cw, K});
+    return launch(a, WindowQuant<__nv_bfloat16>{static_cast<const unsigned short*>(Vq), scale,
+                                                seen, Cw, K, wbytes});
+  return launch(a, WindowQuant<int8_t>{static_cast<const signed char*>(Vq), scale, seen, Cw, K,
+                                       wbytes});
+}
+
+// In place on the tiled store: ids (R,) int64 user ids; U (n_users, K);
+// Vq (n_users, cap, K) codes; scale (n_users,) or null (1); seen
+// (n_users, cap); user_bucket (n_users,) int64; bucket_items
+// (n_buckets, cap) int32.
+extern "C" int serve_topk_tiled_quant_launch(const long long* ids, const float* U,
+                                             const void* Vq, const float* scale,
+                                             const int8_t* seen, const long long* user_bucket,
+                                             const int* bucket_items, float* vals, int* idx,
+                                             int R, int n_users, int n_buckets, int cap, int K,
+                                             int k, int bf16, int warps, int rpb, int slots,
+                                             int merge, void* stream) {
+  const Launch a{U, bucket_items, vals, idx, R, cap, K, k, warps, rpb, slots, merge,
+                 static_cast<cudaStream_t>(stream)};
+  const int wbytes = code_wbytes(Vq, K * (bf16 ? 2 : 1));
+  if (bf16)
+    return launch(a, TiledQuant<__nv_bfloat16>{ids, static_cast<const unsigned short*>(Vq), scale,
+                                               seen, user_bucket, n_users, n_buckets, cap, K,
+                                               wbytes});
+  return launch(a, TiledQuant<int8_t>{ids, static_cast<const signed char*>(Vq), scale, seen,
+                                      user_bucket, n_users, n_buckets, cap, K, wbytes});
 }

@@ -9,6 +9,8 @@ column ``k`` is a pure function of ``(seed, rid, k)``. Counters
 rid bits fold into a per-row key, and two 24-bit uniforms Box-Muller into
 one standard normal. The CUDA definition is ``csrc/dp_noise.cu``; the plain
 versions here reproduce it, and the reference, hash word for hash word.
+The stream kernel draws two columns of one row a thread, in blocks of
+whole rows (`stream_layout`), as many blocks as cover the rows.
 
 CPU PyTorch has no uint32 ``>>``, so the plain hash runs in int64 with
 every product and sum masked to 32 bits; a product by a 32-bit constant is
@@ -72,6 +74,27 @@ def _check_stream(name: str, rid: torch.Tensor, n_cols: int) -> torch.Tensor:
     return rid.reshape(-1)
 
 
+STREAM_THREADS = 128        # threads a stream block holds at most (one row may need more)
+
+
+def stream_layout(n_cols: int) -> dict:
+    """The stream kernel's block for rows of n_cols: ``per`` columns a
+    thread (2 for even n_cols, else 1) and ``rows`` whole rows a block
+    (n_cols / per threads a row, at most 128 threads unless one row needs
+    more). The kernel launches ceil(N / rows) blocks."""
+    per = 2 if n_cols % 2 == 0 else 1
+    x = n_cols // per
+    rows = max(1, STREAM_THREADS // x)
+    return dict(per=per, rows=rows, threads=x * rows)
+
+
+def _stream(name: str, fn: str, rid: torch.Tensor, outs: tuple, n_cols: int, seed: int) -> None:
+    """Launch the stream kernel ``fn`` over rid's N rows into ``outs``."""
+    lay = stream_layout(n_cols)
+    build.launch(name, rid.device, fn, rid.data_ptr(), *(o.data_ptr() for o in outs),
+                 rid.shape[0], n_cols, int(seed) & _MASK, lay["per"], lay["rows"])
+
+
 def gauss_counter(seed: int, rid: torch.Tensor, n_cols: int) -> torch.Tensor:
     """(N, n_cols) f32 standard-normal draws, a pure function of (seed,
     rid, column); ``rid`` int32 of N global message-row ids.
@@ -86,8 +109,7 @@ def gauss_counter(seed: int, rid: torch.Tensor, n_cols: int) -> torch.Tensor:
     N = rid.shape[0]
     out = torch.empty((N, n_cols), dtype=torch.float32, device=rid.device)
     if N:
-        build.launch(name, rid.device, "gauss_counter_launch", rid.data_ptr(),
-                     out.data_ptr(), N, n_cols, int(seed) & _MASK)
+        _stream(name, "gauss_counter_launch", rid, (out,), n_cols, seed)
         gauss_counter.launches += 1
     return out
 
@@ -105,8 +127,7 @@ def counter_words(seed: int, rid: torch.Tensor, n_cols: int):
     h1, h2 = (torch.empty((N, n_cols), dtype=torch.int32, device=rid.device)
               for _ in range(2))
     if N:
-        build.launch(name, rid.device, "counter_words_launch", rid.data_ptr(),
-                     h1.data_ptr(), h2.data_ptr(), N, n_cols, int(seed) & _MASK)
+        _stream(name, "counter_words_launch", rid, (h1, h2), n_cols, seed)
     return tuple(h.to(torch.int64) & _MASK for h in (h1, h2))
 
 

@@ -5,7 +5,8 @@
 `gossip_mix_ref` :111-114, `topk_scores_ref` :117-123) plus `dmf_fused_step_dp_ref`, the
 plain form of `_dmf_fused_step_dp_kernel`, and
 `serve_topk_window_quant_ref`, the plain form of
-`_serve_topk_window_quant_kernel`. The plain noise stream is
+`_serve_topk_window_quant_kernel`, and `serve_topk_tiled_quant_ref`, the
+same on windows gathered from the tiled store. The plain noise stream is
 `dp_noise.gauss_counter_ref`.
 
 Each kernel wrapper runs these on CPU tensors, and `chip_smoke.py` holds
@@ -82,6 +83,16 @@ def serve_topk_window_quant_ref(U, Vq, scale, cand, seen_w, k: int):
     codes or bf16 factors, times the per-request f32 ``scale`` (R,) (1 for
     bf16)."""
     return serve_topk_window_ref(U, Vq.float() * scale[:, None, None], cand, seen_w, k)
+
+
+def serve_topk_tiled_quant_ref(ids, U, Vq, scale, user_bucket, bucket_items, seen, k: int):
+    """`serve_topk_window_quant_ref` on the windows of users ``ids`` (R,)
+    gathered from the tiled store: U (I, K), Vq (I, cap, K), scale (I,) or
+    None (1), seen (I, cap), candidates ``bucket_items[user_bucket[ids]]``."""
+    sc = (torch.ones(ids.shape[0], dtype=torch.float32, device=U.device) if scale is None
+          else scale[ids])
+    return serve_topk_window_quant_ref(U[ids], Vq[ids], sc, bucket_items[user_bucket[ids]],
+                                       seen[ids], k)
 
 
 def topk_scores_peruser_ref(U, V, mask, k: int):

@@ -10,10 +10,14 @@ their `src/repro/kernels/ops.py` wrappers:
   kernel, the staging reference of the tiled path;
 * `serve_topk_window_quant` — `_serve_topk_window_quant_kernel`
   (:184-250) behind `ops.serve_topk_window_quant` (:222-247): windows as
-  int8 codes times a per-request scale, or as bf16.
+  int8 codes times a per-request scale, or as bf16;
+* `serve_topk_tiled_quant` — the same kernel reading the tiled store in
+  place (user ids, the store's U, codes, scales and seen bits, the index's
+  user buckets and bucket items), with no gathered copy: the tiled
+  engine's int8/bf16 dispatch.
 
 The public layouts are the reference's: windows (R, Cw, K), slabs
-(R, J, K). The TPU's K-major transpose and 128-lane padding are not
+(R, J, K), the store (I, cap, K). The TPU's K-major transpose and 128-lane padding are not
 copied; one CUDA kernel body (``csrc/serve_topk.cu``) reads each form as
 it is. The slab and quant forms equal the fp32 window form bit for bit on
 windows gathered from the same rows, resp. on ``codes.float() * scale``.
@@ -194,3 +198,82 @@ def serve_topk_window_quant(U: torch.Tensor, Vq: torch.Tensor, scale: torch.Tens
 
 
 serve_topk_window_quant.launches = 0
+
+
+def serve_topk_tiled_quant(ids: torch.Tensor, U: torch.Tensor, Vq: torch.Tensor,
+                           scale: torch.Tensor | None, user_bucket: torch.Tensor,
+                           bucket_items: torch.Tensor, seen: torch.Tensor, k: int):
+    """Kernel 6 reading the tiled store in place. ids: (R,) int64 user
+    ids; U: (I, K) f32; Vq: (I, cap, K) int8 codes or bf16 factors, each
+    user's window; scale: (I,) f32 per-user dequant scale, or None (1, as
+    for bf16); user_bucket: (I,) int64; bucket_items: (n_buckets, cap)
+    int32 ascending item ids, -1 padded; seen: (I, cap) int8/bool aligned
+    to the user's bucket row. Request r serves user ``ids[r]``: the result
+    is that of `serve_topk_window_quant` on the gathered ``U[ids]``,
+    ``Vq[ids]``, ``scale[ids]``, ``bucket_items[user_bucket[ids]]``,
+    ``seen[ids]``, bit for bit.
+
+    CPU tensors run `ref.serve_topk_tiled_quant_ref`; CUDA tensors launch
+    the kernel (and count one in ``serve_topk_tiled_quant.launches``) or
+    raise. An id outside [0, I), or a user's bucket outside
+    [0, n_buckets), raises on the CPU and traps the kernel on the card."""
+    name = "serve_topk_tiled_quant"
+    I, K = U.shape
+    cap = bucket_items.shape[1]
+    R = ids.shape[0]
+    build.require_shape(name, "ids", ids, (R,))
+    build.require_dtype(name, "ids", ids, torch.int64)
+    build.require_shape(name, "Vq", Vq, (I, cap, K))
+    build.require_shape(name, "user_bucket", user_bucket, (I,))
+    build.require_shape(name, "seen", seen, (I, cap))
+    build.require_dtype(name, "U", U, torch.float32)
+    build.require_dtype(name, "Vq", Vq, torch.int8, torch.bfloat16)
+    build.require_dtype(name, "user_bucket", user_bucket, torch.int64)
+    build.require_dtype(name, "bucket_items", bucket_items, torch.int32)
+    build.require_dtype(name, "seen", seen, torch.int8, torch.bool)
+    if scale is not None:
+        build.require_shape(name, "scale", scale, (I,))
+        build.require_dtype(name, "scale", scale, torch.float32)
+    _check_k(name, k)
+    tensors = [t for t in (ids, U, Vq, scale, user_bucket, bucket_items, seen) if t is not None]
+    if not build.on_card(name, *tensors):
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= I):
+            raise IndexError(f"{name}: a user id outside [0, {I})")
+        buckets = user_bucket[ids]
+        if buckets.numel() and (int(buckets.min()) < 0
+                                or int(buckets.max()) >= bucket_items.shape[0]):
+            raise IndexError(f"{name}: a bucket outside [0, {bucket_items.shape[0]})")
+        return ref.serve_topk_tiled_quant_ref(ids, U, Vq, scale, user_bucket, bucket_items,
+                                              seen, k)
+    vals, idx = tiled_quant_on_layout(ids, U, Vq, scale, user_bucket, bucket_items, seen, k,
+                                      window_layout(R, cap, k))
+    if R:
+        serve_topk_tiled_quant.launches += 1
+    return vals, idx
+
+
+serve_topk_tiled_quant.launches = 0
+
+
+def tiled_quant_on_layout(ids, U, Vq, scale, user_bucket, bucket_items, seen, k: int,
+                          layout: dict, merge: bool = True):
+    """`serve_topk_tiled_quant` on the card with the given layout
+    (`window_layout`'s keys), the inputs already checked. ``merge=False``
+    scores without merging (a timing form, as `window_on_layout`); counts
+    no launch."""
+    build.require_contiguous("serve_topk_tiled_quant", ids=ids, U=U, Vq=Vq,
+                             user_bucket=user_bucket, bucket_items=bucket_items, seen=seen,
+                             **({} if scale is None else {"scale": scale}))
+    R = ids.shape[0]
+    I, K = U.shape
+    cap = bucket_items.shape[1]
+    vals, idx = _outputs(R, k, U.device)
+    if R:
+        build.launch("serve_topk_tiled_quant", U.device, "serve_topk_tiled_quant_launch",
+                     ids.data_ptr(), U.data_ptr(), Vq.data_ptr(),
+                     0 if scale is None else scale.data_ptr(), seen.view(torch.int8).data_ptr(),
+                     user_bucket.data_ptr(), bucket_items.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(), R, I, bucket_items.shape[0], cap, K, k,
+                     int(Vq.dtype == torch.bfloat16),
+                     *_layout_args(layout, merge))
+    return vals, idx

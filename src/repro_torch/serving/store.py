@@ -17,9 +17,9 @@ per-user scale, 2.05 GB as bf16 (byte counts, the reference's
 ``million.resident_gb``). Unlike the reference, which keeps the slabs in
 host numpy and gathers windows on the host, the port keeps every slab on
 the store's device (an H100's 80 GB holds all three precisions at once):
-a dispatch uploads R user ids, gathers R windows on the device and runs
-one kernel (`ops.serve_topk_window` for fp32, `ops.serve_topk_window_quant`
-for int8 and bf16). The index, the cold flags and the item counts stay
+a dispatch uploads R user ids and runs one kernel. int8 and bf16 read the
+store in place (`ops.serve_topk_tiled_quant`); fp32 gathers R windows on
+the device first (`ops.serve_topk_window`). The index, the cold flags and the item counts stay
 host numpy; so does the popularity fallback.
 
 Quantization, exact to the reference's numpy and bf16 cast bit for bit:
@@ -342,10 +342,10 @@ class TiledServingEngine:
         self.mode = mode
         self.stats = EngineStats()
         dev = store.device
-        self._bucket_items = torch.as_tensor(store.index.bucket_items, device=dev)
+        self._bucket_items = torch.as_tensor(store.index.bucket_items, dtype=torch.int32,
+                                             device=dev)
         self._user_bucket = torch.as_tensor(store.index.user_bucket, dtype=torch.int64,
                                             device=dev)
-        self._ones = torch.ones(cfg.microbatch, dtype=torch.float32, device=dev)
         self._bucket_empty = (store.index.bucket_items < 0).all(axis=1)
         # the popularity slate, built as ServingEngine._refresh_popularity
         top = np.argsort(-store.item_counts, kind="stable")
@@ -362,21 +362,20 @@ class TiledServingEngine:
                 | self._bucket_empty[self.store.index.user_bucket[safe]])
 
     def _dispatch(self, uids: np.ndarray):
-        """One fixed-shape microbatch: upload the R ids, gather their
-        windows off the device-resident store, one kernel, one copy of the
-        slate back to the host."""
+        """One fixed-shape microbatch: upload the R ids, one kernel, one
+        copy of the slate back to the host. int8 and bf16 read the store in
+        place (`ops.serve_topk_tiled_quant`: no gathers); fp32 gathers the
+        windows off the device-resident store first."""
         st, k = self.store, self.cfg.k
         ids = torch.as_tensor(uids, device=st.device)
-        cand = self._bucket_items[self._user_bucket[ids]]
-        u, sw = st.U[ids], st.seen[ids]
         if self.mode == "fp32":
-            vals, idx = ops.serve_topk_window(u, st.slab[ids], cand, sw, k)
-        elif self.mode == "int8":
-            vals, idx = ops.serve_topk_window_quant(u, st.q_codes[ids], st.q_scale[ids],
-                                                    cand, sw, k)
+            cand = self._bucket_items[self._user_bucket[ids]]
+            vals, idx = ops.serve_topk_window(st.U[ids], st.slab[ids], cand, st.seen[ids], k)
         else:
-            vals, idx = ops.serve_topk_window_quant(u, st.slab_bf16[ids], self._ones,
-                                                    cand, sw, k)
+            Vq, scale = ((st.q_codes, st.q_scale) if self.mode == "int8"
+                         else (st.slab_bf16, None))
+            vals, idx = ops.serve_topk_tiled_quant(ids, st.U, Vq, scale, self._user_bucket,
+                                                   self._bucket_items, st.seen, k)
         return vals.cpu().numpy(), idx.cpu().numpy()     # waits for the card
 
     def recommend(self, user_ids, return_flags: bool = False):

@@ -14,8 +14,12 @@ clipped, noised messages within 1e-6 (one fp32 ulp of log/cos), the fused
 DP step's deltas within 1e-5. The slab form of the serving kernel
 (`serve_topk`) equals the window form on the windows gathered from the
 same rows, and the int8/bf16 form (`serve_topk_window_quant`) equals it on
-the dequantized windows, bit for bit; the tiled engine on the card agrees
-with the same store on the CPU (store tensors bit for bit, slates as
+the dequantized windows, bit for bit, as does the same kernel reading the
+tiled store in place (`serve_topk_tiled_quant`, rows aligned and at odd
+offsets, shard views) against the form on the gathered windows; the noise
+stream's words and draws equal those of the clip + noise kernel's path
+(the same device function) bit for bit from one row to beyond a wave;
+the tiled engine on the card agrees with the same store on the CPU (store tensors bit for bit, slates as
 above). The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
 and in every layout equals the call on the materialized rows bit for bit.
 The shared-V top-k (`recommend_topk`, kernel 4) is held like the
@@ -136,6 +140,35 @@ def test_gauss_counter_kernel(dev, seed):
     assert ops.gauss_counter.launches == before + 1
     torch.testing.assert_close(draws, dp_noise.gauss_counter_ref(seed, rid, 10),
                                rtol=0, atol=DRAW_TOL)
+
+
+@pytest.mark.parametrize("N", [1, 33, 28_160, 300_000])
+@pytest.mark.parametrize("n_cols", [1, 8, 10, 16, 256])
+def test_gauss_counter_stream_kernel_over_waves(dev, N, n_cols):
+    """The stream kernel (two columns of one row a thread for even n_cols,
+    blocks of whole rows; at 300,000 rows, and 28,160 at 256 columns,
+    more blocks than one wave of the SMs holds): hash words equal to
+    the plain version's word for word, draws equal bit for bit to those of
+    the clip + noise kernel (one thread an element through the same device
+    function) on zero messages with noise 1, and within 1e-6 of the plain
+    version. Rids from below 2^23 to beyond, and 2^31 - 1."""
+    from repro_torch.kernels import dp_noise
+    rid = ((1 << 23) - N // 2 + np.arange(N)).astype(np.int32)
+    rid[-1] = 2**31 - 1
+    rid = torch.as_tensor(rid, device=dev)
+    for seed in (0, 7, 2**31 - 1):
+        for got, plain in zip(dp_noise.counter_words(seed, rid, n_cols),
+                              dp_noise.counter_words_ref(seed, rid, n_cols)):
+            assert torch.equal(got, plain)
+        before = ops.gauss_counter.launches
+        draws = ops.gauss_counter(seed, rid, n_cols)
+        torch.cuda.synchronize()
+        assert ops.gauss_counter.launches == before + 1
+        zeros = torch.zeros((N, n_cols), device=dev)
+        msgs = ops.dp_clip_noise(zeros, rid, seed, clip=float("inf"), noise_std=1.0)
+        assert torch.equal((draws + 0.0).view(torch.int32), msgs.view(torch.int32))
+        torch.testing.assert_close(draws, dp_noise.gauss_counter_ref(seed, rid, n_cols),
+                                   rtol=0, atol=DRAW_TOL)
 
 
 @pytest.mark.parametrize("B", [256, 100, 1])
@@ -275,6 +308,121 @@ def test_slab_and_quant_kernels_equal_the_window_kernel_bitwise(dev, R, J, Cw, k
         for a, b in zip(ops.serve_topk_window_quant(U, q, s, cand, seen_w, k),
                         ops.serve_topk_window(U, deq, cand, seen_w, k)):
             assert torch.equal(a, b)
+
+
+def _store_case(rng, I, R, cap, K, dev, offset):
+    """A tiled store's resident tensors (7 buckets of ascending ids, one
+    all padding, one full; an all-seen user, a zero user, an all-zero int8
+    user) with its codes and bf16 factors starting ``offset`` elements into
+    their storage (rows off 16, 8, 4 or 2 bytes), and R user ids with
+    repeats."""
+    n_buckets = 7
+    fill = [cap, 0, *rng.integers(0, cap + 1, n_buckets - 2)]
+    bucket_items = np.full((n_buckets, cap), -1, np.int32)
+    for b, n in enumerate(fill):
+        bucket_items[b, :n] = np.sort(rng.choice(5000, n, replace=False))
+    user_bucket = rng.integers(0, n_buckets, I).astype(np.int64)
+    U = rng.normal(size=(I, K)).astype(np.float32)
+    U[1] = 0.0
+    V = rng.normal(size=(I, cap, K)).astype(np.float32)
+    V[2] = 0.0
+    V[3, ::2] = V[3, -1]
+    seen = (rng.random((I, cap)) < 0.1).astype(np.int8)
+    seen[4] = 1
+    ids = rng.integers(0, I, R).astype(np.int64)
+    ids[: min(R, 5)] = np.arange(min(R, 5))
+    if R > 6:
+        ids[6] = ids[5]
+    U, V, seen, bucket_items, user_bucket, ids = (
+        torch.as_tensor(x, device=dev) for x in (U, V, seen, bucket_items, user_bucket, ids))
+    codes, scale = int8_rows(V)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        out = buf[offset:].view(x.shape)
+        out.copy_(x)
+        return out
+    return (U, shifted(codes), scale, shifted(V.to(torch.bfloat16)), seen, user_bucket,
+            bucket_items, ids)
+
+
+@pytest.mark.parametrize("R", [1, 37, 128, 300])
+@pytest.mark.parametrize("Cw", [1, 37, 128, 300])
+@pytest.mark.parametrize("K", [8, 10, 16])
+def test_tiled_quant_kernel_equals_its_plain_version_and_the_gathered_kernel(dev, R, Cw, K):
+    """Kernel 6 reading the store in place: against its plain version, and
+    bit for bit against the pre-gathered kernel 6 on the gathered windows
+    (rows at the same offset) and kernel 1 on the dequantized windows;
+    int8 and bf16, k 1/10/16, rows aligned and at odd offsets."""
+    rng = np.random.default_rng(R * 1000 + Cw + K)
+    I = max(R, 60)
+    for offset in (0, 1, 3):
+        U, codes, scale, bf16, seen, ub, bi, ids = _store_case(rng, I, R, Cw, K, dev, offset)
+        for Vq, sc in ((codes, scale), (bf16, None)):
+            scale_r = torch.ones(R, device=dev) if sc is None else sc[ids]
+            win = torch.empty(Vq.numel() // I * R + offset, dtype=Vq.dtype, device=dev)
+            win = win[offset:].view(R, Cw, K)
+            win.copy_(Vq[ids])
+            cand, sw, u = bi[ub[ids]], seen[ids], U[ids]
+            deq = (win.float() * scale_r[:, None, None]).contiguous()
+            wsc = (u[:, None] * deq).sum(-1).masked_fill((cand < 0) | (sw != 0), ref.NEG_INF)
+            wsc, cids = wsc.cpu().numpy(), cand.cpu().numpy()
+            for k in (1, 10, 16):
+                before = ops.serve_topk_tiled_quant.launches
+                got = ops.serve_topk_tiled_quant(ids, U, Vq, sc, ub, bi, seen, k)
+                torch.cuda.synchronize()
+                assert ops.serve_topk_tiled_quant.launches == before + 1
+                _hold(got, ref.serve_topk_tiled_quant_ref(ids, U, Vq, sc, ub, bi, seen, k),
+                      lambda r, item: wsc[r, np.flatnonzero(cids[r] == item)[0]])
+                gathered = ops.serve_topk_window_quant(u, win, scale_r, cand, sw, k)
+                for a, b in zip(got, gathered):
+                    assert torch.equal(a, b)
+                for a, b in zip(gathered, ops.serve_topk_window(u, deq, cand, sw, k)):
+                    assert torch.equal(a, b)
+
+
+def test_tiled_quant_kernel_on_shard_views_and_layouts(dev):
+    """In place on a shard's row views (user ids rebased, codes at an
+    offset into the whole store) and in other launch layouts: the same
+    slates as the whole store's, bit for bit."""
+    rng = np.random.default_rng(5)
+    I, R, cap, K = 900, 128, 128, 8
+    U, codes, scale, bf16, seen, ub, bi, ids = _store_case(rng, I, R, cap, K, dev, 0)
+    start = 301
+    local = ids[(ids >= start) & (ids < 600)] - start
+    for Vq, sc in ((codes, scale), (bf16, None)):
+        whole = ops.serve_topk_tiled_quant(local + start, U, Vq, sc, ub, bi, seen, 10)
+        part = ops.serve_topk_tiled_quant(local, U[start:600], Vq[start:600],
+                                          None if sc is None else sc[start:600], ub[start:600],
+                                          bi, seen[start:600], 10)
+        for a, b in zip(part, whole):
+            assert torch.equal(a, b)
+        for warps, rpb in ((1, 1), (1, 8), (2, 1), (4, 1)):
+            lay = dict(warps=warps, rpb=rpb,
+                       slots=serve_topk.slots_for(10, -(-cap // (32 * warps))))
+            got = serve_topk.tiled_quant_on_layout(local + start, U, Vq, sc, ub, bi, seen, 10, lay)
+            for a, b in zip(got, whole):
+                assert torch.equal(a, b)
+
+
+def test_tiled_engine_quant_modes_launch_one_in_place_kernel(dev):
+    """The engine's int8 and bf16 dispatches: one launch of the in-place
+    kernel a microbatch, no launch of the pre-gathered one."""
+    from repro_torch.serving import (ServingConfig, SyntheticFactors, TiledFactorStore,
+                                     TiledServingEngine, build_hierarchical_index,
+                                     synthetic_world)
+    uc, ic, ucoord, icoord = synthetic_world(3000, 600, 6, seed=1)
+    hier = build_hierarchical_index(ic, uc, icoord, ucoord, cell_cap=64)
+    sf = SyntheticFactors.create(3000, 600, 8, seed=2)
+    store = TiledFactorStore.synthetic(sf, hier.flat, seen_per_user=2, seed=3, device=dev)
+    ids = np.random.default_rng(4).integers(0, 3000, 300)
+    for mode in ("int8", "bf16"):
+        eng = TiledServingEngine(store, ServingConfig(microbatch=64), mode=mode)
+        before = (ops.serve_topk_tiled_quant.launches, ops.serve_topk_window_quant.launches)
+        eng.recommend(ids)
+        assert ops.serve_topk_tiled_quant.launches == before[0] + eng.stats.n_dispatches == \
+            before[0] + 5
+        assert ops.serve_topk_window_quant.launches == before[1]
 
 
 def test_tiled_engine_on_the_card_equals_the_cpu(dev):

@@ -254,6 +254,12 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     for a, b in zip(ops.serve_topk_window_quant(U, codes, scale, cand, seen, 10),
                     ref.serve_topk_window_quant_ref(U, codes, scale, cand, seen, 10)):
         assert torch.equal(a, b)
+    ids = torch.tensor([3, 0, 3, 7], dtype=torch.int64)
+    user_bucket = torch.arange(U.shape[0], dtype=torch.int64)
+    for a, b in zip(ops.serve_topk_tiled_quant(ids, U, codes, scale, user_bucket, cand, seen, 10),
+                    ref.serve_topk_window_quant_ref(U[ids], codes[ids], scale[ids], cand[ids],
+                                                    seen[ids], 10)):
+        assert torch.equal(a, b)
     U, Vs, mask = x[0], x[1][:20].contiguous(), torch.zeros(32, 20, dtype=torch.bool)
     for a, b in zip(ops.recommend_topk(U, Vs, mask, 10), ref.topk_scores_ref(U, Vs, mask, 10)):
         assert torch.equal(a, b)
@@ -263,7 +269,7 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     M = torch.eye(32) + x[2][:, :1]
     assert torch.equal(ops.gossip_mix_op(M, x[0]), ref.gossip_mix_ref(M, x[0]))
     assert [kern.launches for kern in ops.KERNELS] == before == [0] * len(ops.KERNELS)
-    assert len(ops.KERNELS) == 11
+    assert len(ops.KERNELS) == 12
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])
