@@ -7,11 +7,12 @@ tiled serving at the reference's million configuration, and times each
 kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
-    python3 chip_smoke.py --parent DIR    # also hold kernels 6 (both sources),
-                                          # 1, 5, 8 and the noise stream
-                                          # against the build of the checkout
-                                          # unpacked in DIR, bit for bit, and
-                                          # time both builds
+    python3 chip_smoke.py --parent DIR    # also hold kernels 9, 5 (in place,
+                                          # against the parent's gathers +
+                                          # kernel 1), 1, 3, 6, 7, 8 and the
+                                          # noise stream against the build of
+                                          # the checkout unpacked in DIR, bit
+                                          # for bit, and time both builds
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -33,13 +34,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    windows gathered from the same rows, resp. on the dequantized windows;
    kernel 6 reading a store in place (user ids with repeats, a bucket of
    padding only, an all-seen and an all-zero user) within 1e-5 and bit for
-   bit against the pre-gathered kernel 6 on the gathered windows.
+   bit against the pre-gathered kernel 6 on the gathered windows. Kernel 5
+   reading a serving state in place (on V and through P and Q; ids
+   repeated, odd and unsorted, a bucket of padding only, an all-seen and an
+   all-zero user, k above three live candidates) within 1e-5 and bit for
+   bit against kernel 1 on the gathered windows.
    Kernel 2 also reading its rows in place (``rows`` repeated, odd and
    unsorted, with and without Q, and slices of P and Q at an odd start),
    bit for bit against the call on the materialized rows.
    The shared-V top-k (kernel 4) at `tests/test_kernels.py`'s shapes and
    on all-zero users (each slate the lowest unmasked ids); the gradients
-   (kernel 9) at B 64/256/300/1024 × K 5/10/15/128 within 2e-5 abs + rel
+   (kernel 9) at B 64/256/300/1024 × K 5/10/15/128 and at B=2048, K=16
+   within 2e-5 abs + rel
    plus the bound on two fp32 orders of the residual's dot; the walk
    mixing (kernel 10) at (128,128), (200,333), (512,64), (77,1000) and
    with bf16 inputs, within 1e-5 + 1e-5·(|M| @ |X|) elementwise; on
@@ -54,9 +60,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    each with every launch count set to 0 just before it and read just
    after:
    a. serving: ingest the train check-ins (kernel 3), recommend pruned
-      (kernel 1) and dense (kernel 2), ingest the test check-ins,
-      recommend again; 256 served slates of each kind are held against
-      the plain versions. Then, as the reference's serving bench does,
+      (kernel 5 reading the engine's state in place) and dense (kernel 2),
+      ingest the test check-ins, recommend again; 256 served slates of
+      each kind are held against the plain versions, and every served
+      pruned slate bit for bit against kernel 1 on its gathered window.
+      Then, as the reference's serving bench does,
       kernel 5 on 64 served requests' whole (64, 3,197, 10) item rows
       against kernel 1 on their windows, and a `TiledFactorStore` built
       from the ingested state, served in fp32, against
@@ -113,25 +121,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel; P + Q then the kernel). Kernel 6's rows: int8 and bf16 on the
    tiled microbatch pre-gathered, in place on the store (the
    ``serve_topk_tiled_quant`` row, the tiled dispatch's), and the
-   parent's sequence (six gathers, then the pre-gathered kernel). Then the
-   ``forms`` line: kernels 1, 2, 4 and 6 at their main shapes (kernel 1
+   earlier sequence (six gathers, then the pre-gathered kernel). Kernel
+   5's in-place row (``serve_topk_rows``): the serving microbatch on the
+   engine's V and through P and Q, each beside the parent's sequence (the
+   gathers, the add, kernel 1). Then the ``forms`` line: kernels 1, 2, 4,
+   5 (in place, with its P and Q, pre-gathered and kernel 1 forms), 6 and
+   9 (16/32/64/128 rows a block) at their main shapes
+   (kernel 1
    serving R=64 Cw=384 and tiled R=128 Cw=128; kernel 2 at R=64, a
    1,024-user chunk and R=6,524; kernel 4 on the MF state R=6,524 and one
    DMF request R=1; kernel 6 in place at R=128 Cw=128, int8 and bf16, and
    its pre-gathered form) in the wrapper's layout, in other layouts (each
    held against the wrapper's slate bit for bit first) and scoring without
    the merge, timed in turns, every form down the list and back up. With
-   ``--parent DIR``, build the checkout in DIR (the commit before kernel 6
-   read the store in place) and hold against it, bit for bit: kernel 6
-   pre-gathered and in place against the parent's kernel 6 on the gathered
-   windows (phase 2's stores and the tiled microbatch, k 1/10/16, int8 and
-   bf16); kernels 1 and 5 at their main shapes; the noise stream at N 1 to
-   300,000 rows, n_cols 1/8/10/16/256, seeds 0/7/2^31-1, rids from below
-   2^23 to 2^31-1; kernel 8 on 20 batches (B 1 to 5,000, K 8/10/16, clip
-   inf/0.5, noise 0/1, zero and NaN rows). Both builds are timed in turns
-   (parent, this, this, parent) on the ``parent build`` line, the parent
-   with its six gathers where this build reads the store in place. Last,
-   print the ``{"kernels": [...]}`` line.
+   ``--parent DIR``, build the checkout in DIR (the commit before kernel 9
+   took 32 rows a block and kernel 5 read the engine's state in place) and
+   hold against it, bit for bit: kernel 5 in place against the parent's
+   gathers + kernel 1 (phase 2's states and the serving microbatch, V and P + Q, k
+   1/10/16) and every served pruned request of phase 3a; kernels 1 and 5
+   pre-gathered at their main shapes; kernel 6 pre-gathered and in place
+   (phase 2's stores and the tiled microbatch, k 1/10/16, int8 and bf16);
+   kernel 9 and kernels 3 and 7 (B 1 to 5,000, K 5/8/10/16/128, clip
+   inf/0.5); the noise stream at N 1 to 300,000 rows, n_cols
+   1/8/10/16/256, seeds 0/7/2^31-1, rids from below 2^23 to 2^31-1;
+   kernel 8 on 20 batches (B 1 to 5,000, K 8/10/16, clip inf/0.5, noise
+   0/1, zero and NaN rows). Both builds are timed in turns (parent, this,
+   this, parent) on the ``parent build`` line, the parent with its gathers
+   where this build reads the engine's state in place. Last, print the
+   ``{"kernels": [...]}`` line.
 
 The last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX or of the JAX package.
@@ -170,8 +187,8 @@ TILED_MODES = ("fp32", "int8", "bf16")
 EPOCHS, HOLD_EPOCHS, EVAL_CHUNK = 20, 2, 1024
 CLI_ARGS = ["--full", "--epochs", "3", "--dp-sigma", "1", "--dp-clip", "0.5"]
 DP = dict(dp_sigma=1.0, dp_clip=0.5, dp_seed=0)
-SERVING_KERNELS = ("serve_topk_window", "recommend_topk_peruser", "dmf_fused_step",
-                   "serve_topk")
+SERVING_KERNELS = ("serve_topk_rows", "recommend_topk_peruser", "dmf_fused_step",
+                   "serve_topk", "serve_topk_window")
 TILED_KERNELS = ("serve_topk_window", "serve_topk_tiled_quant")
 TRAINING_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
                     "dp_clip_noise", "gauss_counter")
@@ -374,6 +391,7 @@ def check_kernels(dev, J: int) -> dict[str, float]:
         same_bits(f"serve_topk vs serve_topk_window k={k}", ops.serve_topk(U, V, cand, seen, k),
                   ops.serve_topk_window(U, vw, cand, sw, k))
     sync(dev)
+    errs["serve_topk_rows"] = check_rows(dev, J)
     errs["serve_topk_window_quant"], errs["serve_topk_tiled_quant"] = check_quant(rng, dev, J)
     errs["gauss_counter"] = check_stream(dev)
     errs["dp_clip_noise"] = check_clip_noise(rng, dev)
@@ -516,14 +534,18 @@ def hold_grads(got, sx, hp) -> float:
     return err
 
 
+GRAD_SHAPES = tuple((B, K) for B in (64, 256, 300, 1024) for K in (5, 10, 15, 128)) + ((2048, 16),)
+
+
 def check_grads(dev) -> float:
+    """Kernel 9 at `tests/test_kernels.py`'s shapes and at the micro-bench
+    shape (B=2048, K=16)."""
     from repro_torch.kernels import ops
     hp = dict(alpha=0.1, beta=0.01, gamma=0.02)
     err = 0.0
-    for B in (64, 256, 300, 1024):
-        for K in (5, 10, 15, 128):
-            sx = grads_inputs(np.random.default_rng(B * K), B, K, dev)
-            err = max(err, hold_grads(ops.dmf_grads(*sx, **hp), sx, hp))
+    for B, K in GRAD_SHAPES:
+        sx = grads_inputs(np.random.default_rng(B * K), B, K, dev)
+        err = max(err, hold_grads(ops.dmf_grads(*sx, **hp), sx, hp))
     sync(dev)
     return err
 
@@ -612,6 +634,78 @@ def check_mix_routes(dev) -> float:
         Y = ops.gossip_mix_op(M, X)
         assert ops.gossip_mix_op.last_route == "dense", ops.gossip_mix_op.last_route
         err = max(err, hold_mix_nonfinite(f"gossip_mix_op non-finite X I={I} F={F}", Y, M, X))
+    sync(dev)
+    return err
+
+
+def rows_state(rng, I, R, J, Cw, K, dev) -> dict:
+    """A serving engine's resident state for kernel 5 in place: U (I, K)
+    with an all-zero user (3); P and Q (I, J, K) with repeated rows (user
+    5), V = P + Q; seen (I, J) with an all-seen user (2); 7 buckets of
+    ascending ids (0 full, 1 padding only, 2 three ids: user 4's, unseen);
+    R user ids, unsorted, with repeats and odd ids (rows 8 bytes off a
+    16-byte boundary at K=10). Returns [(form, (ids, U, V, seen,
+    user_bucket, bucket_items), Q)] on V and on P and Q."""
+    n_buckets = 7
+    bucket_items = np.full((n_buckets, Cw), -1, np.int32)
+    for b in range(n_buckets):
+        n = (Cw, 0, 3)[b] if b < 3 else int(rng.integers(Cw // 2, Cw + 1))
+        bucket_items[b, :n] = np.sort(rng.choice(J, n, replace=False))
+    user_bucket = rng.integers(0, n_buckets, I).astype(np.int64)
+    user_bucket[:5] = (0, 1, 0, 0, 2)
+    U = rng.normal(0, 1, (I, K)).astype(np.float32)
+    U[3] = 0.0
+    P, Q = (rng.normal(0, 1, (I, J, K)).astype(np.float32) for _ in range(2))
+    P[5, ::2], Q[5, ::2] = P[5, -1], Q[5, -1]
+    seen = (rng.random((I, J)) < 0.05).astype(np.int8)
+    seen[2] = 1
+    seen[4, bucket_items[2, :3]] = 0
+    ids = rng.permutation(I)[:R].astype(np.int64)
+    ids[:9] = (4, 0, 1, 2, 3, 5, 7, 7, 9)
+    U, P, Q, seen, bucket_items, user_bucket, ids = (
+        torch.as_tensor(x, device=dev)
+        for x in (U, P, Q, seen, bucket_items, user_bucket, ids))
+    rest = (seen, user_bucket, bucket_items)
+    return [("V", (ids, U, P + Q, *rest), None), ("P+Q", (ids, U, P, *rest), Q)]
+
+
+def gathered_rows(ids, U, V, seen, user_bucket, bucket_items, Q=None):
+    """Kernel 1's inputs (u, windows, cand, seen windows) for kernel 5 in
+    place: the gathers (and, with Q, the add) the pruned dispatch made
+    before it read the engine's state in place."""
+    cand = bucket_items[user_bucket[ids]]
+    safe = cand.clamp_min(0).long()
+    rows = ids[:, None]
+    win = V[rows, safe] if Q is None else V[rows, safe] + Q[rows, safe]
+    return U[ids], win, cand, seen[rows, safe]
+
+
+def check_rows(dev, J: int) -> float:
+    """Kernel 5 reading a serving state in place (`rows_state`, at the
+    serving shape and a smaller one at K=8), on V and through P and Q, k
+    1/10/16: against its plain version, and bit for bit against kernel 1 on
+    the gathered windows; at the serving shape a bucket of padding only and
+    an all-seen user serve nothing, an all-zero user the lowest unseen ids,
+    three candidates under k fill three slots. Returns the max value
+    error."""
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 23)
+    err = 0.0
+    for I, R, n_items, Cw, K in ((200, MICROBATCH, J, 384, 10), (90, 37, 500, 128, 8)):
+        for form, args, Q in rows_state(rng, I, R, n_items, Cw, K, dev):
+            window = gathered_rows(*args, Q=Q)
+            for k in (1, K_TOP, 16):
+                got = ops.serve_topk_rows(*args, k, Q=Q)
+                err = max(err, hold_window(f"serve_topk_rows {form} R={R} k={k}", got, *window, k))
+                same_bits(f"serve_topk_rows {form} R={R} k={k} vs kernel 1 on the gathered "
+                          "windows", got, ops.serve_topk_window(*window, k))
+            if R == MICROBATCH:
+                vals, idx = got
+                live = [c for c in args[5][0].tolist() if c >= 0 and not args[3][3, c]]
+                assert (idx[2:4] == -1).all(), f"serve_topk_rows {form}: empty bucket or all seen"
+                assert int((idx[0] >= 0).sum()) == 3, f"serve_topk_rows {form}: k above 3 live"
+                assert idx[4].tolist() == live[:16] and bool((vals[4] == 0).all()), (
+                    f"serve_topk_rows {form}: the all-zero user's slate")
     sync(dev)
     return err
 
@@ -872,9 +966,19 @@ def check_staging_and_tiled(run) -> dict:
             "tiled_requests_per_s": run["tiled_fsq_rps"]}
 
 
+def served_windows(eng, ids) -> tuple:
+    """Kernel 1's inputs for the engine's requests ``ids`` (host ints): the
+    windows the pruned dispatch gathered before it read the state in
+    place."""
+    uids = torch.as_tensor(np.asarray(ids, np.int64), device=eng.device)
+    return gathered_rows(uids, eng.state.U, eng.V, eng.seen, eng._user_bucket, eng._bucket_items)
+
+
 def check_slates(run, dev) -> dict[str, float]:
     """Hold N_CHECK served slates of each kind (fallback rows excluded)
-    against the plain versions on the engine's own state."""
+    against the plain versions on the engine's own state; every served
+    pruned slate bit for bit against kernel 1 on its gathered window."""
+    from repro_torch.kernels import ops
     errs = {}
     for kind, eng in (("pruned", run["engine"]), ("dense", run["dense_engine"])):
         ids, vals, idx, flags = run[f"after_{kind}"]
@@ -886,11 +990,17 @@ def check_slates(run, dev) -> dict[str, float]:
         got = (vals[keep], idx[keep])
         st = eng.state
         if kind == "pruned":
-            cand = eng._bucket_items[eng._user_bucket[uids]]
-            safe = cand.clamp_min(0).long()
-            rows = uids[:, None]
-            errs[kind] = hold_window("served pruned slates", got, st.U[uids], eng.V[rows, safe],
-                                     cand, eng.seen[rows, safe], K_TOP)
+            window = gathered_rows(uids, st.U, eng.V, eng.seen, eng._user_bucket,
+                                   eng._bucket_items)
+            errs[kind] = hold_window("served pruned slates", got, *window, K_TOP)
+            # every served request (fallbacks excluded): kernel 5 in place
+            # served kernel 1's slate on the gathered windows, bit for bit
+            live = np.flatnonzero(~flags)
+            want = ops.serve_topk_window(*served_windows(eng, ids[live]), K_TOP)
+            same_bits("served pruned slates vs kernel 1 on the gathered windows",
+                      (torch.as_tensor(vals[live]), torch.as_tensor(idx[live])),
+                      tuple(x.cpu() for x in want))
+            errs["pruned_requests_bitwise"] = len(live)
         else:
             errs[kind] = hold_dense("served dense slates", got, st.U[uids], eng.V[uids],
                                     eng.seen[uids], K_TOP)
@@ -1516,7 +1626,9 @@ def main_shapes(run, tl, bl, tr) -> dict:
     kernel 2 on the serving microbatch's whole rows (and their ids) and at
     the evaluate shape (every user of the DP-trained state: on V = P + Q,
     on P and Q, and the second 1,024-user chunk of P and Q); kernel 5 on the
-    serving microbatch's slabs; kernel 6 (int8) on the tiled microbatch."""
+    serving microbatch's slabs and reading the engine's state in place (V,
+    and P and Q); kernel 6 on the tiled microbatch; kernel 9 on its two
+    shapes."""
     eng = run["engine"]
     dev = eng.device
     uids = torch.as_tensor(run["after_pruned"][0][:MICROBATCH], device=dev)
@@ -1541,6 +1653,10 @@ def main_shapes(run, tl, bl, tr) -> dict:
             "evaluate_pq": (dp.U, dp.P, mask, dp.Q),
             "chunk": tuple(x[EVAL_CHUNK:2 * EVAL_CHUNK] for x in (dp.U, dp.P, mask, dp.Q)),
             "slab": (u, eng.V[uids], cand, eng.seen[uids]),
+            "rows": {form: ((uids, eng.state.U, V, eng.seen, eng._user_bucket, eng._bucket_items), Q)
+                     for form, V, Q in (("V", eng.V, None),
+                                        ("P+Q", eng.state.P, eng.state.Q))},
+            "grads": [(sx, hp) for sx, hp, _ in bl["grads"]],
             "tiled_store": tiled_store_args(st, ids)}
 
 
@@ -1675,7 +1791,61 @@ def tiled_specs(tl, shapes) -> list[dict]:
                   shape=f"R={R} J={J} Cw={cand.shape[1]} K={K} k={K_TOP}")]
 
     specs.append(dict(window_spec(*shapes["tiled"], "tiled fp32"), variant="tiled_shape"))
-    return specs + quant_specs(shapes)
+    return specs + rows_specs(shapes) + quant_specs(shapes)
+
+
+def rows_specs(shapes) -> list[dict]:
+    """Phase 4 rows of kernel 5 reading the serving engine's state in place
+    at the serving microbatch (R=64, Cw=384, K=10): on V (the pruned
+    dispatch's) and through P and Q (`serve_microbatch`'s), each beside the
+    parent's sequence (the gathers, with Q the add, then kernel 1). Bounds
+    count what the function must read: the ids, and once for each distinct
+    user of the microbatch its u, bucket entry, the seen bits of its valid
+    candidates and its live rows (of V, or of P and Q), and once for each
+    distinct bucket its row of ids; the library call gathers, adds and
+    runs one `einsum` + `topk` on the engine's rows."""
+    from repro_torch.kernels import ops, ref
+    specs = []
+    for form, (args, Q) in shapes["rows"].items():
+        ids, U, V, seen, user_bucket, bucket_items = args
+        u, win, cand, sw = gathered_rows(*args, Q=Q)
+        R, Cw = cand.shape
+        K = U.shape[1]
+        live = int(((cand >= 0) & (sw == 0)).sum())
+        users = torch.unique(ids)
+        buckets = torch.unique(user_bucket[users])
+        _, _, ucand, usw = gathered_rows(users, *args[1:])
+        per_row = K * 4 * (1 if Q is None else 2)
+        nbytes = (ids.nbytes + users.numel() * (K * 4 + 8) + int((ucand >= 0).sum())
+                  + int(((ucand >= 0) & (usw == 0)).sum()) * per_row
+                  + buckets.numel() * Cw * 4 + R * K_TOP * 8)
+        flops = live * K * (2 if Q is None else 3)
+
+        def gather_einsum_topk(args=args, Q=Q):
+            u_, w, c, s_ = gathered_rows(*args, Q=Q)
+            sc = torch.einsum("rk,rck->rc", u_, w).masked_fill((c < 0) | (s_ != 0), ref.NEG_INF)
+            return torch.topk(sc, K_TOP, dim=1)
+
+        where = f"R={R} Cw={Cw} K={K} k={K_TOP}"
+        common = dict(name="serve_topk_rows", src="serve_topk.cu",
+                      replaces="src/repro/kernels/serve_topk.py:64",
+                      plain=functools.partial(ref.serve_topk_rows_ref, *args, K_TOP, Q=Q),
+                      lib=gather_einsum_topk,
+                      hold=functools.partial(hold_window, f"kernel 5 in place, {form}", U=u,
+                                             Vw=win, cand=cand, seen=sw, k=K_TOP),
+                      nbytes=nbytes, flops=flops)
+        what = "the engine's V" if Q is None else "the engine's P and Q"
+        tag = "" if Q is None else "pq_"
+        specs.append(dict(common, variant=form,
+                          kern=functools.partial(ops.serve_topk_rows, *args, K_TOP, Q=Q),
+                          shape=f"in place on {what}, {where}"))
+        specs.append(dict(common, variant=f"{tag}parent_sequence",
+                          kern=lambda args=args, Q=Q: ops.serve_topk_window(
+                              *gathered_rows(*args, Q=Q), K_TOP),
+                          shape=f"the parent's sequence on {what}: the gathers"
+                                f"{'' if Q is None else ', the add'}, then kernel 1, {where}"))
+    specs[0].pop("variant")
+    return specs
 
 
 def quant_specs(shapes) -> list[dict]:
@@ -1921,7 +2091,8 @@ def time_spec(spec, errs, launches) -> dict:
 
 
 def brief(layout: dict) -> str:
-    keys = ("many", "cluster", "threads", "blocks", "warps", "stages", "rpb", "slots", "tile")
+    keys = ("many", "cluster", "threads", "blocks", "warps", "stages", "rpb", "slots", "tile",
+            "rows")
     return " ".join(f"{k}={layout[k]}" for k in keys if k in layout)
 
 
@@ -1939,11 +2110,13 @@ def peruser_layouts(R: int, J: int, K: int, fused: bool, n_sms: int) -> list:
 
 
 def kernel_forms(shapes) -> dict[str, list]:
-    """[(form, call)] at the main shapes of kernels 1, 2 and 4: the
-    wrapper's layout first, then other layouts, then the wrapper's layout
-    scoring without merging (its outputs are list checksums, not a slate).
-    Every other form gives the wrapper's slate bit for bit."""
-    from repro_torch.kernels import ops, serve_topk, topk_scores
+    """[(form, call)] at the main shapes of kernels 1, 2, 4, 5 (in place), 6
+    and 9: the wrapper's layout first, then other layouts (and for kernel
+    5 the P and Q, pre-gathered and kernel 1 forms of the same slates),
+    then the wrapper's layout scoring without merging (its outputs are
+    list checksums, not a slate). Every other form gives the wrapper's
+    result bit for bit."""
+    from repro_torch.kernels import dmf_update, ops, serve_topk, topk_scores
     out = {}
     for key, (U, V, m, Q) in (("kernel 2 R=64", (*shapes["dense"], None)),
                               ("kernel 2 R=1,024 P+Q", shapes["chunk"]),
@@ -1988,6 +2161,32 @@ def kernel_forms(shapes) -> dict[str, list]:
             serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, lay)) for name, lay in layouts]
         out[key].append(("wrapper, score only", functools.partial(
             serve_topk.window_on_layout, u, vw, cand, seen_w, K_TOP, own, merge=False)))
+    args, _ = shapes["rows"]["V"]
+    pq_args, Q = shapes["rows"]["P+Q"]
+    R, Cw = args[0].shape[0], args[5].shape[1]
+    own = serve_topk.window_layout(R, Cw, K_TOP)
+    layouts = [("wrapper", own)] + [
+        (f"{w} warps x {rpb} requests a block",
+         dict(warps=w, rpb=rpb, slots=serve_topk.slots_for(K_TOP, -(-Cw // (32 * w)))))
+        for w, rpb in ((1, 1), (1, 4), (6, 1), (12, 1))]
+    key = "kernel 5 in place R=64"
+    out[key] = [(f"{name} ({brief(lay)})", functools.partial(
+        serve_topk.rows_on_layout, *args, K_TOP, lay)) for name, lay in layouts]
+    out[key] += [
+        ("through P and Q", functools.partial(ops.serve_topk_rows, *pq_args, K_TOP, Q=Q)),
+        ("pre-gathered slab form on the requests' slabs",
+         functools.partial(ops.serve_topk, *shapes["slab"], K_TOP)),
+        ("kernel 1 on the gathered windows",
+         functools.partial(ops.serve_topk_window, *shapes["serving"], K_TOP)),
+        ("wrapper, score only", functools.partial(serve_topk.rows_on_layout, *args, K_TOP, own,
+                                                  merge=False))]
+    for sx, hp in shapes["grads"]:
+        B, K = sx[0].shape
+        own = dmf_update.grads_layout(B, K)
+        layouts = [("wrapper", own)] + [(f"{rows} rows a block", dict(rows=rows))
+                                        for rows in (16, 64, 128) if rows != own["rows"]]
+        out[f"kernel 9 B={B} K={K}"] = [(f"{name} ({brief(lay)})", functools.partial(
+            dmf_update.grads_on_layout, *sx, *hp.values(), lay)) for name, lay in layouts]
     for form, args in shapes["tiled_store"].items():
         R, Cw = args[0].shape[0], args[5].shape[1]
         own = serve_topk.window_layout(R, Cw, K_TOP)
@@ -2025,32 +2224,41 @@ def time_forms(shapes) -> dict:
 
 def load_parent(parent: pathlib.Path) -> dict:
     """Build the kernel library of the checkout unpacked in ``parent`` (the
-    commit before kernel 6 read the store in place and a stream thread drew
-    two columns; its C launches of kernels 1, 5, 6, 8 and the stream take
-    the arguments below) and return callables of those kernels, each
-    launching on this build's inputs with the layout the parent's wrappers
-    chose."""
+    commit before kernel 9 took 32 rows a block and kernel 5 read the
+    engine's state in place; its C launches of kernels 1, 3, 5, 6 (both
+    sources), 7, 8, 9 and the stream take the arguments below) and return
+    callables of those kernels, each launching on this build's inputs with
+    the layout the parent's wrappers chose."""
     import ctypes
     import importlib.util
 
     from repro_torch.kernels import build
     src = parent / "src/repro_torch/kernels"
     lib = ctypes.CDLL(str(build.build(build.BUILD_ROOT / "parent", src / "csrc")))
-    spec = importlib.util.spec_from_file_location("parent_serve_topk", src / "serve_topk.py")
-    layouts = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(layouts)
+    def module(name):
+        spec = importlib.util.spec_from_file_location(f"parent_{name}", src / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+    layouts, noise = module("serve_topk"), module("dp_noise")
     ptr, i32, u32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    window = lib.serve_topk_window_launch
-    window.argtypes, window.restype = [ptr] * 6 + [i32] * 8 + [ptr], i32
-    slab = lib.serve_topk_launch
-    slab.argtypes, slab.restype = [ptr] * 6 + [i32] * 9 + [ptr], i32
-    quant = lib.serve_topk_window_quant_launch
-    quant.argtypes, quant.restype = [ptr] * 7 + [i32] * 9 + [ptr], i32
-    stream_fn = lib.gauss_counter_launch
-    stream_fn.argtypes, stream_fn.restype = [ptr] * 2 + [i32] * 2 + [u32, ptr], i32
-    clip = lib.dp_clip_noise_launch
-    clip.argtypes, clip.restype = [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr], i32
+
+    def declare(fn, argtypes):
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = argtypes, i32
+        return f
+    window = declare("serve_topk_window_launch", [ptr] * 6 + [i32] * 8 + [ptr])
+    slab = declare("serve_topk_launch", [ptr] * 6 + [i32] * 9 + [ptr])
+    quant = declare("serve_topk_window_quant_launch", [ptr] * 7 + [i32] * 9 + [ptr])
+    tiled = declare("serve_topk_tiled_quant_launch", [ptr] * 9 + [i32] * 11 + [ptr])
+    stream_fn = declare("gauss_counter_launch", [ptr] * 2 + [i32] * 2 + [u32] + [i32] * 2 + [ptr])
+    clip = declare("dp_clip_noise_launch", [ptr] * 3 + [i32] * 2 + [u32] + [f32] * 2 + [ptr])
+    grads = declare("dmf_grads_launch", [ptr] * 8 + [i32] * 2 + [f32] * 3 + [ptr])
+    step = declare("dmf_fused_step_launch", [ptr] * 10 + [i32] * 2 + [f32] * 4 + [ptr])
+    step_dp = declare("dmf_fused_step_dp_launch", [ptr] * 11 + [i32] * 2 + [f32] * 5 + [ptr])
+    scratch_floats = declare("dmf_step_scratch", [i32])
     stream = torch.cuda.current_stream().cuda_stream
+    scratch = {}     # the parent's own step scratch, zeroed once, by batch size
 
     def outputs(R, k, dev):
         return (torch.empty((R, k), dtype=torch.float32, device=dev),
@@ -2060,47 +2268,84 @@ def load_parent(parent: pathlib.Path) -> dict:
         w = layouts.window_layout(R, Cw, k)
         return w["warps"], w["rpb"], w["slots"], 1
 
+    def ok(err, what):
+        assert err == 0, f"parent build: {what} launch error {err}"
+
     def kernel1(U, Vw, cand, seen, k):
         (R, K), Cw = U.shape, cand.shape[1]
         vals, idx = outputs(R, k, U.device)
-        err = window(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.data_ptr(),
-                     vals.data_ptr(), idx.data_ptr(), R, Cw, K, k, *lay(R, Cw, k), stream)
-        assert err == 0, f"parent build: kernel 1 launch error {err}"
+        ok(window(U.data_ptr(), Vw.data_ptr(), cand.data_ptr(), seen.data_ptr(),
+                  vals.data_ptr(), idx.data_ptr(), R, Cw, K, k, *lay(R, Cw, k), stream),
+           "kernel 1")
         return vals, idx
 
     def kernel5(U, V, cand, seen, k):
         (R, K), J, Cw = U.shape, V.shape[1], cand.shape[1]
         vals, idx = outputs(R, k, U.device)
-        err = slab(U.data_ptr(), V.data_ptr(), cand.data_ptr(), seen.data_ptr(),
-                   vals.data_ptr(), idx.data_ptr(), R, J, Cw, K, k, *lay(R, Cw, k), stream)
-        assert err == 0, f"parent build: kernel 5 launch error {err}"
+        ok(slab(U.data_ptr(), V.data_ptr(), cand.data_ptr(), seen.data_ptr(),
+                vals.data_ptr(), idx.data_ptr(), R, J, Cw, K, k, *lay(R, Cw, k), stream),
+           "kernel 5")
         return vals, idx
 
     def kernel6(U, Vq, scale, cand, seen, k):
         (R, K), Cw = U.shape, cand.shape[1]
         vals, idx = outputs(R, k, U.device)
-        err = quant(U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
-                    seen.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, Cw, K, k,
-                    int(Vq.dtype == torch.bfloat16), *lay(R, Cw, k), stream)
-        assert err == 0, f"parent build: kernel 6 launch error {err}"
+        ok(quant(U.data_ptr(), Vq.data_ptr(), scale.data_ptr(), cand.data_ptr(),
+                 seen.data_ptr(), vals.data_ptr(), idx.data_ptr(), R, Cw, K, k,
+                 int(Vq.dtype == torch.bfloat16), *lay(R, Cw, k), stream), "kernel 6")
+        return vals, idx
+
+    def kernel6_in_place(ids, U, Vq, scale, user_bucket, bucket_items, seen, k):
+        R, (I, K), cap = ids.shape[0], U.shape, bucket_items.shape[1]
+        vals, idx = outputs(R, k, U.device)
+        ok(tiled(ids.data_ptr(), U.data_ptr(), Vq.data_ptr(),
+                 0 if scale is None else scale.data_ptr(), seen.data_ptr(),
+                 user_bucket.data_ptr(), bucket_items.data_ptr(), vals.data_ptr(),
+                 idx.data_ptr(), R, I, bucket_items.shape[0], cap, K, k,
+                 int(Vq.dtype == torch.bfloat16), *lay(R, cap, k), stream), "kernel 6 in place")
         return vals, idx
 
     def kernel8a(seed, rid, n_cols):
         out = torch.empty((rid.shape[0], n_cols), dtype=torch.float32, device=rid.device)
-        err = stream_fn(rid.data_ptr(), out.data_ptr(), rid.shape[0], n_cols,
-                        int(seed) & 0xFFFFFFFF, stream)
-        assert err == 0, f"parent build: noise stream launch error {err}"
+        lay = noise.stream_layout(n_cols)
+        ok(stream_fn(rid.data_ptr(), out.data_ptr(), rid.shape[0], n_cols,
+                     int(seed) & 0xFFFFFFFF, lay["per"], lay["rows"], stream), "noise stream")
         return out
 
     def kernel8(g, rid, seed, clip_, noise_std):
         out = torch.empty_like(g)
-        err = clip(g.data_ptr(), rid.data_ptr(), out.data_ptr(), g.shape[0], g.shape[1],
-                   int(seed) & 0xFFFFFFFF, clip_, noise_std, stream)
-        assert err == 0, f"parent build: kernel 8 launch error {err}"
+        ok(clip(g.data_ptr(), rid.data_ptr(), out.data_ptr(), g.shape[0], g.shape[1],
+                int(seed) & 0xFFFFFFFF, clip_, noise_std, stream), "kernel 8")
         return out
 
-    return {"kernel1": kernel1, "kernel5": kernel5, "kernel6": kernel6, "kernel8a": kernel8a,
-            "kernel8": kernel8}
+    def kernel9(u, p, q, r, conf, alpha, beta, gamma):
+        B, K = u.shape
+        gu, gp, gq = (torch.empty_like(u) for _ in range(3))
+        ok(grads(u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
+                 gu.data_ptr(), gp.data_ptr(), gq.data_ptr(), B, K, alpha, beta, gamma, stream),
+           "kernel 9")
+        return gu, gp, gq
+
+    def kernel37(u, p, q, r, conf, theta, alpha, beta, gamma, z=None, clip_=None):
+        B, K = u.shape
+        du, gp, dq = (torch.empty_like(u) for _ in range(3))
+        loss = torch.empty((), dtype=torch.float32, device=u.device)
+        need = scratch_floats(B)
+        if need and (B not in scratch):
+            scratch[B] = torch.zeros(need, dtype=torch.float32, device=u.device)
+        sp = scratch[B].data_ptr() if need else None
+        head = (u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr())
+        tail = (du.data_ptr(), gp.data_ptr(), dq.data_ptr(), sp, loss.data_ptr(), B, K, theta,
+                alpha, beta, gamma)
+        if z is None:
+            ok(step(*head, *tail, stream), "kernel 3")
+        else:
+            ok(step_dp(*head, z.data_ptr(), *tail, clip_, stream), "kernel 7")
+        return du, gp, dq, loss
+
+    return {"kernel1": kernel1, "kernel5": kernel5, "kernel6": kernel6,
+            "kernel6_in_place": kernel6_in_place, "kernel8a": kernel8a, "kernel8": kernel8,
+            "kernel9": kernel9, "kernel37": kernel37}
 
 
 def same_bits_nan(name, got, want) -> None:
@@ -2133,37 +2378,89 @@ def parent_quant_cases(dev, J: int) -> list:
     return cases
 
 
-def hold_parent_build(parent: pathlib.Path, shapes, clip_cases, mb) -> dict:
+def parent_step_cases() -> list:
+    """Kernels 3, 7 and 9's batches for the parent hold, [(B, K)]: one
+    block and several (ragged), at K 10 and 16 (fixed at build time), 8
+    and 5 (at run time), 128 (too wide to stage)."""
+    return [(1, 10), (100, 10), (256, 10), (300, 5), (1000, 10), (5000, 10), (256, 8),
+            (1000, 16), (2048, 16), (64, 128)]
+
+
+def hold_parent_build(parent: pathlib.Path, shapes, clip_cases, mb, run) -> dict:
     """Hold this build against the parent build's (`load_parent`), bit for
-    bit: kernel 6 pre-gathered and in place (int8, bf16; k 1/10/16) against
-    the parent's kernel 6 on the gathered windows, on phase 2's stores and
-    the tiled microbatch; kernels 1 and 5 (the body they share with kernel
-    6) at their main shapes; the noise stream on every `parent_stream_cases`
-    case; kernel 8 on each clip case (g, rid, seed, clip, noise_std). Then
-    time both builds in turns (parent, this, this, parent), the parent with
-    its six gathers where this build reads the store in place. Returns the
-    numbers of cases held and the times."""
+    bit: kernel 5 in place (on V and through P and Q, k 1/10/16, phase 2's
+    states and the serving microbatch) against the parent's pruned
+    dispatch (the gathers, the add, kernel 1), and every served pruned
+    request of phase 3a against the parent's kernel 1 on its gathered
+    window; kernels 1 and 5 pre-gathered at their main shapes; kernel 6
+    pre-gathered and in place against the parent's (int8, bf16; k
+    1/10/16) on phase 2's stores and the tiled microbatch; kernel 9 (its
+    main shapes and `parent_step_cases`) and kernels 3 and 7 (the same
+    cases, clip inf and 0.5); the noise stream on every
+    `parent_stream_cases` case; kernel 8 on each clip case (g, rid, seed,
+    clip, noise_std). Then time both builds in turns (parent, this, this,
+    parent), the parent with its gathers where this build reads the
+    engine's state in place. Returns the numbers of cases held and the
+    times."""
     from repro_torch.kernels import ops
     theirs = load_parent(parent)
     dev = shapes["dense"][0].device
-    cases = parent_quant_cases(dev, shapes["dense"][1].shape[1])
-    cases += list(shapes["tiled_store"].items())
-    n6 = 0
-    for n, (form, args) in enumerate(cases):
-        g = gathered(*args)
+    J = shapes["dense"][1].shape[1]
+    held = {"kernel5_in_place": 0, "kernel6": 0, "kernel9": 0, "kernels3_7": 0}
+    rng = np.random.default_rng(SEED + 29)
+    rows_cases = [c for I, R, n_items, Cw, K in ((200, MICROBATCH, J, 384, 10),
+                                                (90, 37, 500, 128, 8))
+                  for c in rows_state(rng, I, R, n_items, Cw, K, dev)]
+    rows_cases += [(form, args, Q) for form, (args, Q) in shapes["rows"].items()]
+    for n, (form, args, Q) in enumerate(rows_cases):
         for k in (1, K_TOP, 16):
-            want = theirs["kernel6"](*g, k)
-            same_bits(f"kernel 6 {form} case {n} k={k}, pre-gathered: this build vs the parent's",
-                      ops.serve_topk_window_quant(*g, k), want)
-            same_bits(f"kernel 6 {form} case {n} k={k}, in place: this build vs the parent's",
-                      ops.serve_topk_tiled_quant(*args, k), want)
-            n6 += 2
+            same_bits(f"kernel 5 in place {form} case {n} k={k}: this build vs the parent's "
+                      "gathers + kernel 1", ops.serve_topk_rows(*args, k, Q=Q),
+                      theirs["kernel1"](*gathered_rows(*args, Q=Q), k))
+            held["kernel5_in_place"] += 1
+    eng = run["engine"]
+    ids, vals, idx, flags = run["after_pruned"]
+    live = np.flatnonzero(~flags)
+    same_bits("served pruned slates vs the parent's gathers + kernel 1",
+              (torch.as_tensor(vals[live]), torch.as_tensor(idx[live])),
+              tuple(x.cpu() for x in theirs["kernel1"](*served_windows(eng, ids[live]), K_TOP)))
+    held["served_pruned_requests"] = len(live)
     for key in ("serving", "tiled"):
         same_bits(f"kernel 1 {key}: this build vs the parent's",
                   ops.serve_topk_window(*shapes[key], K_TOP),
                   theirs["kernel1"](*shapes[key], K_TOP))
-    same_bits("kernel 5 serving: this build vs the parent's",
+    same_bits("kernel 5 pre-gathered, serving: this build vs the parent's",
               ops.serve_topk(*shapes["slab"], K_TOP), theirs["kernel5"](*shapes["slab"], K_TOP))
+    cases = parent_quant_cases(dev, J) + list(shapes["tiled_store"].items())
+    for n, (form, args) in enumerate(cases):
+        g = gathered(*args)
+        for k in (1, K_TOP, 16):
+            same_bits(f"kernel 6 {form} case {n} k={k}, pre-gathered: this build vs the parent's",
+                      ops.serve_topk_window_quant(*g, k), theirs["kernel6"](*g, k))
+            same_bits(f"kernel 6 {form} case {n} k={k}, in place: this build vs the parent's",
+                      ops.serve_topk_tiled_quant(*args, k), theirs["kernel6_in_place"](*args, k))
+            held["kernel6"] += 2
+    sync(dev)
+    step_hp = dict(theta=0.1, alpha=0.1, beta=0.1, gamma=0.01)
+    grads_hp = dict(alpha=0.1, beta=0.01, gamma=0.02)
+    grads_cases = [(sx, hp) for sx, hp in shapes["grads"]]
+    for B, K in parent_step_cases():
+        srng = np.random.default_rng(B * 131 + K)
+        grads_cases.append((grads_inputs(srng, B, K, dev), grads_hp))
+        x = step_inputs(srng, B, K, dev)
+        z = torch.as_tensor((0.5 * srng.normal(0, 1, (B, K))).astype(np.float32), device=dev)
+        same_bits(f"kernel 3 B={B} K={K}: this build vs the parent's",
+                  ops.dmf_fused_step(*x, **step_hp), theirs["kernel37"](*x, *step_hp.values()))
+        for clip in (float("inf"), 0.5):
+            same_bits(f"kernel 7 B={B} K={K} clip={clip}: this build vs the parent's",
+                      ops.dmf_fused_step_dp(*x, z, **step_hp, clip=clip),
+                      theirs["kernel37"](*x, *step_hp.values(), z=z, clip_=clip))
+        held["kernels3_7"] += 3
+    for sx, hp in grads_cases:
+        B, K = sx[0].shape
+        same_bits(f"kernel 9 B={B} K={K}: this build vs the parent's",
+                  ops.dmf_grads(*sx, **hp), theirs["kernel9"](*sx, *hp.values()))
+        held["kernel9"] += 1
     sync(dev)
     stream_cases = parent_stream_cases(dev)
     for seed, rid, n_cols in stream_cases:
@@ -2175,36 +2472,51 @@ def hold_parent_build(parent: pathlib.Path, shapes, clip_cases, mb) -> dict:
                       f"K={g.shape[1]} clip={clip} noise={std})",
                       ops.dp_clip_noise(g, rid, seed, clip=clip, noise_std=std),
                       theirs["kernel8"](g, rid, seed, clip, std))
+    held["stream_cases"], held["kernel8_cases"] = len(stream_cases), len(clip_cases)
     sync(dev)
 
     c = mb["cfg"]
-    raw = ops.dmf_fused_step(*mb["sx"], theta=c.lr, alpha=c.alpha, beta=c.beta,
-                             gamma=c.gamma)[1]
+    hp = dict(theta=c.lr, alpha=c.alpha, beta=c.beta, gamma=c.gamma)
+    raw = ops.dmf_fused_step(*mb["sx"], **hp)[1]
     rid_b = mb["rid"][:raw.shape[0]]
     std = c.dp_sigma * c.dp_clip
     K = mb["z"].shape[1]
     pairs = {}
+    for sx, ghp in shapes["grads"]:
+        pairs[f"kernel 9 B={sx[0].shape[0]} K={sx[0].shape[1]}"] = (
+            functools.partial(theirs["kernel9"], *sx, *ghp.values()),
+            functools.partial(ops.dmf_grads, *sx, **ghp))
+    for form, (args, Q) in shapes["rows"].items():
+        pairs[f"kernel 5 {form}: parent gathers + kernel 1; this reads the state in place"] = (
+            lambda args=args, Q=Q: theirs["kernel1"](*gathered_rows(*args, Q=Q), K_TOP),
+            functools.partial(ops.serve_topk_rows, *args, K_TOP, Q=Q))
+    pairs["kernel 5 pre-gathered slab R=64"] = (
+        functools.partial(theirs["kernel5"], *shapes["slab"], K_TOP),
+        functools.partial(ops.serve_topk, *shapes["slab"], K_TOP))
+    for key, what in (("serving", "serving R=64"), ("tiled", "tiled R=128")):
+        pairs[f"kernel 1 {what}"] = (functools.partial(theirs["kernel1"], *shapes[key], K_TOP),
+                                     functools.partial(ops.serve_topk_window, *shapes[key], K_TOP))
     for form, args in shapes["tiled_store"].items():
         g = gathered(*args)
         pairs[f"kernel 6 {form}, pre-gathered windows"] = (
             functools.partial(theirs["kernel6"], *g, K_TOP),
             functools.partial(ops.serve_topk_window_quant, *g, K_TOP))
-        pairs[f"kernel 6 {form}: parent six gathers + kernel; this reads the store in place"] = (
-            lambda args=args: theirs["kernel6"](*gathered(*args), K_TOP),
+        pairs[f"kernel 6 {form}, in place"] = (
+            functools.partial(theirs["kernel6_in_place"], *args, K_TOP),
             functools.partial(ops.serve_topk_tiled_quant, *args, K_TOP))
     pairs.update({
+        "kernel 3 B=256 K=10": (
+            lambda: theirs["kernel37"](*mb["sx"], *hp.values()),
+            lambda: ops.dmf_fused_step(*mb["sx"], **hp)),
+        "kernel 7 B=256 K=10": (
+            lambda: theirs["kernel37"](*mb["sx"], *hp.values(), z=mb["z"], clip_=c.dp_clip),
+            lambda: ops.dmf_fused_step_dp(*mb["sx"], mb["z"], **hp, clip=c.dp_clip)),
         "noise stream, the epoch's block": (
             lambda: theirs["kernel8a"](mb["seed"], mb["rid"], K),
             lambda: ops.gauss_counter(mb["seed"], mb["rid"], K)),
         "kernel 8 B=256 K=10": (
             lambda: theirs["kernel8"](raw, rid_b, mb["seed"], c.dp_clip, std),
             lambda: ops.dp_clip_noise(raw, rid_b, mb["seed"], clip=c.dp_clip, noise_std=std)),
-        "kernel 1 tiled R=128": (
-            lambda: theirs["kernel1"](*shapes["tiled"], K_TOP),
-            lambda: ops.serve_topk_window(*shapes["tiled"], K_TOP)),
-        "kernel 1 serving R=64": (
-            lambda: theirs["kernel1"](*shapes["serving"], K_TOP),
-            lambda: ops.serve_topk_window(*shapes["serving"], K_TOP)),
     })
     times = {}
     for key, (parent_call, this_call) in pairs.items():
@@ -2212,8 +2524,7 @@ def hold_parent_build(parent: pathlib.Path, shapes, clip_cases, mb) -> dict:
         for who in ("parent", "this", "this", "parent"):
             t[who].append(device_ms(parent_call if who == "parent" else this_call, 200))
         times[key] = t
-    return {"kernel6_calls": n6, "stream_cases": len(stream_cases),
-            "kernel8_cases": len(clip_cases), "device_ms": times}
+    return {**held, "device_ms": times}
 
 
 def parent_clip_cases(dev) -> list:
@@ -2325,7 +2636,7 @@ def main(argv=None) -> int:
     summary = serving_summary(run)
     summary["staging_and_tiled"] = check_staging_and_tiled(run)
     log("serving", json.dumps(summary))
-    errs["serve_topk_window"] = max(errs["serve_topk_window"], slate_errs["pruned"])
+    errs["serve_topk_rows"] = max(errs["serve_topk_rows"], slate_errs["pruned"])
     errs["recommend_topk_peruser"] = max(errs["recommend_topk_peruser"], slate_errs["dense"])
 
     tr, launches["training"] = counted("training", TRAINING_KERNELS,
@@ -2388,12 +2699,10 @@ def main(argv=None) -> int:
     log(f"phase 4 forms: {time.perf_counter() - t0} s")
     if parent is not None:
         t0 = time.perf_counter()
-        held = hold_parent_build(parent, shapes, parent_clip_cases(dev), mb)
-        log(f"parent build: kernel 6 equal bit for bit in {held['kernel6_calls']} calls "
-            f"(pre-gathered and in place), kernels 1 and 5 at their main shapes, the noise "
-            f"stream on {held['stream_cases']} cases, kernel 8 on {held['kernel8_cases']} "
-            f"({time.perf_counter() - t0} s); device ms in turns "
-            f"{json.dumps(held['device_ms'])}")
+        held = hold_parent_build(parent, shapes, parent_clip_cases(dev), mb, run)
+        times = held.pop("device_ms")
+        log(f"parent build: equal bit for bit {json.dumps(held)} "
+            f"({time.perf_counter() - t0} s); device ms in turns {json.dumps(times)}")
     assert len(rows) == len(ops.KERNELS), sorted(rows)
     log(json.dumps({"kernels": list(rows.values())}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,6 +104,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.serve_topk_window_launch.restype = i32
     lib.serve_topk_launch.argtypes = [ptr] * 6 + [i32] * 9 + [ptr]
     lib.serve_topk_launch.restype = i32
+    lib.serve_topk_rows_launch.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
+    lib.serve_topk_rows_launch.restype = i32
     lib.serve_topk_window_quant_launch.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
     lib.serve_topk_window_quant_launch.restype = i32
     lib.serve_topk_tiled_quant_launch.argtypes = [ptr] * 9 + [i32] * 11 + [ptr]
@@ -122,7 +124,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.dp_clip_noise_launch.restype = i32
     lib.topk_shared_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
     lib.topk_shared_launch.restype = i32
-    lib.dmf_grads_launch.argtypes = [ptr] * 8 + [i32] * 2 + [f32] * 3 + [ptr]
+    lib.dmf_grads_launch.argtypes = [ptr] * 8 + [i32] * 2 + [f32] * 3 + [i32] + [ptr]
     lib.dmf_grads_launch.restype = i32
     lib.gossip_mix_count_launch.argtypes = [ptr] * 2 + [i32] * 2 + [ptr] * 4
     lib.gossip_mix_count_launch.restype = i32

@@ -45,21 +45,30 @@
 // FMA), as the reference's two fp32 operations do.
 //
 // The gradients-only kernel (`dmf_grads_kernel`) is a separate __global__,
-// not a third instance of the template, so kernels 3 and 7 do not depend
-// on it. At B=256, K=10 it reads u/p/q and r/conf (32 KB) and writes
-// gu/gp/gq (30 KB): 0.019 us at 3.35 TB/s, far below the launch. One
-// thread per row, fp32. Its residual and its three expressions are
-// written as kernel 3 writes its own, so nvcc contracts them alike: gp is
-// kernel 3's gp, and −θ·gu, −θ·gq are kernel 3's du, dq, up to the one
-// rounding of the θ product. The TPU wrapper padded B to 256 and K to 128
-// (src/repro/kernels/ops.py:35-45); here B is the loop bound and K the
-// row length, and nothing is padded.
+// not a third instance of the step's template, so kernels 3 and 7 do not
+// depend on it. At B=256, K=10 it reads u/p/q and r/conf (32 KB) and
+// writes gu/gp/gq (30 KB): 0.019 us at 3.35 TB/s; at the micro-bench
+// shape (B=2048, K=16) 0.8 MB, 0.24 us. Both far below the launch, so the
+// chain of dependent steps sets the time. Kernel 3's split of the work
+// without its staging: a block of 128 threads takes `rows` rows (chosen on
+// the host, `dmf_update.grads_layout`: 32), one thread a row reads its row
+// and forms the row's err, and after one barrier one thread an element
+// writes gu/gp/gq coalesced, its reads of u/p/q hitting the lines the row
+// reads brought into L1. Staging the rows through shared memory first, as
+// kernel 3 does, was 0.4 us slower at both shapes (a second barrier and the
+// shared-memory round trip; PERF.md §6). K = 10 and 16 (the slices' and
+// the micro-bench's widths) are fixed at build time. Its residual and its
+// three expressions are written as kernel 3 writes its own, so nvcc
+// contracts them alike: gp is kernel 3's gp, and −θ·gu, −θ·gq are kernel
+// 3's du, dq, up to the one rounding of the θ product. The TPU wrapper
+// padded B to 256 and K to 128 (src/repro/kernels/ops.py:35-45); here B is
+// the loop bound and K the row length, and nothing is padded.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kStepThreads = 128;     // dmf_grads_kernel: one thread a row
+constexpr int kGradThreads = 128;     // dmf_grads_kernel: threads a block, at most its rows
 constexpr int kLossGroup = 128;       // rows a loss partial sums (one tree)
 constexpr int kStepRows = 256;        // rows and threads a block of the step
 constexpr int kGroupsPerBlock = kStepRows / kLossGroup;
@@ -236,24 +245,43 @@ dmf_fused_step_kernel(const float* __restrict__ u, const float* __restrict__ p,
   }
 }
 
-__global__ void __launch_bounds__(kStepThreads)
+// A block takes `rows` (<= kGradThreads) rows from blockIdx.x · rows.
+template <int KC>
+__global__ void __launch_bounds__(kGradThreads)
 dmf_grads_kernel(const float* __restrict__ u, const float* __restrict__ p,
                  const float* __restrict__ q, const float* __restrict__ r,
                  const float* __restrict__ conf, float* __restrict__ gu,
-                 float* __restrict__ gp, float* __restrict__ gq, int B, int K,
+                 float* __restrict__ gp, float* __restrict__ gq, int B, int K, int rows,
                  float alpha, float beta, float gamma) {
-  const int b = blockIdx.x * kStepThreads + threadIdx.x;
-  if (b >= B) return;
-  const size_t o = (size_t)b * K;
-  float dot = 0.f;
-  for (int c = 0; c < K; ++c) dot += u[o + c] * (p[o + c] + q[o + c]);
-  const float raw = r[b] - dot;
-  const float err = conf[b] * raw;
-  for (int c = 0; c < K; ++c) {
-    const float uc = u[o + c], pc = p[o + c], qc = q[o + c];
-    gu[o + c] = -err * (pc + qc) + alpha * uc;
-    gp[o + c] = -err * uc + beta * pc;
-    gq[o + c] = -err * uc + gamma * qc;
+  __shared__ float s_err[kGradThreads];
+  if constexpr (KC > 0) K = KC;
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * rows;
+  const int n_rows = min(rows, B - row0);
+  const size_t o0 = (size_t)row0 * K;
+  const float* const bu = u + o0;
+  const float* const bp = p + o0;
+  const float* const bq = q + o0;
+  // one thread a row: its residual, r and conf in flight with the row
+  if (t < n_rows) {
+    const float rb = __ldg(r + row0 + t), cb = __ldg(conf + row0 + t);
+    const int o = t * K;
+    float dot = 0.f;
+#pragma unroll
+    for (int c = 0; c < K; ++c) dot += bu[o + c] * (bp[o + c] + bq[o + c]);
+    const float raw = rb - dot;
+    s_err[t] = cb * raw;
+  }
+  __syncthreads();
+  // one thread an element: the gradients, read and written coalesced
+  const int n = n_rows * K;
+#pragma unroll 2
+  for (int e = t; e < n; e += kGradThreads) {
+    const float err = s_err[e / K];
+    const float uc = bu[e], pc = bp[e], qc = bq[e];
+    gu[o0 + e] = -err * (pc + qc) + alpha * uc;
+    gp[o0 + e] = -err * uc + beta * pc;
+    gq[o0 + e] = -err * uc + gamma * qc;
   }
 }
 
@@ -300,13 +328,16 @@ extern "C" int dmf_fused_step_dp_launch(const float* u, const float* p, const fl
                            alpha, beta, gamma, clip, stream);
 }
 
+// rows: rows a block, 1..128.
 extern "C" int dmf_grads_launch(const float* u, const float* p, const float* q,
                                 const float* r, const float* conf, float* gu, float* gp,
                                 float* gq, int B, int K, float alpha, float beta, float gamma,
-                                void* stream) {
-  const int blocks = (B + kStepThreads - 1) / kStepThreads;
-  dmf_grads_kernel<<<blocks, kStepThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      u, p, q, r, conf, gu, gp, gq, B, K, alpha, beta, gamma);
+                                int rows, void* stream) {
+  if (rows < 1 || rows > kGradThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (B + rows - 1) / rows;
+  auto kernel = K == 10 ? dmf_grads_kernel<10> : K == 16 ? dmf_grads_kernel<16> : dmf_grads_kernel<0>;
+  kernel<<<blocks, kGradThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      u, p, q, r, conf, gu, gp, gq, B, K, rows, alpha, beta, gamma);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 // Geo-pruned serving: per request, scores u·v over its candidate ids, pad
 // (cand < 0) and seen masking, and the running top-k that carries global
-// item ids. One kernel body, instantiated for four ways of finding a
+// item ids. One kernel body, instantiated for five ways of finding a
 // request's u, candidate ids, seen bits and candidate rows:
 //
 //   WindowF32        pre-gathered fp32 windows (R, Cw, K), seen (R, Cw).
@@ -10,6 +10,16 @@
 //                    the candidates are gathered inside the kernel.
 //                    Replaces `_serve_topk_kernel` (serve_topk.py:64,
 //                    pallas_call :100).
+//   SlabRows<kQ>     the same read in place from the serving engine's state:
+//                    request r is user ids[r], whose u is U[id], whose slab
+//                    is V[id] (with Q: v = V[id] + Q[id], each factor
+//                    rounded on its own before the chain, as the gathered
+//                    P[rows, safe] + Q[rows, safe] is), whose seen bits are
+//                    seen[id] and whose candidate ids are
+//                    bucket_items[user_bucket[id]]: the engine's pruned
+//                    dispatch in one launch. Kernel 5 as the reference's
+//                    compiled design describes it (V kept in HBM, only the
+//                    candidate rows read; ops.py:159-175).
 //   WindowQuant<T>   pre-gathered windows stored as int8 codes times a
 //                    per-request f32 scale, or as bf16 (scale 1).
 //   TiledQuant<T>    the same codes read in place from the tiled store:
@@ -32,7 +42,11 @@
 // merge. In place the chain is one step longer: the id, then (together)
 // u, the scale and the user's bucket, then the bucket's candidate ids
 // with the seen bits and code rows; the six gathers it replaces were six
-// launches.
+// launches. A slab's rows are found by the candidate's id, not its slot:
+// the id, then its seen bit and row together (a seen candidate's row is
+// read and dropped), so in place on the engine's state the chain is the
+// id, the bucket (u beside it), the bucket's ids, the seen bits and rows,
+// the merge: one launch where the engine's dispatch made seven.
 //
 // Design: `warps` warps per request, chosen by the wrapper from Cw (one
 // for Cw ≤ 128, with several requests a block; ceil(Cw / 128) above, so a
@@ -58,14 +72,18 @@
 // Bit-for-bit contracts, carried from the reference (serve_topk.py:42-46,
 // ops.py:228-230):
 // - the score is the same ascending-K fp32 FMA chain from 0.0f in every
-//   form and layout, so the slab form equals the window form on windows
-//   gathered from the same rows, and the fp32 window form equals the
-//   kernel of the earlier one-block-a-request design;
+//   form and layout, so the slab form, pre-gathered or in place, equals
+//   the window form on windows gathered from the same rows (with Q, on
+//   the gathered P + Q: each v factor is __fadd_rn(p, q) before the
+//   chain), and the fp32 window form equals the kernel of the earlier
+//   one-block-a-request design;
 // - a quantized factor is dequantized as __fmul_rn(code, scale), rounded
 //   on its own before the chain, so the quant form on (codes, scale)
 //   equals the fp32 window form on codes.float() * scale, and the in-place
 //   form equals the quant form on the gathered windows.
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "topk.cuh"
 
@@ -118,39 +136,86 @@ struct WindowF32 {
   }
 };
 
-// 64-bit offsets throughout: R·J·K passes 2^31 at modest R. An id past
-// the slab (id >= J) is treated as seen: never a candidate, nothing read.
+// A request's whole item slab (J rows of K factors; with kQ a second slab
+// q, and v = v + q) and its J seen bits. 64-bit offsets throughout: R·J·K
+// passes 2^31 at modest R. An id past the slab (id >= J) is no candidate
+// and reads nothing.
+template <int KC>
+struct F32PairBuf {
+  float f[KC], g[KC];
+};
+
+template <bool kQ>
+struct SlabRow {
+  long long ui, ci;
+  const float* v;
+  const float* q;
+  const int8_t* s;
+  int J, K, vec;
+  static constexpr bool kBySlot = false;
+  template <int KC>
+  using Buf = std::conditional_t<kQ, F32PairBuf<KC>, F32Buf<KC>>;
+  __device__ __forceinline__ bool has(int id) const { return id >= 0 && id < J; }
+  __device__ __forceinline__ bool seen(int, int id) const { return !has(id) || s[id] != 0; }
+  template <int KC>
+  __device__ __forceinline__ void fetch(int, int id, Buf<KC>& b) const {
+    load_row<KC>(v + (size_t)id * K, b.f, vec);
+    if constexpr (kQ) load_row<KC>(q + (size_t)id * K, b.g, vec);
+  }
+  template <int KC>
+  __device__ __forceinline__ void unpack(const Buf<KC>& b, float (&f)[KC]) const {
+#pragma unroll
+    for (int j = 0; j < KC; ++j) {
+      if constexpr (kQ) f[j] = __fadd_rn(b.f[j], b.g[j]);
+      else f[j] = b.f[j];
+    }
+  }
+  __device__ __forceinline__ float score(const float* u_, int, int id, int K_) const {
+    const float* pv = v + (size_t)id * K_;
+    if constexpr (kQ) {
+      const float* pq = q + (size_t)id * K_;
+      float acc = 0.f;
+      for (int j = 0; j < K_; ++j)
+        acc = __fmaf_rn(__ldg(u_ + j), __fadd_rn(__ldg(pv + j), __ldg(pq + j)), acc);
+      return acc;
+    } else {
+      return dot_chain(u_, pv, K_);
+    }
+  }
+};
+
+// Pre-gathered: request r's slab is the r-th of V (R, J, K), seen (R, J).
 struct Slab {
+  using Row = SlabRow<false>;
   const float* V;
   const int8_t* seen_j;
   int J, K, vec;
-  struct Row {
-    long long ui, ci;
-    const float* v;
-    const int8_t* s;
-    int J, K, vec;
-    static constexpr bool kBySlot = false;
-    template <int KC>
-    using Buf = F32Buf<KC>;
-    __device__ __forceinline__ bool seen(int, int id) const {
-      return id < 0 || id >= J || s[id] != 0;
-    }
-    __device__ __forceinline__ const float* at(int, int id) const { return v + (size_t)id * K; }
-    template <int KC>
-    __device__ __forceinline__ void fetch(int c, int id, Buf<KC>& b) const {
-      load_row<KC>(at(c, id), b.f, vec);
-    }
-    template <int KC>
-    __device__ __forceinline__ void unpack(const Buf<KC>& b, float (&f)[KC]) const {
-#pragma unroll
-      for (int j = 0; j < KC; ++j) f[j] = b.f[j];
-    }
-    __device__ __forceinline__ float score(const float* u_, int c, int id, int K_) const {
-      return dot_chain(u_, at(c, id), K_);
-    }
-  };
   __device__ __forceinline__ Row row(int r) const {
-    return {r, r, V + (size_t)r * J * K, seen_j + (size_t)r * J, J, K, vec};
+    return {r, r, V + (size_t)r * J * K, nullptr, seen_j + (size_t)r * J, J, K, vec};
+  }
+};
+
+// In place on the serving engine's state (the kernel's U is the engine's,
+// its candidate ids the index's bucket rows): one load of the id, then the
+// user's bucket, then in the body the bucket's candidate ids, then their
+// seen bits and rows. An id outside [0, n_users), or a bucket outside
+// [0, n_buckets), traps, as the gather it replaces would fault.
+template <bool kQ>
+struct SlabRows {
+  using Row = SlabRow<kQ>;
+  const long long* ids;
+  const float* V;
+  const float* Q;   // kQ only
+  const int8_t* seen;
+  const long long* user_bucket;
+  int n_users, n_buckets, J, K, vec;
+  __device__ __forceinline__ Row row(int r) const {
+    const long long i = __ldg(ids + r);
+    if (i < 0 || i >= n_users) __trap();
+    const long long b = __ldg(user_bucket + i);
+    if (b < 0 || b >= n_buckets) __trap();
+    const size_t o = (size_t)i * J;
+    return {i, b, V + o * K, kQ ? Q + o * K : nullptr, seen + o, J, K, vec};
   }
 };
 
@@ -299,9 +364,10 @@ serve_topk_kernel(const float* __restrict__ U, const Src src, const int* __restr
       // kBatch of the lane's candidates at a time, all their loads issued
       // before any is used: in a window the ids, seen bits and rows at once
       // (a pad slot's row is read and dropped); in a slab the ids, then the
-      // seen bits and rows at the valid ids. Issuing a window's rows before
-      // its ids, so that in place they need not wait for the bucket, was
-      // slower in every form (PERF.md §6).
+      // seen bits and rows together at the valid ids (a seen row is read
+      // and dropped). Issuing a window's rows before its ids, so that in
+      // place they need not wait for the bucket, was slower in every form
+      // (PERF.md §6).
       for (int c0 = t; c0 < Cw; c0 += kBatch * per_request) {
         int id[kBatch];
         bool ok[kBatch];
@@ -322,12 +388,19 @@ serve_topk_kernel(const float* __restrict__ U, const Src src, const int* __restr
             const int c = c0 + b * per_request;
             id[b] = c < Cw ? crow[c] : -1;
           }
+          bool seen[kBatch];
 #pragma unroll
           for (int b = 0; b < kBatch; ++b) {
             const int c = c0 + b * per_request;
-            ok[b] = !row.seen(c, id[b]);
-            if (ok[b]) row.template fetch<KC>(c, id[b], raw[b]);
+            ok[b] = row.has(id[b]);
+            seen[b] = true;
+            if (ok[b]) {
+              seen[b] = row.seen(c, id[b]);
+              row.template fetch<KC>(c, id[b], raw[b]);
+            }
           }
+#pragma unroll
+          for (int b = 0; b < kBatch; ++b) ok[b] = ok[b] && !seen[b];
         }
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
@@ -423,6 +496,27 @@ extern "C" int serve_topk_launch(const float* U, const float* V, const int* cand
   const Launch a{U, cand, vals, idx, R, Cw, K, k, warps, rpb, slots, merge,
                  static_cast<cudaStream_t>(stream)};
   return launch(a, Slab{V, seen, J, K, row_vec(V, K)});
+}
+
+// In place on the serving engine's state: ids (R,) int64 user ids; U
+// (n_users, K); V (n_users, J, K); Q (n_users, J, K), or null: no Q; seen
+// (n_users, J); user_bucket (n_users,) int64; bucket_items (n_buckets, Cw)
+// int32.
+extern "C" int serve_topk_rows_launch(const long long* ids, const float* U, const float* V,
+                                      const float* Q, const int8_t* seen,
+                                      const long long* user_bucket, const int* bucket_items,
+                                      float* vals, int* idx, int R, int n_users, int n_buckets,
+                                      int J, int Cw, int K, int k, int warps, int rpb, int slots,
+                                      int merge, void* stream) {
+  const Launch a{U, bucket_items, vals, idx, R, Cw, K, k, warps, rpb, slots, merge,
+                 static_cast<cudaStream_t>(stream)};
+  if (Q != nullptr) {
+    const int vec_v = row_vec(V, K), vec_q = row_vec(Q, K);
+    return launch(a, SlabRows<true>{ids, V, Q, seen, user_bucket, n_users, n_buckets, J, K,
+                                    vec_v < vec_q ? vec_v : vec_q});
+  }
+  return launch(a, SlabRows<false>{ids, V, nullptr, seen, user_bucket, n_users, n_buckets, J, K,
+                                   row_vec(V, K)});
 }
 
 // bf16 != 0: Vq holds bf16 factors, else int8 codes.

@@ -15,13 +15,27 @@ a batch of at most 256 rows is one block, which sums the loss itself; a
 larger batch's blocks leave their loss partials and an integer ticket in
 a scratch buffer kept per device and stream (zeroed when it is made or
 grown, reset by the kernel after each launch), and the last block sums
-them in a fixed order.
+them in a fixed order. The gradients kernel's launch layout (rows a block)
+is chosen here, on the host, by `grads_layout`.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, ref
+
+
+GRAD_THREADS = 128          # csrc/dmf_update.cu kGradThreads: threads a block, at most its rows
+GRAD_ROWS = 32              # rows a block: the fastest of 32/64/128 at both main shapes
+
+
+def grads_layout(B: int, K: int) -> dict:
+    """The launch layout of the gradients kernel for B rows of K factors:
+    ``rows`` a block (32: one warp forms the rows' residuals, then the
+    block's 128 threads write the 32·K elements; B=256 takes 8 blocks,
+    B=2048 64), ``threads`` a block and ``blocks``. K does not change it:
+    the rows are read in place, whatever their width."""
+    return dict(rows=GRAD_ROWS, threads=GRAD_THREADS, blocks=-(-B // GRAD_ROWS))
 
 
 def _check_step(name, u, p, q, r, conf, z=None):
@@ -76,13 +90,26 @@ def dmf_grads(u, p, q, r, conf, *, alpha: float, beta: float, gamma: float):
     if not build.on_card(name, u, p, q, r, conf):
         return ref.dmf_grads_ref(u, p, q, r, conf, alpha, beta, gamma)
     build.require_contiguous(name, u=u, p=p, q=q, r=r, conf=conf)
+    gu, gp, gq = grads_on_layout(u, p, q, r, conf, alpha, beta, gamma,
+                                 grads_layout(*u.shape))
+    if u.shape[0]:
+        dmf_grads.launches += 1
+    return gu, gp, gq
+
+
+def grads_on_layout(u, p, q, r, conf, alpha: float, beta: float, gamma: float,
+                    layout: dict):
+    """The gradients kernel on the card with the given layout
+    (`grads_layout`'s ``rows``, 1 to 128), the inputs already checked.
+    For the public wrapper, and for timing layouts against each other;
+    counts no launch."""
     B, K = u.shape
     gu, gp, gq = (torch.empty_like(u) for _ in range(3))
     if B:
-        build.launch(name, u.device, "dmf_grads_launch",
+        build.launch("dmf_grads", u.device, "dmf_grads_launch",
                      u.data_ptr(), p.data_ptr(), q.data_ptr(), r.data_ptr(), conf.data_ptr(),
-                     gu.data_ptr(), gp.data_ptr(), gq.data_ptr(), B, K, alpha, beta, gamma)
-        dmf_grads.launches += 1
+                     gu.data_ptr(), gp.data_ptr(), gq.data_ptr(), B, K, alpha, beta, gamma,
+                     layout["rows"])
     return gu, gp, gq
 
 

@@ -5,8 +5,9 @@
 `gossip_mix_ref` :111-114, `topk_scores_ref` :117-123) plus `dmf_fused_step_dp_ref`, the
 plain form of `_dmf_fused_step_dp_kernel`, and
 `serve_topk_window_quant_ref`, the plain form of
-`_serve_topk_window_quant_kernel`, and `serve_topk_tiled_quant_ref`, the
-same on windows gathered from the tiled store. The plain noise stream is
+`_serve_topk_window_quant_kernel`, `serve_topk_tiled_quant_ref`, the
+same on windows gathered from the tiled store, and `serve_topk_rows_ref`,
+the window form on windows gathered from the serving engine's state. The plain noise stream is
 `dp_noise.gauss_counter_ref`.
 
 Each kernel wrapper runs these on CPU tensors, and `chip_smoke.py` holds
@@ -93,6 +94,20 @@ def serve_topk_tiled_quant_ref(ids, U, Vq, scale, user_bucket, bucket_items, see
           else scale[ids])
     return serve_topk_window_quant_ref(U[ids], Vq[ids], sc, bucket_items[user_bucket[ids]],
                                        seen[ids], k)
+
+
+def serve_topk_rows_ref(ids, U, V, seen, user_bucket, bucket_items, k: int, Q=None):
+    """`serve_topk_window_ref` on the windows of users ``ids`` (R,)
+    gathered from the serving engine's state: U (I, K), V (I, J, K) (with
+    ``Q`` (I, J, K), the window is the gathered V plus the gathered Q),
+    seen (I, J), candidates ``bucket_items[user_bucket[ids]]``, where an id
+    ≥ J is no candidate."""
+    cand = bucket_items[user_bucket[ids]]
+    cand = cand.masked_fill(cand >= V.shape[1], -1)
+    safe = cand.clamp_min(0).long()
+    rows = ids[:, None]
+    vw = V[rows, safe] if Q is None else V[rows, safe] + Q[rows, safe]
+    return serve_topk_window_ref(U[ids], vw, cand, seen[rows, safe], k)
 
 
 def topk_scores_peruser_ref(U, V, mask, k: int):

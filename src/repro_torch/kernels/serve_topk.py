@@ -8,6 +8,11 @@ their `src/repro/kernels/ops.py` wrappers:
 * `serve_topk` — `_serve_topk_kernel` (:64-119) behind `ops.serve_topk`
   (:158-187): the candidates gathered out of whole item slabs inside the
   kernel, the staging reference of the tiled path;
+* `serve_topk_rows` — the same kernel reading the serving engine's state
+  in place (user ids, U, V or P and Q, seen, the index's user buckets and
+  bucket items), as the reference's compiled design keeps V in HBM and
+  reads only the candidate rows (`ops.serve_topk`'s docstring): the
+  engine's pruned dispatch, one launch and no gathered copy;
 * `serve_topk_window_quant` — `_serve_topk_window_quant_kernel`
   (:184-250) behind `ops.serve_topk_window_quant` (:222-247): windows as
   int8 codes times a per-request scale, or as bf16;
@@ -19,8 +24,9 @@ their `src/repro/kernels/ops.py` wrappers:
 The public layouts are the reference's: windows (R, Cw, K), slabs
 (R, J, K), the store (I, cap, K). The TPU's K-major transpose and 128-lane padding are not
 copied; one CUDA kernel body (``csrc/serve_topk.cu``) reads each form as
-it is. The slab and quant forms equal the fp32 window form bit for bit on
-windows gathered from the same rows, resp. on ``codes.float() * scale``.
+it is. The slab forms and the quant forms equal the fp32 window form bit
+for bit on windows gathered from the same rows (with Q, on the gathered
+``P + Q``), resp. on ``codes.float() * scale``.
 
 The launch layout (warps a request, requests a block, the lanes' list
 size) is chosen here, on the host, by `window_layout`, and handed to the
@@ -49,7 +55,7 @@ def slots_for(k: int, per_lane: int) -> int:
 
 
 def window_layout(R: int, Cw: int, k: int) -> dict:
-    """The launch layout of kernels 1, 5 and 6 for R requests of Cw
+    """The launch layout of kernels 1, 5 (both forms) and 6 for R requests of Cw
     candidates: ``warps`` a request (one for Cw ≤ 128, else ceil(Cw / 128),
     at most 16), ``rpb`` requests a block, ``slots`` in a lane's list,
     ``blocks``, ``threads`` a block and its shared memory."""
@@ -157,6 +163,83 @@ def serve_topk(U: torch.Tensor, V: torch.Tensor, cand: torch.Tensor, seen: torch
 
 
 serve_topk.launches = 0
+
+
+def serve_topk_rows(ids: torch.Tensor, U: torch.Tensor, V: torch.Tensor, seen: torch.Tensor,
+                    user_bucket: torch.Tensor, bucket_items: torch.Tensor, k: int, *,
+                    Q: torch.Tensor | None = None):
+    """Kernel 5 reading the serving engine's state in place. ids: (R,)
+    int64 user ids; U: (I, K) f32; V: (I, J, K) f32 each user's item
+    factors (with ``Q``, P: the served factor is v = p + q); Q: (I, J, K)
+    f32 or None; seen: (I, J) int8/bool; user_bucket: (I,) int64;
+    bucket_items: (n_buckets, Cw) int32 ascending item ids, -1 padded (an
+    id ≥ J is no candidate and reads nothing). Request r serves user
+    ``ids[r]``: the result is that of `serve_topk_window` on the gathered
+    ``U[ids]``, ``V[ids[:, None], cand]`` (plus ``Q[ids[:, None], cand]``),
+    ``cand = bucket_items[user_bucket[ids]]`` and ``seen[ids[:, None],
+    cand]``, bit for bit.
+
+    CPU tensors run `ref.serve_topk_rows_ref`; CUDA tensors launch the
+    kernel (and count one in ``serve_topk_rows.launches``) or raise. An id
+    outside [0, I), or a user's bucket outside [0, n_buckets), raises on
+    the CPU and traps the kernel on the card."""
+    name = "serve_topk_rows"
+    I, K = U.shape
+    J, Cw = V.shape[1], bucket_items.shape[1]
+    R = ids.shape[0]
+    build.require_shape(name, "ids", ids, (R,))
+    build.require_dtype(name, "ids", ids, torch.int64)
+    build.require_shape(name, "V", V, (I, J, K))
+    build.require_shape(name, "seen", seen, (I, J))
+    build.require_shape(name, "user_bucket", user_bucket, (I,))
+    build.require_dtype(name, "U", U, torch.float32)
+    build.require_dtype(name, "V", V, torch.float32)
+    build.require_dtype(name, "seen", seen, torch.int8, torch.bool)
+    build.require_dtype(name, "user_bucket", user_bucket, torch.int64)
+    build.require_dtype(name, "bucket_items", bucket_items, torch.int32)
+    if Q is not None:
+        build.require_shape(name, "Q", Q, (I, J, K))
+        build.require_dtype(name, "Q", Q, torch.float32)
+    _check_k(name, k)
+    tensors = [t for t in (ids, U, V, Q, seen, user_bucket, bucket_items) if t is not None]
+    if not build.on_card(name, *tensors):
+        if ids.numel() and (int(ids.min()) < 0 or int(ids.max()) >= I):
+            raise IndexError(f"{name}: a user id outside [0, {I})")
+        buckets = user_bucket[ids]
+        if buckets.numel() and (int(buckets.min()) < 0
+                                or int(buckets.max()) >= bucket_items.shape[0]):
+            raise IndexError(f"{name}: a bucket outside [0, {bucket_items.shape[0]})")
+        return ref.serve_topk_rows_ref(ids, U, V, seen, user_bucket, bucket_items, k, Q=Q)
+    vals, idx = rows_on_layout(ids, U, V, seen, user_bucket, bucket_items, k,
+                               window_layout(R, Cw, k), Q=Q)
+    if R:
+        serve_topk_rows.launches += 1
+    return vals, idx
+
+
+serve_topk_rows.launches = 0
+
+
+def rows_on_layout(ids, U, V, seen, user_bucket, bucket_items, k: int, layout: dict,
+                   merge: bool = True, Q=None):
+    """`serve_topk_rows` on the card with the given layout
+    (`window_layout`'s keys), the inputs already checked. ``merge=False``
+    scores without merging (a timing form, as `window_on_layout`); counts
+    no launch."""
+    build.require_contiguous("serve_topk_rows", ids=ids, U=U, V=V, seen=seen,
+                             user_bucket=user_bucket, bucket_items=bucket_items,
+                             **({} if Q is None else {"Q": Q}))
+    R = ids.shape[0]
+    I, K = U.shape
+    vals, idx = _outputs(R, k, U.device)
+    if R:
+        build.launch("serve_topk_rows", U.device, "serve_topk_rows_launch",
+                     ids.data_ptr(), U.data_ptr(), V.data_ptr(),
+                     0 if Q is None else Q.data_ptr(), seen.view(torch.int8).data_ptr(),
+                     user_bucket.data_ptr(), bucket_items.data_ptr(), vals.data_ptr(),
+                     idx.data_ptr(), R, I, bucket_items.shape[0], V.shape[1],
+                     bucket_items.shape[1], K, k, *_layout_args(layout, merge))
+    return vals, idx
 
 
 def serve_topk_window_quant(U: torch.Tensor, Vq: torch.Tensor, scale: torch.Tensor,

@@ -10,9 +10,10 @@ Request path:
 1. **Microbatcher** — a stream of user ids is grouped into fixed-shape
    batches of ``ServingConfig.microbatch`` (the tail batch is padded with a
    repeated real id, its results dropped).
-2. **Dispatch** — gather each request's home-city candidate window
-   (R, cap, K) out of the device-resident V = P + Q view (PyTorch
-   indexing) and run the serve kernel (`ops.serve_topk_window`).
+2. **Dispatch** — the ids' upload and one launch of the serve kernel
+   (`ops.serve_topk_rows`), which reads each request's user row, its
+   home-city candidate ids, their seen bits and their rows of the
+   device-resident V = P + Q view in place: no (R, cap, K) gather.
    ``prune=False`` instead has the dense kernel
    (`ops.recommend_topk_peruser`) read the requests' full rows of V and of
    the seen mask where they lie (``rows=uids``): no (R, J, K) gather.
@@ -75,13 +76,9 @@ class EngineStats:
 
 
 def _dispatch_pruned(U, V, seen, bucket_items, user_bucket, uids, k: int):
-    """One geo-pruned microbatch: gather only the (R, cap, K) candidate
-    windows, then the serve kernel."""
-    u = U[uids]                                   # (R, K)   own user factor
-    cand = bucket_items[user_bucket[uids]]        # (R, cap) home bucket, int32
-    safe = cand.clamp_min(0).long()               # pad-safe gather
-    rows = uids[:, None]
-    return ops.serve_topk_window(u, V[rows, safe], cand, seen[rows, safe], k)
+    """One geo-pruned microbatch: the serve kernel reads the requests' user
+    rows, candidate ids, seen bits and candidate rows of V in place."""
+    return ops.serve_topk_rows(uids, U, V, seen, user_bucket, bucket_items, k)
 
 
 def _dispatch_dense(U, V, seen, uids, k: int):
@@ -92,17 +89,12 @@ def _dispatch_dense(U, V, seen, uids, k: int):
 
 def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune: bool):
     """Microbatch over the raw factor state, forming v = p + q of the
-    requested rows on the fly (gather-then-add equals gathering V; the
-    dense kernel reads the P, Q and seen rows in place and adds in
-    registers)."""
-    u = U[uids]
-    rows = uids[:, None]
+    requested rows on the fly: both kernels read the P, Q and seen rows in
+    place and add in registers (the pruned one rounds each sum as the
+    gather-then-add did, so it equals serving V)."""
     if prune:
-        cand = bucket_items[user_bucket[uids]]
-        safe = cand.clamp_min(0).long()
-        vw = P[rows, safe] + Q[rows, safe]        # (R, cap, K)
-        return ops.serve_topk_window(u, vw, cand, seen[rows, safe], k)
-    return ops.recommend_topk_peruser(u, P, seen, k, Q=Q, rows=uids)
+        return ops.serve_topk_rows(uids, U, P, seen, user_bucket, bucket_items, k, Q=Q)
+    return ops.recommend_topk_peruser(U[uids], P, seen, k, Q=Q, rows=uids)
 
 
 class ServingEngine:

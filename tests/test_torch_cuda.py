@@ -16,7 +16,10 @@ DP step's deltas within 1e-5. The slab form of the serving kernel
 same rows, and the int8/bf16 form (`serve_topk_window_quant`) equals it on
 the dequantized windows, bit for bit, as does the same kernel reading the
 tiled store in place (`serve_topk_tiled_quant`, rows aligned and at odd
-offsets, shard views) against the form on the gathered windows; the noise
+offsets, shard views) against the form on the gathered windows, and the
+slab form reading the serving state in place (`serve_topk_rows`, V or P
+and Q, every layout; an id or bucket out of range traps) against kernel 1
+on the gathered windows and the pre-gathered slab form; the noise
 stream's words and draws equal those of the clip + noise kernel's path
 (the same device function) bit for bit from one row to beyond a wave;
 the tiled engine on the card agrees with the same store on the CPU (store tensors bit for bit, slates as
@@ -25,9 +28,11 @@ and in every layout equals the call on the materialized rows bit for bit.
 The shared-V top-k (`recommend_topk`, kernel 4) is held like the
 other top-k kernels, and on one user with V = p^i + q^i equals the
 per-user kernel bit for bit; the gradients kernel (`dmf_grads`, kernel 9)
-is within 2e-5 abs + rel of its plain version, its gp equals the fused
-step's bit for bit, and −θ·gu, −θ·gq are the step's deltas within one
-ulp; the walk-mixing product (`gossip_mix_op`, kernel 10) is within
+is within 2e-5 abs + rel of its plain version (plus, across layouts,
+the bound on two fp32 orders of the residual's dot), every layout equal
+to the wrapper's bit for bit, its gp equals the fused step's bit for bit,
+and −θ·gu, −θ·gq are the step's deltas within one ulp; the walk-mixing
+product (`gossip_mix_op`, kernel 10) is within
 1e-5 + 1e-5·(|M| @ |X|) of the fp32 product, bf16 inputs upcast; its
 sparse and dense routes give the same bits for finite X, and non-finite X
 gives the plain product's NaN pattern. The fused steps (kernels 3, 7) give
@@ -461,6 +466,173 @@ def test_tiled_engine_on_the_card_equals_the_cpu(dev):
             assert abs(float((host.U[u] * win[u, pos]).sum()) - hv[r, s]) <= TOL
 
 
+def _rows_state(rng, I, R, J, Cw, K, dev, offset):
+    """The serving engine's resident state for kernel 5 in place: U (I, K)
+    with an all-zero user (3); V and Q (I, J, K) starting ``offset``
+    elements into their storage (0, 1, 2: rows aligned, 4 or 8 bytes off),
+    with repeated
+    rows (user 5); seen (I, J) with an all-seen user (2); 7 buckets of
+    ascending ids (0 full, 1 padding only, 2 three ids, user 4's, unseen);
+    R user ids, unsorted, with repeats."""
+    n_buckets = 7
+    bucket_items = np.full((n_buckets, Cw), -1, np.int32)
+    for b in range(n_buckets):
+        n = (Cw, 0, min(3, Cw))[b] if b < 3 else int(rng.integers(0, Cw + 1))
+        bucket_items[b, :n] = np.sort(rng.choice(J, n, replace=False))
+    user_bucket = rng.integers(0, n_buckets, I).astype(np.int64)
+    user_bucket[:5] = (0, 1, 0, 0, 2)
+    U = rng.normal(size=(I, K)).astype(np.float32)
+    U[3] = 0.0
+    V, Q = (rng.normal(size=(I, J, K)).astype(np.float32) for _ in range(2))
+    V[5, ::2], Q[5, ::2] = V[5, -1], Q[5, -1]
+    seen = (rng.random((I, J)) < 0.1).astype(np.int8)
+    seen[2] = 1
+    seen[4, bucket_items[2, :3]] = 0
+    ids = rng.integers(0, I, R).astype(np.int64)
+    ids[: min(R, 6)] = (4, 0, 1, 2, 3, 5)[: min(R, 6)]
+    if R > 7:
+        ids[7] = ids[6]
+
+    def shifted(x):
+        buf = torch.empty(x.size + offset, dtype=torch.float32, device=dev)
+        out = buf[offset:].view(x.shape)
+        out.copy_(torch.as_tensor(x, device=dev))
+        return out
+    U, seen, bucket_items, user_bucket, ids = (
+        torch.as_tensor(x, device=dev) for x in (U, seen, bucket_items, user_bucket, ids))
+    return ids, U, shifted(V), shifted(Q), seen, user_bucket, bucket_items
+
+
+def _rows_gathered(ids, U, V, Q, seen, user_bucket, bucket_items):
+    """The pruned dispatch's gathers before kernel 5 read the state in
+    place: (u, V windows, P + Q windows, cand, seen windows)."""
+    cand = bucket_items[user_bucket[ids]]
+    safe = cand.clamp_min(0).long()
+    rows = ids[:, None]
+    return U[ids], V[rows, safe], V[rows, safe] + Q[rows, safe], cand, seen[rows, safe]
+
+
+@pytest.mark.parametrize("R", [1, 37, 64, 300])
+@pytest.mark.parametrize("Cw", [1, 37, 384, 1000])
+@pytest.mark.parametrize("K", [8, 10, 16])
+def test_serve_topk_rows_kernel_equals_its_plain_version_and_the_gathered_kernels(dev, R, Cw,
+                                                                                  K):
+    """Kernel 5 reading the serving state in place, with and without Q:
+    against its plain version, and bit for bit against kernel 1 on the
+    gathered windows (of V, resp. of P + Q) and the pre-gathered slab form
+    on the requests' slabs; k 1/10/16, rows aligned and at odd offsets."""
+    rng = np.random.default_rng(R * 1000 + Cw + K)
+    I, J = max(R, 60), Cw + 53
+    for offset in (0, 1, 2):
+        ids, U, V, Q, seen, ub, bi = _rows_state(rng, I, R, J, Cw, K, dev, offset)
+        u, vw, pqw, cand, sw = _rows_gathered(ids, U, V, Q, seen, ub, bi)
+        cids = cand.cpu().numpy()
+        for q, win, slab in ((None, vw, V[ids]), (Q, pqw, (V + Q)[ids])):
+            wsc = (u[:, None] * win).sum(-1).masked_fill((cand < 0) | (sw != 0), ref.NEG_INF)
+            wsc = wsc.cpu().numpy()
+            for k in (1, 10, 16):
+                before = ops.serve_topk_rows.launches
+                got = ops.serve_topk_rows(ids, U, V, seen, ub, bi, k, Q=q)
+                torch.cuda.synchronize()
+                assert ops.serve_topk_rows.launches == before + 1
+                _hold(got, ref.serve_topk_rows_ref(ids, U, V, seen, ub, bi, k, Q=q),
+                      lambda r, item: wsc[r, np.flatnonzero(cids[r] == item)[0]])
+                for want in (ops.serve_topk_window(u, win.contiguous(), cand, sw.contiguous(), k),
+                             ops.serve_topk(u, slab.contiguous(), cand, seen[ids], k)):
+                    for a, b in zip(got, want):
+                        assert torch.equal(a, b)
+
+
+def test_serve_topk_rows_kernel_edge_requests_and_layouts(dev):
+    """The held edge cases at the serving shape (R=64, Cw=384, K=10): a
+    bucket of padding only and an all-seen user serve no item, an all-zero
+    user the lowest unseen ids, three candidates under k fill three slots,
+    an id past J is no candidate; every launch layout equals the
+    wrapper's, bit for bit."""
+    rng = np.random.default_rng(11)
+    ids, U, V, Q, seen, ub, bi = _rows_state(rng, 200, 64, 3197, 384, 10, dev, 0)
+    bi[0, -1] = 3197 + 9                   # the full bucket's largest id, past J
+    for q in (None, Q):
+        vals, idx = ops.serve_topk_rows(ids, U, V, seen, ub, bi, 16, Q=q)
+        assert (idx[2] == -1).all() and (idx[3] == -1).all()          # users 1 and 2
+        assert int((idx[0] >= 0).sum()) == 3 and (idx[0, 3:] == -1).all()
+        live = [c for c in bi[0].tolist() if 0 <= c < 3197 and not seen[3, c]]
+        assert idx[4].tolist() == live[:16] and bool((vals[4] == 0).all())
+        assert not (idx == 3197 + 9).any()
+        for warps, rpb in ((1, 1), (1, 4), (2, 2), (4, 1), (16, 1)):
+            lay = dict(warps=warps, rpb=rpb,
+                       slots=serve_topk.slots_for(16, max(1, -(-384 // (32 * warps)))))
+            other = serve_topk.rows_on_layout(ids, U, V, seen, ub, bi, 16, lay, Q=q)
+            assert torch.equal(other[0], vals) and torch.equal(other[1], idx), lay
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["id", "negative id", "bucket"])
+def test_serve_topk_rows_kernel_traps_on_an_id_or_bucket_out_of_range(dev, case):
+    """An id outside [0, I), or a user's bucket outside [0, n_buckets),
+    traps the kernel (in a child process: a trap ends the CUDA context)."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    code = f"""
+import torch
+from repro_torch.kernels import ops
+dev = torch.device("cuda")
+I, J, K, Cw = 20, 50, 10, 24
+ids = torch.arange(8, device=dev)
+ub = torch.zeros(I, dtype=torch.int64, device=dev)
+bi = torch.arange(Cw, dtype=torch.int32, device=dev)[None]
+case = {case!r}
+if case == "id":
+    ids[3] = I
+elif case == "negative id":
+    ids[3] = -1
+else:
+    ub[5] = 1
+try:
+    ops.serve_topk_rows(ids, torch.zeros(I, K, device=dev), torch.zeros(I, J, K, device=dev),
+                        torch.zeros(I, J, dtype=torch.int8, device=dev), ub, bi, 10)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("trapped:", e)
+"""
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PYTHONPATH": str(repo / "src")}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=env, cwd=str(repo))
+    assert "trapped:" in res.stdout, (res.stdout, res.stderr)
+
+
+def test_serving_engine_pruned_dispatches_launch_one_in_place_kernel(dev):
+    """`recommend` (on V) and `serve_microbatch` (on P and Q) pruned: one
+    launch of kernel 5 in place a microbatch, none of kernel 1, and the
+    slates of kernel 1 on the gathered windows, bit for bit."""
+    from repro_torch.core import dmf
+    from repro_torch.data import synthetic_poi
+    from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+    ds = synthetic_poi.foursquare_like(reduced=True)
+    cfg = dmf.DMFConfig(n_users=ds.n_users, n_items=ds.n_items)
+    eng = ServingEngine(dmf.init_state(cfg, device=dev), index_from_dataset(ds),
+                        ServingConfig(microbatch=64, k=10), train=ds.train, device=dev)
+    ids = np.random.default_rng(3).integers(0, ds.n_users, 300)
+    before = (ops.serve_topk_rows.launches, ops.serve_topk_window.launches)
+    vals, idx, flags = eng.recommend(ids, return_flags=True)
+    assert ops.serve_topk_rows.launches == before[0] + eng.stats.n_dispatches == before[0] + 5
+    mv, mi, _ = eng.serve_microbatch(ids[:64])
+    assert ops.serve_topk_rows.launches == before[0] + 6
+    assert ops.serve_topk_window.launches == before[1]
+    keep = np.flatnonzero(~flags)
+    uids = torch.as_tensor(ids[keep], device=dev)
+    u, vw, _, cand, sw = _rows_gathered(uids, eng.state.U, eng.V, eng.state.Q, eng.seen,
+                                        eng._user_bucket, eng._bucket_items)
+    wv, wi = ops.serve_topk_window(u, vw.contiguous(), cand, sw.contiguous(), 10)
+    np.testing.assert_array_equal(vals[keep], wv.cpu().numpy())
+    np.testing.assert_array_equal(idx[keep], wi.cpu().numpy())
+    np.testing.assert_array_equal(mv, vals[:64])
+    np.testing.assert_array_equal(mi, idx[:64])
+
+
 @pytest.mark.parametrize("R,J,K,k", [(128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16),
                                      (256, 256, 5, 1), (6, 3197, 10, 10)])
 def test_recommend_topk_kernel(dev, R, J, K, k):
@@ -727,6 +899,41 @@ def test_dmf_grads_kernel_is_the_fused_step_kernel(dev, B):
     for a, b in ((-theta * gu, du), (-theta * gq, dq)):
         ulp = torch.abs(torch.nextafter(b, torch.full_like(b, float("inf"))) - b)
         assert ((a - b).abs() <= ulp).all()
+
+
+def _hold_grads(got, x, hp):
+    """Each gradient within 2e-5 abs + rel of the plain version, plus the
+    bound on two fp32 orders of the residual's K-term dot (2·K·2⁻²⁴·c·
+    Σ|u·v|) times the residual's factor (|v| for gu, |u| for gp and gq):
+    at K=128 two orders differ by more than 2e-5 on a few elements."""
+    u, p, q, r, c = x
+    v = p + q
+    dot_err = (2 * u.shape[1] * 2.0**-24 * c * (u * v).abs().sum(-1))[:, None]
+    for g, w, factor in zip(got, ref.dmf_grads_ref(*x, *hp.values()), (v.abs(), u.abs(), u.abs())):
+        assert bool(((g - w).abs() <= 2e-5 * (1 + w.abs()) + dot_err * factor).all())
+
+
+@pytest.mark.parametrize("B", [1, 32, 33, 256, 2048, 5000])
+@pytest.mark.parametrize("K", [5, 10, 16, 128])
+def test_dmf_grads_kernel_across_layouts(dev, B, K):
+    """Kernel 9 in the wrapper's layout and at 1, 16, 64 and 128 rows a
+    block (one block, several, a ragged last block; K fixed at build time
+    and at run time): against its plain version, every layout equal to
+    the wrapper's bit for bit, and gp equal to kernel 3's gp bit for
+    bit."""
+    from repro_torch.kernels import dmf_update
+    x = _grads_inputs(np.random.default_rng(B + K), B, K, dev)
+    hp = dict(alpha=0.1, beta=0.1, gamma=0.01)
+    got = ops.dmf_grads(*x, **hp)
+    _hold_grads(got, x, hp)
+    for rows in (1, 16, 64, 128):
+        other = dmf_update.grads_on_layout(*x, *hp.values(), dict(rows=rows))
+        for a, b in zip(other, got):
+            assert torch.equal(a, b), rows
+    assert torch.equal(got[1], ops.dmf_fused_step(*x, theta=0.1, **hp)[1])
+    with pytest.raises(RuntimeError):                      # more rows than threads
+        dmf_update.grads_on_layout(*x, *hp.values(), dict(rows=129))
+    torch.cuda.synchronize()
 
 
 def _hold_mix(Y, M, X):

@@ -260,6 +260,14 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
                     ref.serve_topk_window_quant_ref(U[ids], codes[ids], scale[ids], cand[ids],
                                                     seen[ids], 10)):
         assert torch.equal(a, b)
+    U, V, cand, seen = _t(*_slab_inputs(4))
+    rows = ids[:, None]
+    user_bucket = torch.arange(U.shape[0], dtype=torch.int64)
+    for a, b in zip(ops.serve_topk_rows(ids, U, V, seen, user_bucket, cand, 10, Q=V),
+                    ref.serve_topk_window_ref(U[ids], V[rows, cand[ids].clamp_min(0).long()] * 2,
+                                              cand[ids], seen[rows, cand[ids].clamp_min(0).long()],
+                                              10)):
+        assert torch.equal(a, b)
     U, Vs, mask = x[0], x[1][:20].contiguous(), torch.zeros(32, 20, dtype=torch.bool)
     for a, b in zip(ops.recommend_topk(U, Vs, mask, 10), ref.topk_scores_ref(U, Vs, mask, 10)):
         assert torch.equal(a, b)
@@ -269,7 +277,7 @@ def test_cpu_wrappers_run_the_plain_versions_and_launch_nothing():
     M = torch.eye(32) + x[2][:, :1]
     assert torch.equal(ops.gossip_mix_op(M, x[0]), ref.gossip_mix_ref(M, x[0]))
     assert [kern.launches for kern in ops.KERNELS] == before == [0] * len(ops.KERNELS)
-    assert len(ops.KERNELS) == 12
+    assert len(ops.KERNELS) == 13
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "k", "device"])

@@ -13,9 +13,11 @@ ids are held against the reference's dense oracle (`topk_scores_ref` with
 `masked_topk_finalize`, `lax.top_k`'s lowest-id tie order): exactly on
 tie-free inputs, and on tie-heavy ones wherever adjacent values differ by
 more than 1e-6. Not against the Pallas kernel, whose cross-tile merge can
-give an exact tie's slot to a higher id (ROADMAP.md §C). The CUDA kernels
-are held against the same plain versions on the card by `chip_smoke.py`
-and `tests/test_torch_cuda.py`.
+give an exact tie's slot to a higher id (ROADMAP.md §C). The host's launch
+layouts of kernels 4 (`topk_scores.shared_layout`) and 9
+(`dmf_update.grads_layout`) are pinned here too. The CUDA kernels are held
+against the same plain versions on the card by `chip_smoke.py` and
+`tests/test_torch_cuda.py`.
 """
 import numpy as np
 import pytest
@@ -27,7 +29,7 @@ from hypothesis import given, settings, strategies as st  # noqa: E402
 
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_ref  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import dmf_update, ops, ref  # noqa: E402
 
 GRAD_TOL = 2e-5
 MIX_TOL, MIX_BF16_TOL = 1e-4, 2e-2
@@ -63,6 +65,41 @@ def _grads_case(rng, B, K, hp):
 @pytest.mark.parametrize("K", [5, 10, 15, 128])
 def test_dmf_grads_matches_reference_kernel(B, K):
     _grads_case(np.random.default_rng(B * K), B, K, dict(alpha=0.1, beta=0.01, gamma=0.02))
+
+
+def test_dmf_grads_matches_reference_kernel_at_the_micro_bench_shape():
+    """`kernels_bench.py`'s shape (B=2048, K=16), where the card's kernel
+    takes 64 blocks of 32 rows."""
+    _grads_case(np.random.default_rng(0), 2048, 16, dict(alpha=0.1, beta=0.01, gamma=0.01))
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 64, 256, 300, 1024, 2047, 2048, 5000, 28_160])
+@pytest.mark.parametrize("K", [1, 5, 10, 16, 128])
+def test_dmf_grads_layout_covers_every_row_once(B, K):
+    """The host's choice of kernel 9's layout, pinned on the CPU: blocks
+    of at most one row a thread that together cover rows 0..B-1 once, no
+    block without a row, and at least 32 blocks at the micro-bench's
+    B=2048."""
+    lay = dmf_update.grads_layout(B, K)
+    rows, blocks = lay["rows"], lay["blocks"]
+    assert 1 <= rows <= lay["threads"] == 128
+    starts = np.arange(blocks) * rows
+    covered = (starts[:, None] + np.arange(rows)[None, :]).ravel()
+    covered = covered[covered < B]
+    assert len(covered) == B and len(np.unique(covered)) == B
+    assert (blocks - 1) * rows < B
+    if B >= 2048:
+        assert blocks >= 32
+
+
+def test_dmf_grads_layout_of_the_main_paths():
+    """The training minibatch (B=256, K=10): 8 blocks of 32 rows; the
+    micro-bench (B=2048, K=16): 64 blocks of 32 (the forms of
+    `chip_smoke.py` time 16, 64 and 128 rows against it)."""
+    lay = dmf_update.grads_layout(256, 10)
+    assert (lay["rows"], lay["threads"], lay["blocks"]) == (32, 128, 8)
+    lay = dmf_update.grads_layout(2048, 16)
+    assert (lay["rows"], lay["threads"], lay["blocks"]) == (32, 128, 64)
 
 
 @settings(max_examples=10, deadline=None)
