@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port (`src/repro_torch`) runs on
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
-version on the card, drives the serving and the training slices and the
-paper's baseline comparison at full Foursquare scale and million-user
-tiled serving at the reference's million configuration, and times each
-kernel beside its bound.
+version on the card, drives the serving and the training slices, the
+paper's baseline comparison and the robustness slice (churn, Byzantine
+defenses, crash-resume, the leakage audit) at full Foursquare scale and
+million-user tiled serving at the reference's million configuration, and
+times each kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold kernels 9, 5 (in place,
@@ -111,6 +112,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       the dense walk matrix times every learner's P (6,524 × 6,524 @
       6,524 × 31,970): against the plain product and the neighbor-table
       gather, within 1e-5 + 1e-5·(|M| @ |X|).
+   e. robustness and audit, in five parts, each counted on its own: the
+      trivial churn plan with an inactive `DefenseConfig()` for 3 epochs
+      against plain `fit`, DP off and σ=0.5, C=0.25 (bit for bit); churn
+      (dropout 0.2, delay classes 0-2, late joiners 0.1, seed 17; the
+      reference churn bench's resume configuration) with that DP for 4
+      epochs, snapshots every 2 into a temporary directory under the
+      git-ignored ``build/``, resumed from step_2 (losses, factors and privacy
+      bit for bit), one learner's U, P and Q rows bit-frozen across an
+      epoch it is offline, a snapshot's bytes and save/load seconds;
+      Byzantine (the reference bench's headline: τ = 1.5 × the 99.9th
+      percentile of one audited epoch's honest norms, 20% malicious, 10
+      epochs each, halting on divergence): fault-free, `norm_inflate`
+      λ=100 undefended and under screen + trim 0.25, `nan` under screen
+      (the defended runs must stay finite); `run_audit` for one epoch at
+      σ 0 and 1.0, C=0.25 (the DP advantage must be the lower); the CLI
+      in process (3 DP epochs with churn, screening, trimmed aggregation
+      and a snapshot every epoch, then resumed from step_2: the same last
+      epoch's loss and report). Kernels 3, 7, 8 and 8a must launch.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -200,6 +219,22 @@ MIX_PLAIN_TIMED = 3           # its plain and library products (~50 ms each) per
 # the paper's tuned per-model hyperparameters (benchmarks/paper_tables.py:19-22)
 DMF_MODES = {"GDMF": dict(mode="gdmf", beta=0.1, gamma=0.0),
              "LDMF": dict(mode="ldmf", beta=0.0, gamma=0.01)}
+# phase 3e: the reference's churn bench resume configuration
+# (benchmarks/churn_bench.py:121-133, late joiners added) and its
+# Byzantine bench headline (benchmarks/byzantine_bench.py:124-158)
+ROBUST_DP = dict(dp_sigma=0.5, dp_clip=0.25, dp_seed=0)
+ROBUST_CHURN = dict(dropout=0.2, delay_classes=(0, 1, 2), late_frac=0.1, seed=17)
+TRIVIAL_EPOCHS, CHURN_EPOCHS, BYZ_EPOCHS = 3, 4, 10
+BYZ_FRAC, BYZ_SCALE = 0.2, 100.0
+AUDIT_SIGMAS, AUDIT_CLIP = (0.0, 1.0), 0.25
+ROBUST_CLI = ["--full", "--epochs", "3", "--dp-sigma", "0.5", "--dp-clip", "0.25",
+              "--churn-dropout", "0.2", "--churn-delay", "2", "--screen", "--aggregation", "trim",
+              "--checkpoint-every", "1"]
+ROBUST_PARTS = {"trivial": ("dmf_fused_step", "dmf_fused_step_dp", "gauss_counter"),
+                "churn": ("dmf_fused_step_dp", "gauss_counter"),
+                "byzantine": ("dmf_fused_step",),
+                "audit": ("dmf_fused_step", "dp_clip_noise"),
+                "cli": ("dmf_fused_step_dp", "gauss_counter")}
 
 
 def log(*parts) -> None:
@@ -1577,6 +1612,219 @@ def check_baselines(ds, bl, nbr, run_rps: float, dev) -> tuple[dict, dict]:
     return out, errs
 
 
+# ------------------------------------------------------------ robustness
+def stamped_fit(fit, *args, **kw):
+    """``fit`` with the host time of each epoch (an epoch's interval runs
+    from the previous epoch's callback, or the call, to its own; a
+    snapshot written after an epoch falls in the next one's interval)."""
+    stamps = [time.perf_counter()]
+    user_cb = kw.pop("callback", None)
+
+    def cb(t, state, loss):
+        if user_cb is not None:
+            user_cb(t, state, loss)
+        stamps.append(time.perf_counter())
+
+    res = fit(*args, callback=cb, **kw)
+    return res, np.diff(stamps).tolist()
+
+
+def same_run(a, b) -> bool:
+    """Two `FitResult`s with equal losses, privacy summaries and factor
+    bits."""
+    return (a.train_losses == b.train_losses and a.privacy == b.privacy
+            and all(torch.equal(getattr(a.state, n), getattr(b.state, n)) for n in "UPQ"))
+
+
+def tree_bytes(path: pathlib.Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def robust_trivial(ds, nbr, cfg, dev) -> dict:
+    """Phase 3e, first part: the trivial churn plan with an inactive
+    `DefenseConfig()` against plain `fit`, DP off and on, bit for bit."""
+    from repro_torch.core import dmf
+    from repro_torch.robustness import ChurnConfig, DefenseConfig
+    out = {}
+    for tag, c in (("dp_off", cfg), ("dp_on", dataclasses.replace(cfg, **ROBUST_DP))):
+        plain, plain_s = stamped_fit(dmf.fit, c, ds.train, nbr, epochs=TRIVIAL_EPOCHS, device=dev)
+        got, got_s = stamped_fit(dmf.fit, c, ds.train, nbr, epochs=TRIVIAL_EPOCHS,
+                                 churn=ChurnConfig(), defense=DefenseConfig(), device=dev)
+        out[tag] = {"bitexact": same_run(got, plain), "plain_epoch_s": plain_s,
+                    "trivial_plan_epoch_s": got_s, "losses": got.train_losses}
+        assert out[tag]["bitexact"], f"{tag}: the trivial plan is not bit-exact with plain fit"
+        del plain, got
+    return out
+
+
+def robust_churn(ds, nbr, cfg, dev) -> dict:
+    """Phase 3e, second part: churn with DP (the reference churn bench's
+    resume configuration) for CHURN_EPOCHS epochs with snapshots every 2,
+    then resumed from step_2: losses, factors and privacy bit for bit; one
+    offline learner's U, P and Q rows bit-frozen across an epoch it is
+    offline; the snapshot's bytes and seconds."""
+    import tempfile
+
+    from repro_torch.core import dmf
+    from repro_torch.robustness import ChurnConfig, recovery
+    c = dataclasses.replace(cfg, **ROBUST_DP)
+    churn = ChurnConfig(**ROBUST_CHURN)
+    plan = churn.compile(ds.n_users, CHURN_EPOCHS)
+    t_off = 1
+    user = int(np.flatnonzero(plan.online[t_off - 1] & ~plan.online[t_off])[0])
+    rows = {}
+
+    def keep_rows(t, state, loss):
+        if t in (t_off - 1, t_off):
+            rows[t] = [x[user].clone() for x in (state.U, state.P, state.Q)]
+
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as td:
+        td = pathlib.Path(td)
+        full, full_s = stamped_fit(dmf.fit, c, ds.train, nbr, epochs=CHURN_EPOCHS, churn=churn,
+                                   checkpoint_dir=td / "run", checkpoint_every=2,
+                                   callback=keep_rows, device=dev)
+        snap_bytes = tree_bytes(td / "run" / "step_2")
+        sync(dev)
+        t0 = time.perf_counter()
+        resumed, resumed_s = stamped_fit(dmf.fit, c, ds.train, nbr, epochs=CHURN_EPOCHS,
+                                         churn=churn, resume_from=td / "run" / "step_2",
+                                         device=dev)
+        resume_call_s = time.perf_counter() - t0
+        sync(dev)
+        t0 = time.perf_counter()
+        recovery.save_training(td / "timed", CHURN_EPOCHS, resumed.state,
+                               np.random.default_rng(0), train_losses=resumed.train_losses)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = recovery.load_training(td / "timed", resumed.state, device=dev)[0]
+        sync(dev)
+        load_s = time.perf_counter() - t0
+        restored_bitwise = all(torch.equal(getattr(back, n), getattr(resumed.state, n))
+                               for n in "UPQ")
+        del back
+    frozen = all(torch.equal(a, b) for a, b in zip(rows[t_off - 1], rows[t_off]))
+    out = {"participation": plan.participation_rate, "k_max": plan.k_max,
+           "epoch_s": full_s, "resumed_epoch_s": resumed_s, "resume_call_s": resume_call_s,
+           "losses": full.train_losses, "privacy_eps_max": full.privacy["eps_max"],
+           "resume_bit_identical": same_run(full, resumed),
+           "offline_rows_frozen": {"user": user, "epoch": t_off, "bitwise": frozen},
+           "snapshot": {"bytes": snap_bytes, "save_s": save_s, "load_s": load_s,
+                        "restored_bitwise": restored_bitwise}}
+    assert out["resume_bit_identical"], "resume from step_2 is not bit-identical"
+    assert frozen, f"learner {user}, offline in epoch {t_off}, moved"
+    assert restored_bitwise, "a snapshot does not restore its own bits"
+    return out
+
+
+def robust_byzantine(ds, nbr, cfg, dev) -> dict:
+    """Phase 3e, third part (`benchmarks/byzantine_bench.py`'s headline):
+    τ = 1.5 × the 99.9th percentile of one audited epoch's honest message
+    norms; BYZ_FRAC of the learners malicious, BYZ_EPOCHS epochs each, the
+    divergence sentinel halting: the fault-free run, `norm_inflate` at
+    λ=100 undefended and under screen + trim 0.25, `nan` under screen."""
+    from repro_torch.core import dmf
+    from repro_torch.privacy import audit
+    from repro_torch.robustness import AttackConfig, DefenseConfig
+    log = audit.observe_messages(cfg, ds.train, nbr, epochs=1, seed=0, device=dev)
+    tau = float(np.quantile(np.linalg.norm(log.gp, axis=1), 0.999) * 1.5)
+    inflate = AttackConfig(family="norm_inflate", frac=BYZ_FRAC, scale=BYZ_SCALE, seed=0)
+    runs = {"fault_free": {},
+            "undefended": dict(attack=inflate),
+            "screen_trim": dict(attack=inflate, defense=DefenseConfig(
+                screen=True, norm_cap=tau, aggregation="trim", trim_frac=0.25)),
+            "nan_screen": dict(attack=AttackConfig(family="nan", frac=BYZ_FRAC, seed=0),
+                               defense=DefenseConfig(screen=True, norm_cap=tau))}
+    out = {"tau": tau, "audited_messages": int(len(log.gp)), "runs": {}}
+    for tag, kw in runs.items():
+        res, ep = stamped_fit(dmf.fit, cfg, ds.train, nbr, epochs=BYZ_EPOCHS,
+                              on_nonfinite="halt", device=dev, **kw)
+        last = float(res.train_losses[-1])
+        nonfinite = not np.isfinite(last) or res.diverged_at is not None
+        out["runs"][tag] = {"final_train_loss": None if nonfinite else last,
+                            "nonfinite": nonfinite, "halted_at": res.diverged_at,
+                            "epoch_s": ep, "finite_factors": all(
+                                bool(torch.isfinite(getattr(res.state, n)).all())
+                                for n in "UPQ")}
+        del res
+    base = out["runs"]["fault_free"]["final_train_loss"]
+    for r in out["runs"].values():
+        r["loss_ratio_vs_faultfree"] = (None if r["nonfinite"]
+                                        else r["final_train_loss"] / base)
+    und, dfd = out["runs"]["undefended"], out["runs"]["screen_trim"]
+    out["headline"] = {
+        "undefended_collapse_ratio": und["loss_ratio_vs_faultfree"],
+        "undefended_collapsed": bool(und["nonfinite"] or und["loss_ratio_vs_faultfree"] >= 5.0),
+        "defended_ratio": dfd["loss_ratio_vs_faultfree"],
+        "defended_within_1p5x": bool(not dfd["nonfinite"]
+                                     and dfd["loss_ratio_vs_faultfree"] <= 1.5)}
+    out["epoch_s_median"] = {tag: float(np.median(out["runs"][tag]["epoch_s"][1:]))
+                             for tag in ("fault_free", "nan_screen", "screen_trim")}
+    for tag in ("screen_trim", "nan_screen"):
+        r = out["runs"][tag]
+        assert not r["nonfinite"] and r["finite_factors"], f"defended run {tag} went non-finite"
+    return out
+
+
+def robust_audit(ds, nbr, cfg, dev) -> dict:
+    """Phase 3e, fourth part: `run_audit` for one epoch at σ 0 and 1.0,
+    C=0.25 (kernel 3 for the step, kernel 8 for the clip and the noise
+    drawn by row id); the DP advantage must be the lower."""
+    from repro_torch.privacy import audit
+    out = {}
+    for sigma in AUDIT_SIGMAS:
+        c = dataclasses.replace(cfg, dp_sigma=sigma, dp_clip=AUDIT_CLIP, dp_seed=0)
+        t0 = time.perf_counter()
+        rep = audit.run_audit(c, ds.train, nbr, ds.n_users, ds.n_items, epochs=1, device=dev)
+        rep["seconds"] = time.perf_counter() - t0
+        out[f"sigma_{sigma}"] = rep
+    lo, hi = (out[f"sigma_{s}"]["rating_inversion_advantage"] for s in AUDIT_SIGMAS[::-1])
+    assert lo < hi, f"DP advantage {lo} is not below the sigma=0 one {hi}"
+    return out
+
+
+def robust_cli(dev) -> dict:
+    """Phase 3e, last part: the CLI in process with churn, DP, screening,
+    trimmed aggregation and a snapshot every epoch, then again resumed from
+    step_2 (snapshotting its last epoch too, whose sidecar holds its
+    losses): the same last epoch's loss, privacy line and metrics."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import dmf_train
+    from repro_torch.robustness import recovery
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+
+    def last_losses(step_dir):
+        return json.loads((step_dir / recovery.SIDECAR).read_text())["train_losses"]
+
+    with tempfile.TemporaryDirectory(dir=out_dir) as td:
+        td = pathlib.Path(td)
+        lines = {}
+        for tag, extra in (("whole", ["--checkpoint-dir", str(td / "a")]),
+                           ("resumed", ["--checkpoint-dir", str(td / "b"),
+                                        "--resume-from", str(td / "a" / "step_2")])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                dmf_train.main(ROBUST_CLI + extra)
+            lines[tag] = buf.getvalue().splitlines()
+            if tag == "whole":
+                whole = last_losses(td / "a" / "step_3")
+                shutil.rmtree(td / "a" / "step_1")
+                shutil.rmtree(td / "a" / "step_3")
+        resumed = last_losses(td / "b" / "step_3")
+    keep = [ln for ln in lines["whole"] if not ln.startswith("epoch ")]
+    out = {"lines": lines["whole"], "last_loss": whole[-1],
+           "same_last_loss": whole[-1] == resumed[-1],
+           "same_report": keep == [ln for ln in lines["resumed"] if not ln.startswith("epoch ")]}
+    assert out["same_last_loss"], (whole, resumed)
+    assert out["same_report"], (lines["whole"], lines["resumed"])
+    assert any(ln.startswith("churn ") for ln in keep), keep
+    return out
+
+
 # ------------------------------------------------------------------- timing
 def device_ms(fn, n: int) -> float:
     """Device milliseconds per call, back to back: the stream is held by a
@@ -2675,6 +2923,22 @@ def main(argv=None) -> int:
     errs["recommend_topk"] = max(errs["recommend_topk"], bl_errs["MF"], bl_errs["BPR"])
     errs["dmf_grads"] = max(errs["dmf_grads"], bl_errs["grads"])
     errs["gossip_mix_op"] = max(errs["gossip_mix_op"], bl_errs["mix"])
+
+    robust, robust_counts = {}, {}
+    for part, drive in (("trivial", lambda: robust_trivial(ds, nbr, cfg, dev)),
+                        ("churn", lambda: robust_churn(ds, nbr, cfg, dev)),
+                        ("byzantine", lambda: robust_byzantine(ds, nbr, cfg, dev)),
+                        ("audit", lambda: robust_audit(ds, nbr, cfg, dev)),
+                        ("cli", lambda: robust_cli(dev))):
+        robust[part], launches[f"robustness_{part}"] = counted(
+            f"robustness {part}", ROBUST_PARTS[part], drive)
+        robust_counts[part] = {k: launches[f"robustness_{part}"][k] for k in (
+            "dmf_fused_step", "dmf_fused_step_dp", "dp_clip_noise", "gauss_counter")}
+    for line in robust["cli"].pop("lines"):
+        log("  cli |", line)
+    robust["launches"] = robust_counts
+    assert all(sum(c[k] for c in robust_counts.values()) > 0 for k in robust_counts["trivial"])
+    log("robustness", json.dumps(robust))
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

@@ -3,14 +3,16 @@
 (:101-105), `init_state` (:114-129), `_grads_and_loss` (:143-153), the
 dense oracle `_batch_step` (:156-183), `_step_deltas` (:186-217), the DP
 step `_dp_noise_rows` / `_dp_message` / `_step_deltas_dp` (:220-271),
-`_sparse_batch_update` (:323-364, :425-435; no churn, Byzantine or
-telemetry), `_epoch_scan` (:438-496), `sample_with_negatives` /
-`sample_epoch` (:751-777), `train_epoch_dense` (:780-805),
-`_as_neighbor_table` / `epoch_dp_inputs` / `train_epoch` (:808-875,
-``n_shards == 1``), `scores` / `test_loss` (:878-890), `FitResult`,
-`DivergenceError`, `_epoch_finite`, `fit` (:893-1142; without churn,
-attacks, checkpoints, telemetry, tracing or sharding) and `evaluate` /
-`evaluate_dense` (:1145-1212, ``n_shards == 1``).
+`_sparse_batch_update_messages` (:274-422, without telemetry) and its thin
+wrapper `_sparse_batch_update` (:425-435), `_epoch_scan` (:438-496), the
+fault-injected epoch `_epoch_scan_churn` / `train_epoch_churn`
+(:499-748), `sample_with_negatives` / `sample_epoch` (:751-777),
+`train_epoch_dense` (:780-805), `_as_neighbor_table` / `epoch_dp_inputs` /
+`train_epoch` (:808-875, ``n_shards == 1``), `scores` / `test_loss`
+(:878-890), `FitResult`, `DivergenceError`, `_epoch_finite`, `fit`
+(:893-1142; churn, attacks, defenses and checkpoints included; without
+telemetry, tracing or sharding) and `evaluate` / `evaluate_dense`
+(:1145-1212, ``n_shards == 1``).
 
 Model (paper Eqs. 5-11): user i holds u_i (K,), a private copy p^i = P[i]
 of the common item factors (J, K) and personal factors q^i = Q[i] (J, K);
@@ -217,18 +219,38 @@ def _step_deltas_dp(U, P, Q, ui, vj, r, conf, cfg: DMFConfig, valid=None,
     return du, gp, dq, loss
 
 
-def _sparse_batch_update(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
-                         cfg: DMFConfig, valid=None, rid=None, dp_seed: int = 0,
-                         noise=None) -> torch.Tensor:
+def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
+                                  cfg: DMFConfig, valid=None, rid=None, dp_seed: int = 0,
+                                  noise=None, recv_gate=None, prop_now=None, byz=None,
+                                  amul=None, ashill=None, dirs=None, vjm=None, bkt=None,
+                                  byz_cap: int = 0):
     """One minibatch of Alg. 1 against the sparse neighbor table, in place
-    on U/P/Q; returns the batch loss (0-d tensor).
+    on U/P/Q; returns the batch loss (0-d tensor) and the (B, K) messages
+    as sent (the outbox stream the audit attacks and the delay ring
+    buffers).
 
     Line 11 and lines 13-15: sender b's message gp[b] lands on its S
     receivers at item vj[b], weighted by the walk weight (padded slots
     carry weight 0). With DP on, every receiver — the sender's own line-11
     update included — applies only the clipped, noised message. Duplicate
     (receiver, item) pairs are summed by `scatter.scatter_add_rows_`: in
-    the same order on every run, in another order than XLA's scatter."""
+    the same order on every run, in another order than XLA's scatter.
+
+    Fault gates (robustness/faults.py; both None on the fault-free path):
+    ``recv_gate`` (I,) zeroes the weights into offline receivers (their
+    messages are lost, their P rows frozen); ``prop_now`` (B,) keeps only
+    a straggler row's own line-11 self slot (its neighbour deliveries come
+    from the delay ring later). They multiply the weights only where they
+    are given, so all-ones gates leave the same bits as no gates.
+
+    Byzantine path (robustness/byzantine.py; ``byz`` a `DefenseConfig`):
+    the sender's own line-11 update stays honest; the outgoing copy is
+    corrupted per the attack arrays (``amul``/``ashill``/``dirs``/``vjm``),
+    screened at the receiver (finite + norm cap, content zeroed) when
+    ``byz.screen``, and combined per (receiver, item) bucket by trimmed
+    mean or median when ``byz.aggregation != "sum"`` (``bkt`` the
+    host-compiled `MessageGroups` arrays of this batch)."""
+    theta = cfg.lr
     if cfg.dp:
         du, gp, dq, loss = _step_deltas_dp(U, P, Q, ui, vj, r, conf, cfg, valid,
                                            noise, rid, dp_seed)
@@ -237,11 +259,66 @@ def _sparse_batch_update(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
     scatter_add_rows_(U, (ui,), du)
     if cfg.mode != "gdmf":
         scatter_add_rows_(Q, (ui, vj), dq)
-    if cfg.mode != "ldmf":
-        nb = nbr_idx[ui]                                   # (B, S) receivers
-        upd = nbr_wgt[ui][:, :, None] * gp[:, None, :]     # (B, S, K)
-        scatter_add_rows_(P, (nb, vj[:, None].expand_as(nb)), -cfg.lr * upd)
-    return loss
+    if cfg.mode == "ldmf":
+        return loss, gp
+    nb = nbr_idx[ui]                                       # (B, S) receivers
+    wb = nbr_wgt[ui]                                       # (B, S) walk weights
+    if byz is None:
+        if prop_now is not None:
+            # straggler rows (prop_now=0): keep only the self slot now
+            selfm = (nb == ui[:, None]).to(wb.dtype)
+            wb = wb * torch.maximum(prop_now[:, None], selfm)
+        if recv_gate is not None:
+            wb = wb * recv_gate[nb]                        # offline receivers get 0
+        upd = wb[:, :, None] * gp[:, None, :]              # (B, S, K)
+        scatter_add_rows_(P, (nb, vj[:, None].expand_as(nb)), -theta * upd)
+        return loss, gp
+    from repro_torch.robustness import byzantine as byz_lib
+    selfm = (nb == ui[:, None]).to(wb.dtype)
+    # honest line-11 self update (a padded table may hold the self slot
+    # more than once at weight 0 — summing the masked weights is exact)
+    w_self = (wb * selfm).sum(dim=1)
+    if recv_gate is not None:
+        w_self = w_self * recv_gate[ui]
+    scatter_add_rows_(P, (ui, vj), -theta * w_self[:, None] * gp)
+    gp_sent = gp
+    if amul is not None:
+        gp_sent = byz_lib.corrupt_messages(gp, amul, ashill, dirs[ui])
+    vj_out = vjm if vjm is not None else vj
+    wmsg = wb * (1.0 - selfm)
+    if prop_now is not None:
+        wmsg = wmsg * prop_now[:, None]
+    if recv_gate is not None:
+        wmsg = wmsg * recv_gate[nb]
+    if byz.screen:
+        ok = byz_lib.screen_ok(gp_sent, byz.norm_cap)     # (B,)
+        gp_eff = torch.where(ok[:, None] > 0, gp_sent, 0.0)
+        wmsg = wmsg * ok[:, None]
+        # the screened content is finite: the plain multiply is safe
+        upd = wmsg[:, :, None] * gp_eff[:, None, :]
+    else:
+        # 0·NaN = NaN: a zero-weight slot whose sender bombed must deliver
+        # exactly 0, so the weight gates through `where`
+        upd = torch.where((wmsg > 0)[:, :, None], wmsg[:, :, None] * gp_sent[:, None, :], 0.0)
+    if byz.aggregation == "sum":
+        scatter_add_rows_(P, (nb, vj_out[:, None].expand_as(nb)), -theta * upd)
+    else:
+        b_id, b_pos, b_recv, b_item = bkt
+        K = gp.shape[-1]
+        comb = byz_lib.robust_combine(
+            upd.reshape(-1, K), (wmsg > 0).to(gp.dtype).reshape(-1), b_id.reshape(-1),
+            b_pos.reshape(-1), b_recv.shape[-1], byz_cap, byz)
+        scatter_add_rows_(P, (b_recv, b_item), -theta * comb)
+    return loss, gp_sent
+
+
+def _sparse_batch_update(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
+                         cfg: DMFConfig, valid=None, rid=None, dp_seed: int = 0,
+                         noise=None) -> torch.Tensor:
+    """`_sparse_batch_update_messages` for the callers that drop the sent
+    messages (the training epoch, the online refresh): the batch loss."""
+    return _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, cfg,
+                                         valid, rid, dp_seed, noise)[0]
 
 
 def _epoch_scan(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, dp_seed: int,
@@ -373,6 +450,150 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     return state, total / max(n, 1)
 
 
+def _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg: DMFConfig, byz=None) -> None:
+    """Start-of-epoch delivery of the delay ring's messages due now, in
+    place on P: neighbour slots only (the straggler applied its own line-11
+    update at release), gated by the receivers' online mask NOW. Under a
+    defense a message is screened AT DELIVERY, so a malicious message
+    buffered k epochs ago does not dodge the gate by arriving late.
+    ``ring`` is ``(gp (L, n, K), ui (L·n,), vj (L·n,), deliver (L·n,))``
+    on the device."""
+    ring_gp, ring_ui, ring_vj, deliver = ring
+    gflat = ring_gp.reshape(-1, ring_gp.shape[-1])         # (L·n, K)
+    nbd = nbr_idx[ring_ui]                                 # (L·n, S)
+    wbd = nbr_wgt[ring_ui]
+    selfm = (nbd == ring_ui[:, None]).to(wbd.dtype)
+    wbd = wbd * (1.0 - selfm) * recv_gate[nbd] * deliver[:, None]
+    if byz is not None and byz.screen:
+        from repro_torch.robustness import byzantine as byz_lib
+        okd = byz_lib.screen_ok(gflat, byz.norm_cap)
+        gflat = torch.where(okd[:, None] > 0, gflat, 0.0)
+        wbd = wbd * okd[:, None]
+        upd = wbd[:, :, None] * gflat[:, None, :]          # screened: finite
+    elif byz is not None:
+        upd = torch.where((wbd > 0)[:, :, None], wbd[:, :, None] * gflat[:, None, :], 0.0)
+    else:
+        upd = wbd[:, :, None] * gflat[:, None, :]
+    scatter_add_rows_(P, (nbd, ring_vj[:, None].expand_as(nbd)), -cfg.lr * upd)
+
+
+def _epoch_scan_churn(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, valid, prop_now,
+                      recv_gate, dp_seed: int, cfg: DMFConfig, ring=None, keep_sent=False,
+                      byz=None, amul=None, ashill=None, dirs=None, vjm=None, bkt=None,
+                      byz_cap: int = 0):
+    """`_epoch_scan` under a fault schedule, in place on U/P/Q: (1) the
+    delay ring's delivery at the epoch's start (`_deliver_ring`, when
+    ``ring`` is given); (2) the per-row gates ``valid``/``prop_now``
+    (nb, B) and ``recv_gate`` (I,) in every minibatch step; (3) with
+    ``keep_sent``, each batch's sent messages written into one
+    preallocated (nb, B, K) device tensor, with no host read per batch.
+    Returns the (nb,) per-batch losses and that tensor (or None), both on
+    the device. Under the trivial schedule every gate multiplies by 1.0,
+    so the epoch gives `_epoch_scan`'s bits.
+
+    The Byzantine arguments (``byz`` a `DefenseConfig`; ``amul``/
+    ``ashill``/``vjm`` (nb, B), ``dirs`` (I, K), ``bkt`` the four bucket
+    arrays with a leading nb axis) go to every step unchanged."""
+    if ring is not None:
+        _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg, byz)
+    nb, B = ui.shape
+    K = U.shape[-1]
+    rid = noise = None
+    if cfg.dp:
+        rid = torch.arange(nb * B, dtype=torch.int32, device=U.device).reshape(nb, B)
+        noise = _dp_noise_rows(rid, dp_seed, cfg, K)
+        if noise is not None:
+            noise = noise.reshape(nb, B, K)
+    sent = torch.empty((nb, B, K), dtype=torch.float32, device=U.device) if keep_sent else None
+    losses = []
+    for b in range(nb):
+        loss, gp = _sparse_batch_update_messages(
+            U, P, Q, nbr_idx, nbr_wgt, ui[b], vj[b], r[b], conf[b], cfg, valid=valid[b],
+            rid=None if rid is None else rid[b], dp_seed=dp_seed,
+            noise=None if noise is None else noise[b], recv_gate=recv_gate,
+            prop_now=prop_now[b], byz=byz,
+            amul=None if amul is None else amul[b], ashill=None if ashill is None else ashill[b],
+            dirs=dirs, vjm=None if vjm is None else vjm[b],
+            bkt=None if bkt is None else tuple(x[b] for x in bkt), byz_cap=byz_cap)
+        losses.append(loss)
+        if keep_sent:
+            sent[b].copy_(gp)
+    if not losses:
+        return torch.zeros(0, dtype=torch.float32, device=U.device), sent
+    return torch.stack(losses), sent
+
+
+def train_epoch_churn(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
+                      rng: np.random.Generator, t: int, plan, ring, accountant=None,
+                      attack=None, byz=None, device="cuda") -> tuple[DMFState, float]:
+    """`train_epoch` under a compiled `ChurnPlan` for epoch ``t``, in place
+    on ``state``: the SAME sampled stream (same rng draws, the per-epoch DP
+    seed included), offline senders' rows zeroed on the host (conf=0 and
+    valid=0: their U/Q rows frozen, nothing released), receivers gated by
+    this epoch's online mask, stragglers' neighbour scatters deferred
+    through ``ring`` (a `DelayRing` or None), and the accountant observing
+    only the REALIZED stream. The loss is normalized by realized rows.
+
+    ``attack`` (a compiled `AttackPlan`) corrupts the outgoing messages at
+    the sender boundary and needs ``byz`` (a `DefenseConfig`;
+    ``DefenseConfig()`` for an undefended channel), which turns on
+    screening / robust aggregation. The ring buffers the SENT messages,
+    re-addressed as shill rows are (``vjm``)."""
+    dev = _require_state_on(state, device, "train_epoch_churn")
+    if attack is not None and byz is None:
+        raise ValueError("an attack needs a DefenseConfig (DefenseConfig() for an "
+                         "undefended channel)")
+    nbr = _as_neighbor_table(prop, dev)
+    ui, vj, r, conf = sample_epoch(train, cfg, rng)
+    B = cfg.batch_size
+    nb = len(ui) // B
+    n = nb * B
+    shape = (nb, B)
+    ui2 = ui[:n].reshape(shape)
+    vj2 = vj[:n].reshape(shape)
+    _, dp_seed = epoch_dp_inputs(cfg, rng, n)
+    on, sender_on, prop_now, due = plan.epoch_row_masks(t, ui2)
+    conf2 = conf[:n].reshape(shape) * sender_on
+    if accountant is not None:
+        accountant.observe_epoch(ui2, valid=sender_on)
+
+    def up(x, dtype=None):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+
+    ring_dev = None
+    if ring is not None:
+        ring_dev = (ring.gp, up(ring.ui.reshape(-1), torch.int64),
+                    up(ring.vj.reshape(-1), torch.int64),
+                    up((ring.due.reshape(-1) == t).astype(np.float32)))
+    amul = ashill = dirs = None
+    vjm = vj2
+    if attack is not None:
+        amul, ashill, vjm = attack.epoch_row_attack(t, ui2, vj2, sender_on=sender_on)
+        dirs = up(attack.dirs)
+        amul, ashill = up(amul), up(ashill)
+    bkt, byz_cap = None, 0
+    if byz is not None and byz.aggregation != "sum":
+        from repro_torch.robustness import byzantine as byz_lib
+        groups = byz_lib.group_messages(
+            ui2, vjm, nbr.idx.cpu().numpy(), nbr.wgt.cpu().numpy(), cfg.n_items,
+            sender_gate=sender_on.astype(bool) & prop_now.astype(bool),
+            recv_on=on.astype(bool))
+        bkt = (up(groups.bucket_id, torch.int64), up(groups.pos, torch.int64),
+               up(groups.recv, torch.int64), up(groups.item, torch.int64))
+        byz_cap = groups.cap
+    losses, sent = _epoch_scan_churn(
+        state.U, state.P, state.Q, nbr.idx, nbr.wgt, up(ui2, torch.int64),
+        up(vj2, torch.int64), up(r[:n].reshape(shape)), up(conf2),
+        up(sender_on.astype(np.float32)), up(prop_now.astype(np.float32)),
+        up(on.astype(np.float32)), dp_seed, cfg, ring=ring_dev, keep_sent=ring is not None,
+        byz=byz, amul=amul, ashill=ashill, dirs=dirs,
+        vjm=None if byz is None else up(vjm, torch.int64), bkt=bkt, byz_cap=byz_cap)
+    if ring is not None:
+        ring.write(t, sent.reshape(n, -1), ui2, vjm if byz is not None else vj2, due)
+    total = float(losses.cpu().numpy().astype(np.float64).sum())
+    return state, total / max(int(sender_on.sum()), 1)
+
+
 def scores(U: torch.Tensor, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     """(I, J) predicted preference û_i·(p^i_j + q^i_j), materialized densely
     for the evaluation oracle."""
@@ -411,6 +632,54 @@ def _epoch_finite(state: DMFState, loss: float) -> bool:
                 & torch.isfinite(state.Q).all())
 
 
+def _fault_plans(cfg: DMFConfig, train: np.ndarray, epochs: int, churn, attack, defense,
+                 dense_reference: bool, dev):
+    """``fit``'s routing onto the churn epoch: (plan, ring, attack plan,
+    defense). ``churn`` a `ChurnConfig` (compiled here) or a `ChurnPlan`;
+    ``attack`` an `AttackConfig` or an `AttackPlan` (a trivial one becomes
+    None); ``defense`` a `DefenseConfig` (an inactive one becomes None).
+    An attack or an active defense without churn runs on the trivial
+    all-online plan (bit-exact gates, no ring); an attack without a
+    defense runs on ``DefenseConfig()``, the undefended channel."""
+    plan = ring = attack_plan = byz = None
+    if churn is not None:
+        from repro_torch.robustness import faults
+        if dense_reference:
+            raise ValueError("churn runs the sparse path, not dense_reference")
+        plan = (churn.compile(cfg.n_users, epochs)
+                if isinstance(churn, faults.ChurnConfig) else churn)
+        if plan.n_users != cfg.n_users or plan.n_epochs < epochs:
+            raise ValueError(f"the churn plan covers {plan.n_users} users x {plan.n_epochs} "
+                             f"epochs, not {cfg.n_users} x {epochs}")
+        # the epoch stream's length does not depend on the schedule, so
+        # the ring's shape is known up front
+        nb = (len(train) * (1 + cfg.neg_samples)) // cfg.batch_size
+        ring = faults.DelayRing.create(plan.k_max, nb * cfg.batch_size, cfg.dim, device=dev)
+    if attack is not None:
+        from repro_torch.robustness import byzantine
+        attack_plan = (attack.compile(cfg.n_users, epochs, cfg.dim)
+                       if isinstance(attack, byzantine.AttackConfig) else attack)
+        if attack_plan.n_users != cfg.n_users or attack_plan.n_epochs < epochs:
+            raise ValueError(f"the attack plan covers {attack_plan.n_users} users x "
+                             f"{attack_plan.n_epochs} epochs, not {cfg.n_users} x {epochs}")
+        if attack_plan.config.target_item >= cfg.n_items:
+            raise ValueError(f"target_item {attack_plan.config.target_item} >= "
+                             f"n_items {cfg.n_items}")
+        if attack_plan.is_trivial():
+            attack_plan = None
+    if defense is not None and defense.active:
+        byz = defense
+    if attack_plan is not None and byz is None:
+        from repro_torch.robustness.byzantine import DefenseConfig
+        byz = DefenseConfig()
+    if (attack_plan is not None or byz is not None) and plan is None:
+        from repro_torch.robustness import faults
+        if dense_reference:
+            raise ValueError("attacks and defenses run the sparse path, not dense_reference")
+        plan = faults.no_churn(cfg.n_users, epochs)
+    return plan, ring, attack_plan, byz
+
+
 def fit(
     cfg: DMFConfig,
     train: np.ndarray,
@@ -421,6 +690,12 @@ def fit(
     seed: int | None = None,
     dense_reference: bool = False,
     dp_delta: float = 1e-5,
+    churn=None,
+    checkpoint_dir=None,
+    checkpoint_every: int = 0,
+    resume_from=None,
+    attack=None,
+    defense=None,
     on_nonfinite: str = "warn",
     log_every: int = 0,
     device="cuda",
@@ -433,6 +708,23 @@ def fit(
     observes every epoch's realized stream; its ε(``dp_delta``) summary
     lands in `FitResult.privacy`. ``log_every=N`` logs a progress line every
     N epochs to ``logging.getLogger("repro_torch.dmf")``.
+
+    Fault tolerance (robustness/): ``churn`` is a `ChurnConfig` (compiled
+    here) or a compiled `ChurnPlan` — epochs then run the fault-injected
+    path (offline learners bit-frozen, stragglers' messages delivered
+    late). ``checkpoint_dir`` + ``checkpoint_every`` snapshot the FULL loop
+    state (factors, rng stream, delay ring, accountant) every N completed
+    epochs; ``resume_from`` (a step dir or a checkpoint root) restores one
+    onto ``device`` and continues — bit-identical to the uninterrupted
+    run, DP included (the counter-keyed noise replays from the restored
+    rng stream).
+
+    Byzantine robustness (robustness/byzantine.py): ``attack`` is an
+    `AttackConfig` (compiled here) or a compiled `AttackPlan` injecting
+    malicious outgoing messages; ``defense`` is a `DefenseConfig` turning
+    on receiver-side screening and/or robust aggregation. Either one
+    routes epochs through the churn path (the trivial all-online plan when
+    ``churn`` is None); both None leave the fault-free epoch untouched.
 
     ``on_nonfinite``: "warn" (default) warns once on a non-finite epoch loss
     and goes on; "raise" raises `DivergenceError`; "halt" stops, returns the
@@ -447,6 +739,8 @@ def fit(
     if cfg.dp and cfg.dp_sigma > 0.0:   # ldmf: no releases, no ε claim
         accountant = GaussianAccountant(n_users=cfg.n_users, sigma=cfg.dp_sigma,
                                         delta=dp_delta)
+    plan, ring, attack_plan, byz = _fault_plans(cfg, train, epochs, churn, attack, defense,
+                                                dense_reference, dev)
     if dense_reference:
         if isinstance(M, graph_lib.NeighborTable):
             raise ValueError("dense_reference needs the dense M")
@@ -457,12 +751,21 @@ def fit(
         prop = _as_neighbor_table(M, dev)
     logger = logging.getLogger("repro_torch.dmf") if log_every else None
     tr_losses, te_losses = [], []
+    start = 0
+    if resume_from is not None:
+        from repro_torch.robustness import recovery
+        state, rng, ring, start, tr_losses, te_losses = recovery.load_training(
+            resume_from, like_state=state, ring=ring, accountant=accountant, device=dev)
     diverged_at = None
     warned = False
-    for t in range(epochs):
+    for t in range(start, epochs):
         if on_nonfinite == "halt":
             prev = DMFState(state.U.clone(), state.P.clone(), state.Q.clone())
-        if dense_reference:
+        if plan is not None:
+            state, l = train_epoch_churn(state, prop, train, cfg, rng, t, plan, ring,
+                                         accountant=accountant, attack=attack_plan, byz=byz,
+                                         device=dev)
+        elif dense_reference:
             state, l = train_epoch_dense(state, prop, train, cfg, rng, device=dev)
         else:
             state, l = train_epoch(state, prop, train, cfg, rng, accountant=accountant,
@@ -491,6 +794,11 @@ def fit(
             logger.info(msg)
         if callback is not None:
             callback(t, state, l)
+        if checkpoint_dir is not None and checkpoint_every > 0 and (t + 1) % checkpoint_every == 0:
+            from repro_torch.robustness import recovery
+            recovery.save_training(checkpoint_dir, step=t + 1, state=state, rng=rng, ring=ring,
+                                   accountant=accountant, train_losses=tr_losses,
+                                   test_losses=te_losses)
     return FitResult(state, tr_losses, te_losses,
                      privacy=accountant.summary() if accountant else None,
                      diverged_at=diverged_at)

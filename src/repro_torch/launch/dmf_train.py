@@ -1,18 +1,26 @@
 """CLI launcher for the paper's DMF training (Alg. 1) — port of
-`src/repro/launch/dmf_train.py` with the flags of the training slice
-(dataset, scale, model and graph hyperparameters, the dense oracle, the DP
-mechanism, the divergence sentinel, logging, seed) plus ``--device``.
+`src/repro/launch/dmf_train.py` with its flags for the dataset, scale,
+model and graph hyperparameters, the dense oracle, the DP mechanism,
+churn (`--churn-*`), Byzantine attacks and defenses (`--byz-*`,
+`--screen`, `--norm-cap`, `--aggregation`, `--trim-frac`), checkpoints
+(`--checkpoint-dir`, `--checkpoint-every`, `--resume-from`), the
+divergence sentinel, logging and the seed, plus ``--device``.
 
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --epochs 20
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --full --dp-sigma 1.0 --dp-clip 0.5
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --dp-epsilon 2.0 --epochs 40
+    PYTHONPATH=src python -m repro_torch.launch.dmf_train --full --epochs 12 \
+        --churn-dropout 0.2 --churn-delay 2 --dp-sigma 0.5 --dp-clip 0.25 \
+        --screen --aggregation trim --checkpoint-dir ck --checkpoint-every 4
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --device cpu --epochs 5
 
-Runs on the card unless ``--device cpu`` is given. Prints the dataset and
-propagation line, ``epoch N train_loss`` every 10 epochs, a
-``privacy {...}`` line when DP noise is on, and the final P@k/R@k JSON.
-Churn, Byzantine, checkpoint, telemetry, tracing and sharding flags come
-with later slices; argparse rejects them.
+Runs on the card unless ``--device cpu`` is given. Prints the reference's
+lines: ``churn ...`` and ``byzantine ...`` when those are on, the
+calibrated τ for ``--screen --norm-cap 0``, the dataset and propagation
+line, ``epoch N train_loss`` every 10 epochs, ``training halted`` on a
+halted divergence, a ``privacy {...}`` line when DP noise is on, and the
+final P@k/R@k JSON. The telemetry, tracing, metrics, sharding and
+``--use-pallas`` flags are not ported; argparse rejects them.
 """
 from __future__ import annotations
 
@@ -26,7 +34,8 @@ import numpy as np
 from repro_torch import device as device_lib
 from repro_torch.core import dmf, graph
 from repro_torch.data import synthetic_poi
-from repro_torch.privacy import sigma_for_epsilon
+from repro_torch.privacy import screening_threshold, sigma_for_epsilon
+from repro_torch.robustness import AttackConfig, ChurnConfig, DefenseConfig
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -59,9 +68,56 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--dp-delta", type=float, default=1e-5)
     ap.add_argument("--dp-seed", type=int, default=0,
                     help="DP mechanism base seed (per-epoch noise streams are folded from it)")
+    ap.add_argument("--churn-dropout", type=float, default=0.0,
+                    help="per-epoch i.i.d. learner offline probability (offline "
+                         "learners are bit-frozen, their messages lost)")
+    ap.add_argument("--churn-session-alpha", type=float, default=0.0,
+                    help="Pareto tail index of power-law online sessions (0 = none)")
+    ap.add_argument("--churn-delay", type=int, default=0,
+                    help="max staleness k: learners draw a delay class in 0..k and "
+                         "their gradient messages land that many epochs late")
+    ap.add_argument("--churn-late-frac", type=float, default=0.0,
+                    help="fraction of learners that join mid-run (stateless before)")
+    ap.add_argument("--churn-seed", type=int, default=0,
+                    help="churn schedule seed (independent of the training rng)")
+    ap.add_argument("--byz-family", default="none",
+                    help="inject Byzantine senders: none|nan|inf|norm_inflate|sign_flip|shill")
+    ap.add_argument("--byz-frac", type=float, default=0.0,
+                    help="fraction of learners compromised (seeded draw)")
+    ap.add_argument("--byz-scale", type=float, default=10.0,
+                    help="attack magnitude: norm-inflation factor λ, or the shill "
+                         "direction's norm")
+    ap.add_argument("--byz-target-item", type=int, default=0,
+                    help="POI the shill family pushes every message toward")
+    ap.add_argument("--byz-no-collude", action="store_true",
+                    help="independent per-attacker shill directions instead of one "
+                         "shared (colluding) direction")
+    ap.add_argument("--byz-start-epoch", type=int, default=0,
+                    help="sleeper agents: attack only from this epoch on")
+    ap.add_argument("--byz-seed", type=int, default=0,
+                    help="attack plan seed (independent of the training rng)")
+    ap.add_argument("--screen", action="store_true",
+                    help="receiver-side screening: drop non-finite incoming messages, "
+                         "and over-norm ones if a cap is set (--norm-cap)")
+    ap.add_argument("--norm-cap", type=float, default=float("inf"),
+                    help="screening L2 cap τ; 0 = calibrate from the DP mechanism so "
+                         "honest noised messages pass (needs a finite --dp-clip)")
+    ap.add_argument("--aggregation", default="sum", choices=["sum", "trim", "median"],
+                    help="per-(receiver, item) combine of incoming messages: plain sum, "
+                         "or count-scaled coordinate-wise trimmed mean / median")
+    ap.add_argument("--trim-frac", type=float, default=0.2,
+                    help="fraction trimmed from EACH tail (aggregation=trim)")
     ap.add_argument("--on-nonfinite", default="warn", choices=["warn", "raise", "halt"],
                     help="divergence sentinel: warn and continue, raise "
                          "DivergenceError, or halt returning the last finite state")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="snapshot the full loop state (factors, rng, delay ring, "
+                         "eps ledger) under this directory")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="snapshot every N completed epochs (0 = off)")
+    ap.add_argument("--resume-from", default=None,
+                    help="a step_<t> dir or checkpoint root: restore and continue, "
+                         "bit-identical to the uninterrupted run")
     ap.add_argument("--log-every", type=int, default=0,
                     help="log train/test loss (and ε so far) every N epochs via "
                          "the `repro_torch.dmf` logger (0 = off)")
@@ -117,6 +173,31 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         neg_samples=args.neg_samples, seed=args.seed,
         dp_clip=dp_clip, dp_sigma=dp_sigma, dp_seed=args.dp_seed,
     )
+    churn = None
+    if (args.churn_dropout > 0 or args.churn_session_alpha > 0 or args.churn_delay > 0
+            or args.churn_late_frac > 0):
+        churn = ChurnConfig(dropout=args.churn_dropout, session_alpha=args.churn_session_alpha,
+                            delay_classes=tuple(range(args.churn_delay + 1)),
+                            late_frac=args.churn_late_frac, seed=args.churn_seed)
+        plan = churn.compile(ds.n_users, args.epochs)
+        print(f"churn dropout={args.churn_dropout} delay<= {args.churn_delay} "
+              f"late_frac={args.churn_late_frac} participation={plan.participation_rate:.3f}")
+    attack = defense = None
+    if args.byz_family != "none" and args.byz_frac > 0:
+        attack = AttackConfig(family=args.byz_family, frac=args.byz_frac, scale=args.byz_scale,
+                              target_item=args.byz_target_item,
+                              collude=not args.byz_no_collude,
+                              start_epoch=args.byz_start_epoch, seed=args.byz_seed)
+        print(f"byzantine family={args.byz_family} frac={args.byz_frac} "
+              f"scale={args.byz_scale} seed={args.byz_seed}")
+    if args.screen or args.aggregation != "sum":
+        norm_cap = args.norm_cap
+        if args.screen and norm_cap == 0.0:
+            norm_cap = screening_threshold(cfg, cfg.dim)
+            print(f"screening norm cap auto-calibrated: tau={norm_cap:.4f}")
+        defense = DefenseConfig(screen=args.screen, norm_cap=norm_cap,
+                                aggregation=args.aggregation, trim_frac=args.trim_frac)
+
     comm = graph.communication_bytes(W, D=args.walk_length, K=args.dim,
                                      n_ratings=len(ds.train))
     fanout = "dense" if args.dense_reference else f"S={int(prop.idx.shape[1])}"
@@ -130,7 +211,9 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
 
     res = dmf.fit(cfg, ds.train, prop, epochs=args.epochs, test=ds.test, callback=cb,
                   dense_reference=args.dense_reference, dp_delta=args.dp_delta,
-                  on_nonfinite=args.on_nonfinite, log_every=args.log_every, device=dev)
+                  churn=churn, checkpoint_dir=args.checkpoint_dir,
+                  checkpoint_every=args.checkpoint_every, resume_from=args.resume_from,
+                  attack=attack, defense=defense, on_nonfinite=args.on_nonfinite, log_every=args.log_every, device=dev)
     if res.diverged_at is not None:
         print(f"training halted: diverged at epoch {res.diverged_at}")
     ev = dmf.evaluate(res.state, ds.train, ds.test, ds.n_users, ds.n_items, device=dev)

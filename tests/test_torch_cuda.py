@@ -38,6 +38,12 @@ sparse and dense routes give the same bits for finite X, and non-finite X
 gives the plain product's NaN pattern. The fused steps (kernels 3, 7) give
 the same bits twice in a row at every batch size, one block or several,
 and the port's accumulating scatters give the same bits on two runs.
+The robustness slice on the card: the trivial churn plan with an inactive
+defense gives plain `fit`'s bits (DP off and on), a resumed churn + DP +
+screened run gives the uninterrupted run's bits on the card, an attacked,
+defended, churned DP run agrees with the same run on the CPU (losses 1e-4
+relative, factors 1e-5 absolute), and `robust_combine` on the card agrees
+with the CPU (median bit for bit, trim within 1e-6 relative).
 """
 import numpy as np
 import pytest
@@ -1080,3 +1086,100 @@ def test_scatters_give_the_same_bits_on_two_runs(dev):
     mcfg = baselines.MFConfig(n_users=I, n_items=J, batch_size=64)
     a, b = (baselines.fit_mf(mcfg, train, epochs=2, device=dev)[0] for _ in range(2))
     assert torch.equal(a.U, b.U) and torch.equal(a.V, b.V)
+
+
+def _robust_world(dev):
+    """The reference robustness tests' small world (80 users, 50 items, 600
+    ratings, K=6, B=64), its neighbor table on ``dev``."""
+    from repro_torch.core import dmf, graph
+    from repro_torch.data import synthetic_poi
+    ds = synthetic_poi.generate(synthetic_poi.POIDatasetConfig(
+        n_users=80, n_items=50, n_ratings=600, n_cities=4, seed=0))
+    gcfg = graph.GraphConfig(n_neighbors=2, walk_length=3)
+    W = graph.build_adjacency(ds.user_coords, ds.user_city, gcfg)
+    cfg = dmf.DMFConfig(n_users=ds.n_users, n_items=ds.n_items, dim=6, batch_size=64,
+                        beta=0.1, gamma=0.01)
+    return ds, graph.walk_neighbor_table(W, gcfg, device=dev), cfg
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_trivial_plan_and_inactive_defense_are_bitexact_on_the_card(dev, dp):
+    import dataclasses
+
+    from repro_torch.core import dmf
+    from repro_torch.robustness import ChurnConfig, DefenseConfig
+    ds, nbr, cfg = _robust_world(dev)
+    if dp:
+        cfg = dataclasses.replace(cfg, dp_sigma=0.5, dp_clip=0.25, dp_seed=3)
+    plain = dmf.fit(cfg, ds.train, nbr, epochs=3, device=dev)
+    got = dmf.fit(cfg, ds.train, nbr, epochs=3, churn=ChurnConfig(), defense=DefenseConfig(),
+                  device=dev)
+    assert got.train_losses == plain.train_losses and got.privacy == plain.privacy
+    for n in "UPQ":
+        assert torch.equal(getattr(got.state, n), getattr(plain.state, n)), n
+
+
+def test_resume_is_bit_identical_on_the_card(dev, tmp_path):
+    import dataclasses
+
+    from repro_torch.core import dmf
+    from repro_torch.robustness import ChurnConfig, DefenseConfig
+    ds, nbr, cfg = _robust_world(dev)
+    cfg = dataclasses.replace(cfg, dp_sigma=0.5, dp_clip=0.25, dp_seed=3)
+    kw = dict(churn=ChurnConfig(dropout=0.2, delay_classes=(0, 1, 2), late_frac=0.1, seed=17),
+              defense=DefenseConfig(screen=True, aggregation="trim"), device=dev)
+    full = dmf.fit(cfg, ds.train, nbr, epochs=4, checkpoint_dir=tmp_path, checkpoint_every=2,
+                   **kw)
+    resumed = dmf.fit(cfg, ds.train, nbr, epochs=4, resume_from=tmp_path / "step_2", **kw)
+    assert resumed.train_losses == full.train_losses and resumed.privacy == full.privacy
+    for n in "UPQ":
+        assert torch.equal(getattr(resumed.state, n), getattr(full.state, n)), n
+        assert getattr(resumed.state, n).device.type == "cuda"
+
+
+def test_robust_epoch_on_the_card_agrees_with_the_cpu(dev):
+    """An attacked, screened, trimmed, churned DP run on the card against
+    the same run on the CPU: the scatters sum duplicates in another fixed
+    order on each device, so losses within 1e-4 relative and factors within
+    1e-5 absolute (the card-vs-CPU bar of the training slice)."""
+    import dataclasses
+
+    from repro_torch.core import dmf, graph
+    from repro_torch.robustness import AttackConfig, ChurnConfig, DefenseConfig
+    ds, nbr, cfg = _robust_world(dev)
+    cfg = dataclasses.replace(cfg, dp_sigma=0.3, dp_clip=1.0, dp_seed=3)
+    kw = dict(epochs=3, attack=AttackConfig(family="norm_inflate", frac=0.2, scale=100.0, seed=5),
+              defense=DefenseConfig(screen=True, norm_cap=2.0, aggregation="trim",
+                                    trim_frac=0.25),
+              churn=ChurnConfig(dropout=0.2, delay_classes=(0, 1), seed=4))
+    card = dmf.fit(cfg, ds.train, nbr, device=dev, **kw)
+    host = dmf.fit(cfg, ds.train, graph.NeighborTable(nbr.idx.cpu(), nbr.wgt.cpu()),
+                   device="cpu", **kw)
+    np.testing.assert_allclose(card.train_losses, host.train_losses, rtol=1e-4)
+    for n in "UPQ":
+        torch.testing.assert_close(getattr(card.state, n).cpu(), getattr(host.state, n),
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("aggregation", ["trim", "median"])
+def test_robust_combine_on_the_card_agrees_with_the_cpu(dev, aggregation):
+    from repro_torch.robustness import byzantine
+    rng = np.random.default_rng(0)
+    M, nbk, cap, K = 600, 96, 8, 10
+    cells = rng.permutation(nbk * cap)[:M]
+    bucket, pos = (cells // cap).astype(np.int32), (cells % cap).astype(np.int32)
+    bucket[rng.random(M) < 0.2] = nbk
+    pos[bucket == nbk] = 0
+    vals = rng.normal(size=(M, K)).astype(np.float32)
+    vals[rng.random((M, K)) < 0.05] = np.nan
+    vals[bucket == nbk] = 0.0
+    validity = ((bucket < nbk) & (rng.random(M) < 0.9)).astype(np.float32)
+    d = byzantine.DefenseConfig(aggregation=aggregation, trim_frac=0.25)
+    args = [torch.from_numpy(x) for x in (vals, validity, bucket, pos)]
+    host = byzantine.robust_combine(*args, nbk, cap, d)
+    card = byzantine.robust_combine(*(x.to(dev) for x in args), nbk, cap, d)
+    # median picks values: the same bits; the trimmed sum over the cap axis
+    # may add in another order on the card, so within 1e-6 relative
+    np.testing.assert_array_equal(np.isnan(card.cpu().numpy()), np.isnan(host.numpy()))
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(),
+                               rtol=0 if aggregation == "median" else 1e-6, atol=0)

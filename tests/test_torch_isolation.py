@@ -30,6 +30,10 @@ def test_every_module_imports_without_jax_or_repro():
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
+        "new = {'repro_torch.checkpoint.ckpt', 'repro_torch.robustness.faults',\n"
+        "       'repro_torch.robustness.byzantine', 'repro_torch.robustness.recovery',\n"
+        "       'repro_torch.privacy.audit'}\n"
+        "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
         "       and sys.modules[m] is not None]\n"
@@ -155,3 +159,40 @@ def test_baseline_entry_points_default_to_cuda_and_raise_without_a_card(monkeypa
     assert set(baselines.evaluate_mf(state, train, train, 6, 12, device="cpu")) == {
         "P@5", "R@5", "P@10", "R@10"}
     assert baselines.fit_bpr(bpr, train, epochs=1, device="cpu")[0].V.device.type == "cpu"
+
+
+def test_robustness_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch, tmp_path):
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.privacy import audit
+    from repro_torch.robustness import ChurnConfig, DelayRing, DefenseConfig, recovery
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dmf.DMFConfig(n_users=6, n_items=5, dim=4, batch_size=2)
+    state = dmf.init_state(cfg, device="cpu")
+    train = np.array([[0, 1], [2, 3], [4, 0], [5, 2]])
+    nbr = graph.neighbor_table_from_dense(np.eye(6, dtype=np.float32), device="cpu")
+    plan = ChurnConfig(dropout=0.3, delay_classes=(0, 1), seed=1).compile(6, 2)
+    rng = np.random.default_rng(0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.train_epoch_churn(state, nbr, train, cfg, rng, 0, plan, None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.fit(cfg, train, nbr, epochs=1, churn=ChurnConfig(), defense=DefenseConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        DelayRing.create(1, 4, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        audit.observe_messages(cfg, train, nbr)
+    with pytest.raises(RuntimeError, match="cuda"):
+        audit.run_audit(cfg, train, nbr, 6, 5)
+    recovery.save_training(tmp_path, 1, state, rng)
+    with pytest.raises(RuntimeError, match="cuda"):
+        recovery.load_training(tmp_path, state)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ckpt.restore(tmp_path / "step_1", {"state": {"U": state.U}})
+    # asked for the CPU, each runs there; numpy leaves need no device at all
+    numpy_like = {"state": {"U": state.U.numpy()}}
+    assert ckpt.restore(tmp_path / "step_1", numpy_like)["state"]["U"].shape == (6, 4)
+    ring = DelayRing.create(1, 16, 4, device="cpu")      # 4 ratings x (1 + 3 negatives)
+    st, loss = dmf.train_epoch_churn(state, nbr, train, cfg, rng, 0, plan, ring, device="cpu")
+    assert np.isfinite(loss) and ring.gp.device.type == "cpu"
+    back = recovery.load_training(tmp_path, state, device="cpu")[0]
+    assert back.P.device.type == "cpu"
+    assert audit.observe_messages(cfg, train, nbr, device="cpu").gp.shape == (16, 4)

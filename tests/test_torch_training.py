@@ -255,7 +255,57 @@ def test_cli_prints_the_reference_report(argv, capsys, monkeypatch):
 
 
 def test_cli_rejects_flags_of_later_slices():
-    for flag in (["--n-shards", "2"], ["--churn-dropout", "0.1"], ["--use-pallas"],
-                 ["--telemetry"], ["--checkpoint-dir", "x"]):
+    for flag in (["--n-shards", "2"], ["--use-pallas"], ["--telemetry"],
+                 ["--telemetry-out", "x"], ["--trace-out", "x"], ["--metrics-out", "x"]):
         with pytest.raises(SystemExit):
             dmf_train.main(flag + ["--device", "cpu"])
+
+
+ROBUST_ARGV = {
+    "churn": ["--epochs", "3", "--dp-sigma", "0.5", "--dp-clip", "0.25", "--churn-dropout",
+              "0.2", "--churn-delay", "2", "--churn-late-frac", "0.1", "--churn-seed", "3"],
+    "byzantine": ["--epochs", "3", "--dp-sigma", "0.5", "--dp-clip", "0.25", "--byz-family",
+                  "norm_inflate", "--byz-frac", "0.2", "--byz-scale", "50", "--screen",
+                  "--norm-cap", "0", "--aggregation", "trim", "--trim-frac", "0.25"],
+    "checkpoint": ["--epochs", "3", "--dp-sigma", "0.5", "--dp-clip", "0.25", "--churn-dropout",
+                   "0.2", "--churn-delay", "1", "--screen", "--aggregation", "median"],
+}
+
+
+def _assert_reports_match(out, expect):
+    assert len(out) == len(expect)
+    for a, b in zip(out, expect):
+        if a.startswith("{"):
+            ja, jb = json.loads(a), json.loads(b)
+            assert ja.keys() == jb.keys()
+            np.testing.assert_allclose([ja[k] for k in ja], [jb[k] for k in jb], atol=1e-4)
+        elif a.startswith("privacy "):
+            assert json.loads(a[8:]) == json.loads(b[8:])
+        elif a.startswith("epoch "):
+            assert a.split()[:3] == b.split()[:3]
+            assert abs(float(a.split()[3]) - float(b.split()[3])) <= 1e-4
+        else:                        # churn / byzantine / tau / dataset lines
+            assert a == b
+
+
+@pytest.mark.parametrize("case", list(ROBUST_ARGV))
+def test_cli_prints_the_reference_report_for_robustness_flags(case, capsys, monkeypatch,
+                                                              tmp_path):
+    argv = ROBUST_ARGV[case]
+    if case == "checkpoint":         # snapshot every epoch, then resume from step_2
+        dmf_train.main(argv + ["--checkpoint-dir", str(tmp_path / "port"),
+                               "--checkpoint-every", "1", "--device", "cpu"])
+        whole = _lines(capsys.readouterr().out)
+        assert sorted(p.name for p in (tmp_path / "port").iterdir()) == [
+            "step_1", "step_2", "step_3"]
+        argv = argv + ["--resume-from", str(tmp_path / "port" / "step_2")]
+    dmf_train.main(argv + ["--device", "cpu"])
+    out = _lines(capsys.readouterr().out)
+    monkeypatch.setattr(sys, "argv", ["dmf_train", *argv])
+    ref_cli.main()
+    expect = _lines(capsys.readouterr().out)
+    _assert_reports_match(out, expect)
+    assert out[0].startswith("churn " if case != "byzantine" else "byzantine ")
+    if case == "checkpoint":         # the resumed run ends as the whole run did
+        assert [ln for ln in out if not ln.startswith("epoch ")] == [
+            ln for ln in whole if not ln.startswith("epoch ")]
