@@ -2,8 +2,10 @@
 """Quickest proof that the PyTorch/CUDA port (`src/repro_torch`) runs on
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
 version on the card, drives the serving and the training slices, the
-paper's baseline comparison and the robustness slice (churn, Byzantine
-defenses, crash-resume, the leakage audit) at full Foursquare scale and
+paper's baseline comparison, the robustness slice (churn, Byzantine
+defenses, crash-resume, the leakage audit) and the scheduler with the
+observability layer (telemetry, spans, the profiler's device busy share)
+at full Foursquare scale and
 million-user tiled serving at the reference's million configuration, and
 times each kernel beside its bound.
 
@@ -14,6 +16,13 @@ times each kernel beside its bound.
                                           # noise stream against the build of
                                           # the checkout unpacked in DIR, bit
                                           # for bit, and time both builds
+    python3 chip_smoke.py --obs-detail    # phase 3f also times tracing (the 1x
+                                          # stream in turns, an empty span) and
+                                          # profiles a DP and a screened epoch
+    python3 chip_smoke.py --e2e-turns DIR # only: phase 3a's pruned serving and
+                                          # DP, `nan` + screen and screen + trim
+                                          # epochs, the checkout in DIR and this
+                                          # one in alternating processes
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -130,6 +139,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       in process (3 DP epochs with churn, screening, trimmed aggregation
       and a snapshot every epoch, then resumed from step_2: the same last
       epoch's loss and report). Kernels 3, 7, 8 and 8a must launch.
+   f. scheduling and observability, in two counted parts, into a metrics
+      registry of their own. The scheduler on a pruned engine over b's
+      DP-off state (microbatch 64, k=10): capacity from 5 back-to-back
+      full microbatches; the reference scheduler bench's single-shard
+      grid at full size (1,024 requests, Poisson arrivals, power-law users
+      with zipf 1.1, SLO 50 ms, loads 0.5/1/2 × capacity, seeds 100 + i),
+      `Scheduler` and `simulate_lockstep` on each stream, plus one on/off
+      stream at 1× (burst 4, duty 0.2, period 50 ms); every scheduled and
+      lockstep dispatch one launch of kernel 5 in place, each ingest
+      batch one of kernel 3 (held per run); at 1× every served slate bit
+      for bit a fresh engine's `recommend`; the bench's ingest interleave
+      (two bursts of 48 around a 5 s gap, 32 held-out check-ins: the
+      window inside the gap, the slates on each side bit for bit the
+      matching snapshot's); the 1× stream again with span tracing on under
+      `Tracer.torch_profiler`, whose trace must hold a kernel event for
+      every dispatch (the device's busy share is the union of its kernel,
+      memcpy and memset intervals over the profiled window, a lower bound
+      since the profiler slows the host; beside it, the profiled device
+      time a dispatch over the unprofiled 1× run's host seconds).
+      Telemetry: `fit` 3 DP epochs (σ=1, C=0.5) and 2 epochs of e's
+      attacked run under screen + trim at its τ, telemetry off and on, bit
+      for bit. The engine's `EngineStats.publish` and the 1× report's
+      `SchedulerReport.publish` go into the registry, which `write_jsonl`
+      writes under build/; `device_memory_snapshot` must show allocated
+      bytes. The ``scheduler`` and ``obs`` lines print before phase 4.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -174,6 +208,7 @@ JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import functools
@@ -235,6 +270,24 @@ ROBUST_PARTS = {"trivial": ("dmf_fused_step", "dmf_fused_step_dp", "gauss_counte
                 "byzantine": ("dmf_fused_step",),
                 "audit": ("dmf_fused_step", "dp_clip_noise"),
                 "cli": ("dmf_fused_step_dp", "gauss_counter")}
+# phase 3f: the reference scheduler bench's single-shard grid at full size
+# (benchmarks/scheduler_bench.py:158-215 with full=True: 1,024 requests,
+# Poisson arrivals, power-law users, SLO 50 ms, loads 0.5/1/2 × the
+# measured capacity, seeds 100 + i), one on/off stream at 1×, its ingest
+# interleave (:84-130), and telemetry on the DP and the screened fits
+SCHED_REQUESTS, SCHED_SLO_MS, SCHED_LOADS, SCHED_ZIPF = 1024, 50.0, (0.5, 1.0, 2.0), 1.1
+SCHED_ONOFF = dict(process="onoff", burst_factor=4.0, duty_cycle=0.2, period_s=0.05)
+SCHED_CAPACITY_REPS, SCHED_INGEST_EVENTS, SCHED_HALF, SCHED_GAP_S = 5, 32, 48, 5.0
+TELE_DP_EPOCHS, TELE_BYZ_EPOCHS = 3, 2
+# --obs-detail only: what tracing and telemetry cost, where an epoch's time goes
+SCHED_TRACE_TURNS = 2          # (plain, tracing, tracing, plain) repeats of the 1x stream
+SPAN_COST_N, SPAN_COST_DISPATCHES = 5000, 50   # empty spans; back-to-back dispatches a turn
+PROFILED_TELEMETRY = {"dp": ("off",), "screen_trim": ("off", "on")}   # one epoch each
+# --e2e-turns: one process a turn, the other checkout and this one alternating
+E2E_ORDER = ("other", "this", "this", "other") * 3
+E2E_SERVES, E2E_DP_EPOCHS = 3, 4
+SCHED_KERNELS = ("serve_topk_rows", "dmf_fused_step")
+TELE_KERNELS = ("dmf_fused_step_dp", "gauss_counter", "dmf_fused_step")
 
 
 def log(*parts) -> None:
@@ -1825,6 +1878,407 @@ def robust_cli(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------- scheduling and obs
+def serving_engine(ds, nbr, index, cfg, state, dev, warm: bool = True):
+    """A pruned `ServingEngine` on ``state`` (microbatch 64, k=10); with
+    ``warm``, one full microbatch dispatched and the stats reset, as the
+    reference bench's `_build_engine` does, so the first measured dispatch
+    is no launch's first."""
+    from repro_torch.serving import ServingConfig, ServingEngine
+    eng = ServingEngine(state, index, ServingConfig(microbatch=MICROBATCH, k=K_TOP),
+                        train=ds.train, nbr=nbr, dmf_cfg=cfg, device=dev)
+    if warm:
+        eng.serve_microbatch(np.arange(MICROBATCH, dtype=np.int64))
+        eng.stats.reset()
+    return eng
+
+
+def scheduled(eng, reqs, lockstep: bool = False, **run_kw):
+    """`Scheduler(eng).run(reqs)` (or `simulate_lockstep`), holding that
+    every dispatch was one launch of kernel 5 in place (`serve_topk_rows`)
+    and every ingest batch, and the refresh warm-up's step, one of kernel 3
+    (`dmf_fused_step`)."""
+    from repro_torch.kernels import ops
+    from repro_torch.scheduling import Scheduler, simulate_lockstep
+    k5, k3 = ops.serve_topk_rows.launches, ops.dmf_fused_step.launches
+    rep = simulate_lockstep(eng, reqs) if lockstep else Scheduler(eng).run(reqs, **run_kw)
+    n_disp = sum(rep.n_dispatches_per_shard)
+    n_batches = sum(r.n_batches for r in rep.ingest_reports) + bool(rep.ingest_reports)
+    assert ops.serve_topk_rows.launches - k5 == n_disp, (ops.serve_topk_rows.launches - k5, n_disp)
+    assert ops.dmf_fused_step.launches - k3 == n_batches, (
+        ops.dmf_fused_step.launches - k3, n_batches)
+    return rep
+
+
+def same_as_direct(eng_factory, served) -> bool:
+    """Every served slate (and fallback flag) equals a fresh engine's
+    direct `recommend` of the same users, bit for bit."""
+    vals, idx, flags = eng_factory().recommend([r.user for r in served], return_flags=True)
+    return bool(len(served) > 0 and all(
+        np.array_equal(r.vals, vals[j]) and np.array_equal(r.idx, idx[j])
+        and r.fallback == bool(flags[j]) for j, r in enumerate(served)))
+
+
+def sched_row(rep) -> dict:
+    s = rep.summary(slo_ms=SCHED_SLO_MS)
+    return {"goodput_rps": s["goodput_rps"], "slo_attainment": s["slo_attainment"],
+            "p50_ms": s["latency_ms"]["p50_ms"], "p99_ms": s["latency_ms"]["p99_ms"],
+            "p99_slo_met": s["p99_slo_met"], "dispatches": sum(rep.n_dispatches_per_shard),
+            "summary": s}
+
+
+def ingest_interleave(make, ds) -> dict:
+    """`scheduler_bench.py:84-130` on the card: two bursts of SCHED_HALF
+    requests with an idle gap of SCHED_GAP_S s and one ingest window of
+    held-out check-ins; the refresh must run inside the gap, and the
+    slates before and after it must equal a no-ingest engine's and an
+    ingested engine's, bit for bit."""
+    from repro_torch.scheduling.workload import make_requests
+    rng = np.random.default_rng(3)
+    users = rng.integers(0, ds.n_users, 2 * SCHED_HALF)
+    t1 = np.sort(rng.uniform(0.0, 0.02, SCHED_HALF))
+    t2 = SCHED_GAP_S + np.sort(rng.uniform(0.0, 0.02, SCHED_HALF))
+    reqs = make_requests(np.concatenate([t1, t2]), users, SCHED_SLO_MS)
+    events = ds.test[:SCHED_INGEST_EVENTS].astype(np.int64)
+    eng = make()
+    rep = scheduled(eng, reqs, ingest_events=[events])
+    del eng
+    served = rep.served()
+    pre = [r for r in served if r.ingest_epoch == 0]
+    post = [r for r in served if r.ingest_epoch == 1]
+
+    def ingested():
+        e = make(warm=False)
+        e.ingest(events)
+        return e
+    out = {"n_windows_run": rep.n_ingest_windows, "n_pre_ingest_served": len(pre),
+           "n_post_ingest_served": len(post),
+           "ingest_interval_s": list(rep.ingest_intervals[0]) if rep.ingest_intervals else None,
+           "ingest_ran_in_idle_gap": bool(rep.ingest_intervals) and all(
+               float(t1[-1]) <= s and e <= SCHED_GAP_S for s, e in rep.ingest_intervals),
+           "pre_ingest_bit_identical_to_no_ingest": same_as_direct(
+               lambda: make(warm=False), pre),
+           "post_ingest_bit_identical_to_ingested_snapshot": same_as_direct(ingested, post)}
+    for key in ("ingest_ran_in_idle_gap", "pre_ingest_bit_identical_to_no_ingest",
+                "post_ingest_bit_identical_to_ingested_snapshot"):
+        assert out[key], f"ingest interleave: {key} is false ({out})"
+    assert out["n_windows_run"] == 1 and len(pre) + len(post) == 2 * SCHED_HALF, out
+    return out
+
+
+def kernel_time_by_name(doc: dict, top: int = 6) -> list:
+    """A profiler trace's kernels summed by name (µs), the largest
+    first."""
+    tot: dict[str, list] = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            t = tot.setdefault(e["name"], [0, 0.0])
+            t[0] += 1
+            t[1] += float(e["dur"])
+    rows = sorted(tot.items(), key=lambda kv: -kv[1][1])[:top]
+    return [{"name": n[:96], "count": c, "total_us": us} for n, (c, us) in rows]
+
+
+def drive_scheduling(ds, nbr, index, cfg, state, dev, detail: bool = False) -> dict:
+    """Phase 3f, the scheduler: capacity from back-to-back full
+    microbatches, the grid (scheduler and lockstep at each load, one on/off
+    stream; the scheduler's host seconds each), the 1× run's slates against
+    `recommend`, the ingest interleave, and the 1× run again with tracing
+    on under the profiler. The profiler slows the host, so the profiled
+    window's busy share is a lower bound; beside it stands the profiled
+    device time a dispatch times the unprofiled 1× run's dispatches over
+    that run's host seconds. With ``detail``, first the 1× stream in turns
+    with tracing off and on, and `span_cost`."""
+    from repro_torch.obs import trace as trace_lib
+    from repro_torch.scheduling import WorkloadConfig, generate
+
+    def make(warm=True):
+        return serving_engine(ds, nbr, index, cfg, state, dev, warm)
+
+    eng = make()
+    rng = np.random.default_rng(7)
+    dts = [eng.serve_microbatch(rng.integers(0, ds.n_users, MICROBATCH))[-1]
+           for _ in range(SCHED_CAPACITY_REPS)]
+    capacity = MICROBATCH / float(np.median(dts))
+    out = {"capacity_rps": capacity, "capacity_dispatch_s": dts, "microbatch": MICROBATCH,
+           "n_requests": SCHED_REQUESTS, "slo_ms": SCHED_SLO_MS, "loads": []}
+    streams = [(f, dict(users="powerlaw", zipf_s=SCHED_ZIPF, seed=100 + i))
+               for i, f in enumerate(SCHED_LOADS)]
+    streams.append((1.0, dict(users="powerlaw", zipf_s=SCHED_ZIPF, seed=100 + len(SCHED_LOADS),
+                              **SCHED_ONOFF)))
+    for frac, kw in streams:
+        reqs = generate(WorkloadConfig(n_requests=SCHED_REQUESTS, rate_rps=frac * capacity,
+                                       slo_ms=SCHED_SLO_MS, **kw), ds.n_users)
+        t0 = time.perf_counter()
+        rep_s = scheduled(eng, reqs)
+        wall_s = time.perf_counter() - t0
+        rep_l = scheduled(eng, reqs, lockstep=True)
+        row = {"process": kw.get("process", "poisson"), "offered_frac_of_capacity": frac,
+               "offered_load_rps": frac * capacity, "seed": kw["seed"],
+               "scheduler": dict(sched_row(rep_s), host_s=wall_s), "lockstep": sched_row(rep_l)}
+        if frac == 1.0 and "process" not in kw:
+            mid_reqs, mid_row = reqs, row["scheduler"]
+            row["bit_identical_vs_direct"] = same_as_direct(make, rep_s.served())
+            assert row["bit_identical_vs_direct"], "scheduled slates differ from recommend"
+            assert same_as_direct(make, rep_l.served()), "lockstep slates differ from recommend"
+        out["loads"].append(row)
+    out["ingest_interleave"] = ingest_interleave(make, ds)
+    if detail:
+        out.update(tracing_detail(eng, mid_reqs, ds.n_users))
+    saved = trace_lib.get_tracer()
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+        sync(dev)
+        with tracer.torch_profiler(ROOT / "build" / "profile", device=dev) as prof:
+            rep_p = scheduled(eng, mid_reqs)
+        assert prof is not None
+        spans = tracer.span_stats()
+    finally:
+        trace_lib.set_tracer(saved)
+    doc = json.loads(tracer.profiler_traces[-1].read_text())
+    busy = trace_lib.device_busy(doc)
+    n_disp = sum(rep_p.n_dispatches_per_shard)
+    assert busy["n_kernel"] >= n_disp, (busy, n_disp)
+    assert spans["scheduler.dispatch"]["count"] == n_disp == spans["engine.serve_microbatch"][
+        "count"], spans
+    per_dispatch_ms = busy["busy_ms"] / n_disp
+    out["profiled_1x"] = {
+        "device_busy": busy, "dispatches": n_disp, "trace": str(tracer.profiler_traces[-1]),
+        "kernels_by_device_time": kernel_time_by_name(doc),
+        "run": sched_row(rep_p), "span_stats": spans,
+        # the same device work a dispatch over the host seconds of the 1x
+        # run without the profiler (and without tracing)
+        "device_ms_per_dispatch": per_dispatch_ms,
+        "busy_share_unprofiled_estimate": (per_dispatch_ms * mid_row["dispatches"]
+                                           / (1e3 * mid_row["host_s"]))}
+    del out["profiled_1x"]["run"]["summary"]
+    out["engine"], out["report_1x"] = eng, rep_p
+    return out
+
+
+def tracing_detail(eng, reqs, n_users: int) -> dict:
+    """With ``--obs-detail``: the 1× stream ``reqs`` in turns with span
+    tracing off and on (what tracing costs; the host clock spreads, hence
+    several turns), and `span_cost`."""
+    from repro_torch.obs import trace as trace_lib
+    saved = trace_lib.get_tracer()
+    turns = {"plain": [], "tracing": []}
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=False))
+        for turn in ("plain", "tracing", "tracing", "plain") * SCHED_TRACE_TURNS:
+            tracer.enabled = turn == "tracing"
+            n0 = len(eng.stats.dispatch_seconds)
+            row = sched_row(scheduled(eng, reqs))
+            row["dispatch_ms_median"] = 1e3 * float(np.median(eng.stats.dispatch_seconds[n0:]))
+            turns[turn].append({k: row[k] for k in ("goodput_rps", "slo_attainment", "p50_ms",
+                                                    "p99_ms", "dispatch_ms_median")})
+        spans = tracer.span_stats()
+    finally:
+        trace_lib.set_tracer(saved)
+    return {"tracing_cost_1x_in_turns": {
+                "runs": turns,
+                "median": {t: {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+                           for t, rows in turns.items()}},
+            "span_stats_tracing_only": spans, "span_cost": span_cost(eng, n_users)}
+
+
+def span_cost(eng, n_users: int) -> dict:
+    """What a span costs on this host: SPAN_COST_N empty spans of the
+    global tracer enabled and disabled (µs each), and the median seconds
+    of SPAN_COST_DISPATCHES back-to-back `serve_microbatch` calls (two
+    spans each with the scheduler's) with tracing off, on, on, off."""
+    from repro_torch.obs import trace as trace_lib
+    saved = trace_lib.get_tracer()
+    out = {"empty_span_us": {}, "dispatch_ms_median": {"off": [], "on": []}}
+    ids = np.random.default_rng(11).integers(0, n_users, (SPAN_COST_DISPATCHES, MICROBATCH))
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer())
+        for on in (False, True):
+            tracer.enabled = on
+            t0 = time.perf_counter()
+            for _ in range(SPAN_COST_N):
+                with trace_lib.span("empty", n=1):
+                    pass
+            out["empty_span_us"]["on" if on else "off"] = (
+                (time.perf_counter() - t0) / SPAN_COST_N * 1e6)
+            tracer.clear()
+        for on in (False, True, True, False):
+            tracer.enabled = on
+            dts = []
+            for row in ids:
+                with trace_lib.span("scheduler.dispatch", shard=0, n=MICROBATCH):
+                    dts.append(eng.serve_microbatch(row)[-1])
+            out["dispatch_ms_median"]["on" if on else "off"].append(1e3 * float(np.median(dts)))
+    finally:
+        trace_lib.set_tracer(saved)
+    return out
+
+
+def profiled_fit(c, kw, ds, nbr, dev, tele: bool) -> dict:
+    """One epoch of `fit` under the profiler: the device's busy share,
+    kernels by device time, and the host's PyTorch ops (calls, self
+    milliseconds, the costliest by name); the rest of the window is
+    Python and numpy (the accountant, `group_messages`)."""
+    from repro_torch.core import dmf
+    from repro_torch.obs import trace as trace_lib
+    tracer = trace_lib.Tracer(enabled=True)
+    sync(dev)
+    with tracer.torch_profiler(ROOT / "build" / "profile", device=dev) as prof:
+        dmf.fit(c, ds.train, nbr, telemetry=tele, device=dev, **dict(kw, epochs=1))
+        sync(dev)
+    path = tracer.profiler_traces[-1]
+    doc = json.loads(path.read_text())
+    ops_ = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    top = sorted(ops_, key=lambda e: -e.self_cpu_time_total)[:6]
+    out = {"device_busy": trace_lib.device_busy(doc),
+           "kernels_by_device_time": kernel_time_by_name(doc, 4),
+           "host_aten_calls": sum(e.count for e in ops_),
+           "host_aten_self_ms": sum(e.self_cpu_time_total for e in ops_) / 1e3,
+           "top_host_ops": [{"op": e.key, "calls": e.count, "self_ms": e.self_cpu_time_total / 1e3}
+                            for e in top]}
+    path.unlink()      # tens of MB each; the numbers above are what is kept
+    return out
+
+
+def drive_telemetry(ds, nbr, cfg, tau, dev, detail: bool = False) -> dict:
+    """Phase 3f, telemetry: `fit` TELE_DP_EPOCHS DP epochs (σ=1, C=0.5)
+    and TELE_BYZ_EPOCHS epochs of the attacked run under screen + trim
+    (phase 3e's λ=100 `norm_inflate` at τ), in turns with telemetry off,
+    on, on, off: the same losses, privacy and factor bits every time, and
+    epoch seconds each way. With ``detail``, then one epoch of each under
+    the profiler with telemetry off (where a DP and a screened epoch's time
+    goes), and of the screened one with telemetry on (the ops it adds)."""
+    from repro_torch.core import dmf
+    from repro_torch.robustness import AttackConfig, DefenseConfig
+    runs = {"dp": (dataclasses.replace(cfg, **DP), dict(epochs=TELE_DP_EPOCHS)),
+            "screen_trim": (cfg, dict(
+                epochs=TELE_BYZ_EPOCHS,
+                attack=AttackConfig(family="norm_inflate", frac=BYZ_FRAC, scale=BYZ_SCALE, seed=0),
+                defense=DefenseConfig(screen=True, norm_cap=tau, aggregation="trim",
+                                      trim_frac=0.25)))}
+    out = {}
+    for tag, (c, kw) in runs.items():
+        first, secs, same = None, {False: [], True: []}, []
+        for tele in (False, True, True, False):
+            res, s = stamped_fit(dmf.fit, c, ds.train, nbr, telemetry=tele, device=dev, **kw)
+            secs[tele] += s
+            if first is None:
+                first = res
+            else:
+                same.append(same_run(res, first))
+            if tele:
+                events = res.telemetry
+                assert len(events) == kw["epochs"], events
+            else:
+                assert res.telemetry is None
+            del res
+        del first
+        off, on = (float(np.median(secs[t])) for t in (False, True))
+        out[tag] = {"bitexact": all(same), "epoch_s_off": secs[False], "epoch_s_on": secs[True],
+                    "median_off": off, "median_on": on, "on_over_off": on / off - 1.0,
+                    "events": events}
+        if detail:
+            out[tag]["profiled_epoch"] = {t: profiled_fit(c, kw, ds, nbr, dev, t == "on")
+                                          for t in PROFILED_TELEMETRY[tag]}
+        assert out[tag]["bitexact"], f"{tag}: telemetry on is not bit for bit telemetry off"
+    assert all(ev["screen_reject"] > 0 for ev in out["screen_trim"]["events"]), out
+    assert all(ev["dp_eps"] > 0 for ev in out["dp"]["events"]), out
+    return out
+
+
+def obs_snapshot(sched) -> dict:
+    """The serving engine's and the 1× report's `publish` into the phase's
+    registry (which the telemetry fits published into too), written with
+    `write_jsonl` under build/; the card's memory snapshot."""
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as trace_lib
+    reg = obs_metrics.get_registry()
+    sched["engine"].stats.publish(reg)
+    sched["report_1x"].publish(reg, slo_ms=SCHED_SLO_MS)
+    path = ROOT / "build" / "phase3f_metrics.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    snap = reg.write_jsonl(path, event="chip_smoke_phase3f")
+    back = json.loads(path.read_text().splitlines()[-1])["metrics"]
+    assert back == json.loads(json.dumps(snap)), "the JSONL line is not the snapshot"
+    mem = trace_lib.device_memory_snapshot()
+    alloc = mem[0]["memory_stats"].get("allocated_bytes.all.current", 0)
+    assert mem[0]["platform"] == "gpu" and alloc > 0, mem
+    return {"metrics_path": str(path), "metrics": sorted(snap), "n_metrics": len(snap),
+            "serving_n_requests": snap["serving_n_requests"]["values"][""],
+            "scheduler_goodput_rps": snap["scheduler_goodput_rps"]["values"][""],
+            "train_epochs_total": snap["train_epochs_total"]["values"][""],
+            "device_memory": {"device": mem[0]["device"], "allocated_bytes": alloc,
+                              "peak_bytes": mem[0]["memory_stats"].get(
+                                  "allocated_bytes.all.peak", 0)}}
+
+
+# ------------------------------------------------------------- e2e turns
+def e2e_probe(root: pathlib.Path) -> dict:
+    """One turn of ``--e2e-turns`` on the `repro_torch` of the checkout in
+    ``root``, with tracing and telemetry off: phase 3a's pruned serving
+    after the ingests (requests/s over N_PRUNED requests, the median of
+    E2E_SERVES after a warm one), and the median epoch seconds, the first
+    epoch left out, of a DP `fit` (σ=1, C=0.5) and of phase 3e's `nan` +
+    screen and screen + trim runs."""
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    assert pathlib.Path(repro_torch.__file__).resolve().is_relative_to(root), repro_torch.__file__
+    from repro_torch.core import dmf
+    from repro_torch.data import synthetic_poi
+    from repro_torch.privacy import audit
+    from repro_torch.robustness import AttackConfig, DefenseConfig
+    from repro_torch.serving import OnlineConfig, ServingConfig, ServingEngine
+    dev = torch.device("cuda")
+    ds = synthetic_poi.foursquare_like(reduced=False, seed=SEED)
+    nbr, _, index, cfg = build_world(ds, dev)
+    eng = ServingEngine(dmf.init_state(cfg, device=dev), index,
+                        ServingConfig(microbatch=MICROBATCH, k=K_TOP),
+                        train=ds.train, nbr=nbr, dmf_cfg=cfg, device=dev)
+    eng.ingest(ds.train, OnlineConfig())
+    eng.ingest(ds.test, OnlineConfig())
+    ids = np.random.default_rng(SEED).integers(0, ds.n_users, N_PRUNED)
+    rps = []
+    for _ in range(E2E_SERVES + 1):
+        eng.stats.reset()
+        eng.recommend(ids)
+        rps.append(eng.requests_per_sec)
+    del eng
+    out = {"pruned_rps": float(np.median(rps[1:]))}
+    log_ = audit.observe_messages(cfg, ds.train, nbr, epochs=1, seed=0, device=dev)
+    tau = float(np.quantile(np.linalg.norm(log_.gp, axis=1), 0.999) * 1.5)
+    runs = {"dp": (dataclasses.replace(cfg, **DP), dict(epochs=E2E_DP_EPOCHS)),
+            "nan_screen": (cfg, dict(
+                epochs=BYZ_EPOCHS, attack=AttackConfig(family="nan", frac=BYZ_FRAC, seed=0),
+                defense=DefenseConfig(screen=True, norm_cap=tau))),
+            "screen_trim": (cfg, dict(
+                epochs=BYZ_EPOCHS,
+                attack=AttackConfig(family="norm_inflate", frac=BYZ_FRAC, scale=BYZ_SCALE, seed=0),
+                defense=DefenseConfig(screen=True, norm_cap=tau, aggregation="trim",
+                                      trim_frac=0.25)))}
+    for tag, (c, kw) in runs.items():
+        _, ep = stamped_fit(dmf.fit, c, ds.train, nbr, on_nonfinite="halt", device=dev, **kw)
+        out[f"{tag}_epoch_s"] = float(np.median(ep[1:]))
+    return out
+
+
+def e2e_turns(other: pathlib.Path) -> dict:
+    """``--e2e-turns DIR``: `e2e_probe` in a process of its own a turn,
+    on the checkout in DIR and on this one in the order E2E_ORDER, so that
+    the host clock's drift falls on both; each turn's numbers and each
+    side's medians."""
+    runs: dict[str, list] = {"other": [], "this": []}
+    for who in E2E_ORDER:
+        root = other if who == "other" else ROOT
+        res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--e2e-probe",
+                              str(root)], capture_output=True, text=True, timeout=900)
+        assert res.returncode == 0, f"e2e probe on {root} failed:\n{res.stderr[-4000:]}"
+        runs[who].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    return {"other": str(other), "order": E2E_ORDER, "runs": runs,
+            "median": {who: {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
+                       for who, rows in runs.items()}}
+
+
 # ------------------------------------------------------------------- timing
 def device_ms(fn, n: int) -> float:
     """Device milliseconds per call, back to back: the stream is held by a
@@ -2821,24 +3275,31 @@ def gpu_line() -> str:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    parent = None
-    if argv:
-        if len(argv) != 2 or argv[0] != "--parent":
-            print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
-            return 2
-        parent = pathlib.Path(argv[1]).resolve()
+    ap = argparse.ArgumentParser(description="The port's proof on one CUDA card.")
+    ap.add_argument("--parent", type=pathlib.Path, metavar="DIR")
+    ap.add_argument("--obs-detail", action="store_true")
+    ap.add_argument("--e2e-turns", type=pathlib.Path, metavar="DIR")
+    ap.add_argument("--e2e-probe", type=pathlib.Path, help=argparse.SUPPRESS)
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    parent = args.parent.resolve() if args.parent else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card",
               file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.e2e_probe:
+        print(json.dumps(e2e_probe(args.e2e_probe.resolve())))
+        return 0
+    if args.e2e_turns:
+        log(gpu_line())
+        log("e2e turns", json.dumps(e2e_turns(args.e2e_turns.resolve())))
+        return 0
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import device as device_lib
     from repro_torch.data import synthetic_poi
     from repro_torch.kernels import build, ops
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = device_lib.resolve("cuda")
     t_start = time.perf_counter()
     log("torch", torch.__version__, "cuda", torch.version.cuda, "python", sys.version.split()[0])
@@ -2939,6 +3400,25 @@ def main(argv=None) -> int:
     robust["launches"] = robust_counts
     assert all(sum(c[k] for c in robust_counts.values()) > 0 for k in robust_counts["trivial"])
     log("robustness", json.dumps(robust))
+
+    from repro_torch.obs import metrics as obs_metrics
+    obs_metrics.set_registry(obs_metrics.MetricsRegistry())   # phase 3f's own
+    t3f = time.perf_counter()
+    sched, launches["scheduling"] = counted(
+        "scheduling", SCHED_KERNELS,
+        lambda: drive_scheduling(ds, nbr, index, cfg, tr["dp_off"]["fit"].state, dev,
+                                 args.obs_detail))
+    tele, launches["telemetry"] = counted(
+        "telemetry", TELE_KERNELS,
+        lambda: drive_telemetry(ds, nbr, cfg, robust["byzantine"]["tau"], dev, args.obs_detail))
+    obs = obs_snapshot(sched)
+    del sched["engine"], sched["report_1x"]
+    sched["launches"] = {k: launches["scheduling"][k] for k in SCHED_KERNELS}
+    log("scheduler", json.dumps(sched))
+    obs["telemetry"] = tele
+    obs["launches"] = {k: launches["telemetry"][k] for k in TELE_KERNELS}
+    log("obs", json.dumps(obs))
+    log(f"phase 3f scheduling and observability: {time.perf_counter() - t3f} s")
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

@@ -3,16 +3,17 @@
 (:101-105), `init_state` (:114-129), `_grads_and_loss` (:143-153), the
 dense oracle `_batch_step` (:156-183), `_step_deltas` (:186-217), the DP
 step `_dp_noise_rows` / `_dp_message` / `_step_deltas_dp` (:220-271),
-`_sparse_batch_update_messages` (:274-422, without telemetry) and its thin
-wrapper `_sparse_batch_update` (:425-435), `_epoch_scan` (:438-496), the
-fault-injected epoch `_epoch_scan_churn` / `train_epoch_churn`
-(:499-748), `sample_with_negatives` / `sample_epoch` (:751-777),
-`train_epoch_dense` (:780-805), `_as_neighbor_table` / `epoch_dp_inputs` /
-`train_epoch` (:808-875, ``n_shards == 1``), `scores` / `test_loss`
-(:878-890), `FitResult`, `DivergenceError`, `_epoch_finite`, `fit`
-(:893-1142; churn, attacks, defenses and checkpoints included; without
-telemetry, tracing or sharding) and `evaluate` / `evaluate_dense`
-(:1145-1212, ``n_shards == 1``).
+`_sparse_batch_update_messages` (:274-422, telemetry :334-422 included)
+and its thin wrapper `_sparse_batch_update` (:425-435), `_epoch_scan`
+(:438-496), the fault-injected epoch `_epoch_scan_churn` /
+`train_epoch_churn` (:499-748), `sample_with_negatives` / `sample_epoch`
+(:751-777), `train_epoch_dense` (:780-805), `_as_neighbor_table` /
+`epoch_dp_inputs` / `train_epoch` (:808-875, ``n_shards == 1``), `scores`
+/ `test_loss` (:878-890), `FitResult`, `DivergenceError`,
+`_epoch_finite`, `fit` (:893-1142; churn, attacks, defenses,
+checkpoints, telemetry and the ``fit.epoch`` span included; without
+sharding) and `evaluate` / `evaluate_dense` (:1145-1212,
+``n_shards == 1``).
 
 Model (paper Eqs. 5-11): user i holds u_i (K,), a private copy p^i = P[i]
 of the common item factors (J, K) and personal factors q^i = Q[i] (J, K);
@@ -27,7 +28,8 @@ scans, the port updates U/P/Q **in place** with
 device, so two runs from one seed give the same bits): no (I, J, K) copy
 per batch or epoch. The
 epoch is a Python loop over minibatches on the device that reads the
-per-batch losses to the host once per epoch. The step always runs the
+per-batch losses to the host once per epoch (with telemetry on, the
+epoch's summed reduction vector in the same read). The step always runs the
 fused kernel (the reference's ``use_pallas=True`` path).
 """
 from __future__ import annotations
@@ -35,6 +37,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import time
 import warnings
 from typing import Callable
 
@@ -46,6 +49,8 @@ from repro_torch.core import graph as graph_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.scatter import scatter_add_rows_
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as trace_lib
+from repro_torch.obs.telemetry import TELE_W
 from repro_torch.privacy import mechanism
 from repro_torch.privacy.accountant import GaussianAccountant
 
@@ -223,7 +228,7 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
                                   cfg: DMFConfig, valid=None, rid=None, dp_seed: int = 0,
                                   noise=None, recv_gate=None, prop_now=None, byz=None,
                                   amul=None, ashill=None, dirs=None, vjm=None, bkt=None,
-                                  byz_cap: int = 0):
+                                  byz_cap: int = 0, tele: bool = False):
     """One minibatch of Alg. 1 against the sparse neighbor table, in place
     on U/P/Q; returns the batch loss (0-d tensor) and the (B, K) messages
     as sent (the outbox stream the audit attacks and the delay ring
@@ -249,7 +254,14 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
     screened at the receiver (finite + norm cap, content zeroed) when
     ``byz.screen``, and combined per (receiver, item) bucket by trimmed
     mean or median when ``byz.aggregation != "sum"`` (``bkt`` the
-    host-compiled `MessageGroups` arrays of this batch)."""
+    host-compiled `MessageGroups` arrays of this batch).
+
+    Telemetry (``tele``; obs/telemetry.py): a third return value, the
+    (TELE_W,) float32 vector of read-only reductions over this step's
+    tensors (squared update norms, released-message mass, scattered
+    propagation mass, delivery and screening counts). It writes nothing
+    and feeds nothing the scatters read, so U/P/Q get the same bits as
+    with ``tele=False``."""
     theta = cfg.lr
     if cfg.dp:
         du, gp, dq, loss = _step_deltas_dp(U, P, Q, ui, vj, r, conf, cfg, valid,
@@ -259,7 +271,13 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
     scatter_add_rows_(U, (ui,), du)
     if cfg.mode != "gdmf":
         scatter_add_rows_(Q, (ui, vj), dq)
+    if tele:
+        u_sq = (du * du).sum()
+        z = torch.zeros_like(u_sq)
+        q_sq = (dq * dq).sum() if cfg.mode != "gdmf" else z
     if cfg.mode == "ldmf":
+        if tele:   # purely local: nothing released, nothing scattered
+            return loss, gp, torch.stack([u_sq, q_sq, z, z, z, z, z])
         return loss, gp
     nb = nbr_idx[ui]                                       # (B, S) receivers
     wb = nbr_wgt[ui]                                       # (B, S) walk weights
@@ -272,6 +290,12 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
             wb = wb * recv_gate[nb]                        # offline receivers get 0
         upd = wb[:, :, None] * gp[:, None, :]              # (B, S, K)
         scatter_add_rows_(P, (nb, vj[:, None].expand_as(nb)), -theta * upd)
+        if tele:
+            gp2 = (gp * gp).sum(-1)                        # (B,)
+            selfm = (nb == ui[:, None]).to(wb.dtype)
+            scatter_sq = theta * theta * (gp2 * (wb * wb).sum(1)).sum()
+            n_msgs = (wb * (1.0 - selfm) > 0).to(wb.dtype).sum()
+            return loss, gp, torch.stack([u_sq, q_sq, gp2.sum(), scatter_sq, n_msgs, z, z])
         return loss, gp
     from repro_torch.robustness import byzantine as byz_lib
     selfm = (nb == ui[:, None]).to(wb.dtype)
@@ -290,6 +314,7 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
         wmsg = wmsg * prop_now[:, None]
     if recv_gate is not None:
         wmsg = wmsg * recv_gate[nb]
+    wmsg_pre = wmsg   # pre-screen delivery weights (the telemetry's baseline)
     if byz.screen:
         ok = byz_lib.screen_ok(gp_sent, byz.norm_cap)     # (B,)
         gp_eff = torch.where(ok[:, None] > 0, gp_sent, 0.0)
@@ -302,6 +327,7 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
         upd = torch.where((wmsg > 0)[:, :, None], wmsg[:, :, None] * gp_sent[:, None, :], 0.0)
     if byz.aggregation == "sum":
         scatter_add_rows_(P, (nb, vj_out[:, None].expand_as(nb)), -theta * upd)
+        scat = upd
     else:
         b_id, b_pos, b_recv, b_item = bkt
         K = gp.shape[-1]
@@ -309,23 +335,42 @@ def _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
             upd.reshape(-1, K), (wmsg > 0).to(gp.dtype).reshape(-1), b_id.reshape(-1),
             b_pos.reshape(-1), b_recv.shape[-1], byz_cap, byz)
         scatter_add_rows_(P, (b_recv, b_item), -theta * comb)
+        scat = comb
+    if tele:
+        n_pre = (wmsg_pre > 0).to(wb.dtype).sum()          # attempted deliveries
+        n_post = (wmsg > 0).to(wb.dtype).sum()             # survived the screen
+        self_sq = ((w_self[:, None] * gp) ** 2).sum()
+        scatter_sq = theta * theta * (self_sq + (scat * scat).sum())
+        return loss, gp_sent, torch.stack([u_sq, q_sq, (gp_sent * gp_sent).sum(), scatter_sq,
+                                           n_pre, n_post, n_pre - n_post])
     return loss, gp_sent
 
 
 def _sparse_batch_update(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf,
                          cfg: DMFConfig, valid=None, rid=None, dp_seed: int = 0,
-                         noise=None) -> torch.Tensor:
+                         noise=None, tele: bool = False):
     """`_sparse_batch_update_messages` for the callers that drop the sent
-    messages (the training epoch, the online refresh): the batch loss."""
-    return _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, cfg,
-                                         valid, rid, dp_seed, noise)[0]
+    messages (the training epoch, the online refresh): the batch loss, and
+    with ``tele`` its (TELE_W,) reduction vector."""
+    out = _sparse_batch_update_messages(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, cfg,
+                                        valid, rid, dp_seed, noise, tele=tele)
+    return (out[0], out[2]) if tele else out[0]
+
+
+def _tele_sum(tvecs: list, device) -> torch.Tensor:
+    """The epoch's per-batch reduction vectors summed on the device, in
+    batch order (zeros for an empty epoch)."""
+    if not tvecs:
+        return torch.zeros(TELE_W, dtype=torch.float32, device=device)
+    return torch.stack(tvecs).sum(0)
 
 
 def _epoch_scan(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, dp_seed: int,
-                cfg: DMFConfig) -> torch.Tensor:
+                cfg: DMFConfig, tele: bool = False):
     """A full epoch over (nb, B) device-resident minibatches, in place on
     U/P/Q; returns the (nb,) per-batch losses, still on the device — the
-    loop never waits for the card.
+    loop never waits for the card. With ``tele``, also the (TELE_W,) sum
+    of the batches' reduction vectors, on the device too.
 
     DP (``cfg.dp``): the epoch's whole (nb·B, K) noise block is drawn
     before the loop in one `ops.gauss_counter` launch — row b·B+k of the
@@ -339,15 +384,21 @@ def _epoch_scan(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, dp_seed: int,
         noise = _dp_noise_rows(rid, dp_seed, cfg, K)
         if noise is not None:
             noise = noise.reshape(nb, B, K)
-    losses = [
-        _sparse_batch_update(
+    losses, tvecs = [], []
+    for b in range(nb):
+        out = _sparse_batch_update(
             U, P, Q, nbr_idx, nbr_wgt, ui[b], vj[b], r[b], conf[b], cfg,
             rid=None if rid is None else rid[b], dp_seed=dp_seed,
-            noise=None if noise is None else noise[b])
-        for b in range(nb)]
-    if not losses:
-        return torch.zeros(0, dtype=torch.float32, device=U.device)
-    return torch.stack(losses)
+            noise=None if noise is None else noise[b], tele=tele)
+        if tele:
+            out, tvec = out
+            tvecs.append(tvec)
+        losses.append(out)
+    stacked = (torch.stack(losses) if losses
+               else torch.zeros(0, dtype=torch.float32, device=U.device))
+    if tele:
+        return stacked, _tele_sum(tvecs, U.device)
+    return stacked
 
 
 def sample_with_negatives(
@@ -421,9 +472,19 @@ def epoch_dp_inputs(cfg: DMFConfig, rng: np.random.Generator, n: int):
     return rid, mechanism.epoch_noise_seed(rng, cfg)
 
 
+def _read_epoch(losses: torch.Tensor, tsum: torch.Tensor | None):
+    """The epoch's one host read: float64(Σ per-batch fp32 losses), and
+    with telemetry the (TELE_W,) reduction sum copied in the same read."""
+    if tsum is None:
+        return float(losses.cpu().numpy().astype(np.float64).sum()), None
+    host = torch.cat([losses, tsum]).cpu().numpy()
+    nb = losses.shape[0]
+    return float(host[:nb].astype(np.float64).sum()), host[nb:]
+
+
 def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
-                rng: np.random.Generator, accountant=None,
-                device="cuda") -> tuple[DMFState, float]:
+                rng: np.random.Generator, accountant=None, device="cuda",
+                tele: bool = False):
     """One epoch over the sparse neighbor table (``prop``: a
     `graph.NeighborTable`, or a dense (I, I) M, converted per call), in
     place on ``state``, which must lie on ``device``. The rng draws follow
@@ -431,7 +492,8 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
 
     ``accountant`` (a `privacy.GaussianAccountant`) observes the epoch's
     realized minibatch stream. Returns the state and float64(Σ per-batch
-    fp32 losses) / rows, read from the card once."""
+    fp32 losses) / rows, read from the card once; with ``tele``, also the
+    epoch's (TELE_W,) float32 reduction sum, read in the same copy."""
     dev = _require_state_on(state, device, "train_epoch")
     nbr = _as_neighbor_table(prop, dev)
     ui, vj, r, conf = sample_epoch(train, cfg, rng)
@@ -444,9 +506,12 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     ui_d, vj_d = (torch.as_tensor(x[:n].reshape(nb, B), dtype=torch.int64, device=dev)
                   for x in (ui, vj))
     r_d, conf_d = (torch.as_tensor(x[:n].reshape(nb, B), device=dev) for x in (r, conf))
-    losses = _epoch_scan(state.U, state.P, state.Q, nbr.idx, nbr.wgt,
-                         ui_d, vj_d, r_d, conf_d, dp_seed, cfg)
-    total = float(losses.cpu().numpy().astype(np.float64).sum())
+    out = _epoch_scan(state.U, state.P, state.Q, nbr.idx, nbr.wgt,
+                      ui_d, vj_d, r_d, conf_d, dp_seed, cfg, tele=tele)
+    losses, tsum = out if tele else (out, None)
+    total, tstats = _read_epoch(losses, tsum)
+    if tele:
+        return state, total / max(n, 1), tstats
     return state, total / max(n, 1)
 
 
@@ -480,7 +545,7 @@ def _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg: DMFConfig, byz=None
 def _epoch_scan_churn(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, valid, prop_now,
                       recv_gate, dp_seed: int, cfg: DMFConfig, ring=None, keep_sent=False,
                       byz=None, amul=None, ashill=None, dirs=None, vjm=None, bkt=None,
-                      byz_cap: int = 0):
+                      byz_cap: int = 0, tele: bool = False):
     """`_epoch_scan` under a fault schedule, in place on U/P/Q: (1) the
     delay ring's delivery at the epoch's start (`_deliver_ring`, when
     ``ring`` is given); (2) the per-row gates ``valid``/``prop_now``
@@ -493,7 +558,10 @@ def _epoch_scan_churn(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, valid, prop_no
 
     The Byzantine arguments (``byz`` a `DefenseConfig`; ``amul``/
     ``ashill``/``vjm`` (nb, B), ``dirs`` (I, K), ``bkt`` the four bucket
-    arrays with a leading nb axis) go to every step unchanged."""
+    arrays with a leading nb axis) go to every step unchanged. With
+    ``tele``, a third return value: the (TELE_W,) device sum of the
+    batches' reduction vectors (the ring's delivery is not counted, as in
+    the reference)."""
     if ring is not None:
         _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg, byz)
     nb, B = ui.shape
@@ -505,27 +573,31 @@ def _epoch_scan_churn(U, P, Q, nbr_idx, nbr_wgt, ui, vj, r, conf, valid, prop_no
         if noise is not None:
             noise = noise.reshape(nb, B, K)
     sent = torch.empty((nb, B, K), dtype=torch.float32, device=U.device) if keep_sent else None
-    losses = []
+    losses, tvecs = [], []
     for b in range(nb):
-        loss, gp = _sparse_batch_update_messages(
+        out = _sparse_batch_update_messages(
             U, P, Q, nbr_idx, nbr_wgt, ui[b], vj[b], r[b], conf[b], cfg, valid=valid[b],
             rid=None if rid is None else rid[b], dp_seed=dp_seed,
             noise=None if noise is None else noise[b], recv_gate=recv_gate,
             prop_now=prop_now[b], byz=byz,
             amul=None if amul is None else amul[b], ashill=None if ashill is None else ashill[b],
             dirs=dirs, vjm=None if vjm is None else vjm[b],
-            bkt=None if bkt is None else tuple(x[b] for x in bkt), byz_cap=byz_cap)
-        losses.append(loss)
+            bkt=None if bkt is None else tuple(x[b] for x in bkt), byz_cap=byz_cap, tele=tele)
+        losses.append(out[0])
+        if tele:
+            tvecs.append(out[2])
         if keep_sent:
-            sent[b].copy_(gp)
-    if not losses:
-        return torch.zeros(0, dtype=torch.float32, device=U.device), sent
-    return torch.stack(losses), sent
+            sent[b].copy_(out[1])
+    stacked = (torch.stack(losses) if losses
+               else torch.zeros(0, dtype=torch.float32, device=U.device))
+    if tele:
+        return stacked, sent, _tele_sum(tvecs, U.device)
+    return stacked, sent
 
 
 def train_epoch_churn(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
                       rng: np.random.Generator, t: int, plan, ring, accountant=None,
-                      attack=None, byz=None, device="cuda") -> tuple[DMFState, float]:
+                      attack=None, byz=None, device="cuda", tele: bool = False):
     """`train_epoch` under a compiled `ChurnPlan` for epoch ``t``, in place
     on ``state``: the SAME sampled stream (same rng draws, the per-epoch DP
     seed included), offline senders' rows zeroed on the host (conf=0 and
@@ -538,7 +610,9 @@ def train_epoch_churn(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     the sender boundary and needs ``byz`` (a `DefenseConfig`;
     ``DefenseConfig()`` for an undefended channel), which turns on
     screening / robust aggregation. The ring buffers the SENT messages,
-    re-addressed as shill rows are (``vjm``)."""
+    re-addressed as shill rows are (``vjm``). ``tele`` appends the epoch's
+    (TELE_W,) reduction sum, read with the losses, as `train_epoch`
+    does."""
     dev = _require_state_on(state, device, "train_epoch_churn")
     if attack is not None and byz is None:
         raise ValueError("an attack needs a DefenseConfig (DefenseConfig() for an "
@@ -581,17 +655,21 @@ def train_epoch_churn(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
         bkt = (up(groups.bucket_id, torch.int64), up(groups.pos, torch.int64),
                up(groups.recv, torch.int64), up(groups.item, torch.int64))
         byz_cap = groups.cap
-    losses, sent = _epoch_scan_churn(
+    out = _epoch_scan_churn(
         state.U, state.P, state.Q, nbr.idx, nbr.wgt, up(ui2, torch.int64),
         up(vj2, torch.int64), up(r[:n].reshape(shape)), up(conf2),
         up(sender_on.astype(np.float32)), up(prop_now.astype(np.float32)),
         up(on.astype(np.float32)), dp_seed, cfg, ring=ring_dev, keep_sent=ring is not None,
         byz=byz, amul=amul, ashill=ashill, dirs=dirs,
-        vjm=None if byz is None else up(vjm, torch.int64), bkt=bkt, byz_cap=byz_cap)
+        vjm=None if byz is None else up(vjm, torch.int64), bkt=bkt, byz_cap=byz_cap, tele=tele)
+    losses, sent = out[:2]
     if ring is not None:
         ring.write(t, sent.reshape(n, -1), ui2, vjm if byz is not None else vj2, due)
-    total = float(losses.cpu().numpy().astype(np.float64).sum())
-    return state, total / max(int(sender_on.sum()), 1)
+    total, tstats = _read_epoch(losses, out[2] if tele else None)
+    l = total / max(int(sender_on.sum()), 1)
+    if tele:
+        return state, l, tstats
+    return state, l
 
 
 def scores(U: torch.Tensor, P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
@@ -616,6 +694,8 @@ class FitResult:
     privacy: dict | None = None     # accountant summary when DP noise is on
     diverged_at: int | None = None  # epoch whose update went non-finite
                                     # (only set under on_nonfinite="halt")
+    telemetry: list | None = None   # per-epoch event dicts under
+                                    # fit(telemetry=True) (obs/telemetry.py)
 
 
 class DivergenceError(RuntimeError):
@@ -697,6 +777,8 @@ def fit(
     attack=None,
     defense=None,
     on_nonfinite: str = "warn",
+    telemetry: bool = False,
+    telemetry_out=None,
     log_every: int = 0,
     device="cuda",
 ) -> FitResult:
@@ -726,12 +808,25 @@ def fit(
     routes epochs through the churn path (the trivial all-online plan when
     ``churn`` is None); both None leave the fault-free epoch untouched.
 
+    Observability (obs/): ``telemetry=True`` (or a ``telemetry_out``
+    JSONL path) collects one event dict per epoch — loss, update norms,
+    released and scattered message mass, message counts, DP ε so far,
+    churn online count, delay-ring occupancy, screening accepts and
+    rejects — into `FitResult.telemetry`. The device half is read-only
+    reductions summed on the card and read once an epoch with the losses:
+    factor trajectories are bit for bit those of a run without it. Each
+    epoch runs inside a ``fit.epoch`` span of the global tracer
+    (`obs.trace.configure_tracing`).
+
     ``on_nonfinite``: "warn" (default) warns once on a non-finite epoch loss
     and goes on; "raise" raises `DivergenceError`; "halt" stops, returns the
     last finite state (a clone taken before each epoch, since the epoch
     updates in place) and sets `FitResult.diverged_at`."""
     if on_nonfinite not in ("warn", "raise", "halt"):
         raise ValueError(f"on_nonfinite={on_nonfinite!r} (warn, raise or halt)")
+    tele_on = bool(telemetry) or telemetry_out is not None
+    if tele_on and dense_reference:
+        raise ValueError("telemetry rides the sparse epoch, not dense_reference")
     dev = device_lib.resolve(device)
     rng = np.random.default_rng(cfg.seed if seed is None else seed)
     state = init_state(cfg, rng, device=dev)
@@ -749,6 +844,10 @@ def fit(
         prop = _dense_matrix(M, dev)
     else:
         prop = _as_neighbor_table(M, dev)
+    collector = None
+    if tele_on:
+        from repro_torch.obs import telemetry as tele_lib
+        collector = tele_lib.EpochCollector(jsonl_path=telemetry_out)
     logger = logging.getLogger("repro_torch.dmf") if log_every else None
     tr_losses, te_losses = [], []
     start = 0
@@ -758,50 +857,64 @@ def fit(
             resume_from, like_state=state, ring=ring, accountant=accountant, device=dev)
     diverged_at = None
     warned = False
-    for t in range(start, epochs):
-        if on_nonfinite == "halt":
-            prev = DMFState(state.U.clone(), state.P.clone(), state.Q.clone())
-        if plan is not None:
-            state, l = train_epoch_churn(state, prop, train, cfg, rng, t, plan, ring,
-                                         accountant=accountant, attack=attack_plan, byz=byz,
-                                         device=dev)
-        elif dense_reference:
-            state, l = train_epoch_dense(state, prop, train, cfg, rng, device=dev)
-        else:
-            state, l = train_epoch(state, prop, train, cfg, rng, accountant=accountant,
-                                   device=dev)
-        tr_losses.append(l)
-        if on_nonfinite == "warn":
-            if not warned and not np.isfinite(l):
-                warnings.warn(
-                    f"epoch {t}: non-finite training loss {l!r} — training has "
-                    "diverged (see fit(on_nonfinite=...))", RuntimeWarning, stacklevel=2)
-                warned = True
-        elif not _epoch_finite(state, l):
-            if on_nonfinite == "raise":
-                raise DivergenceError(f"epoch {t}: non-finite loss or factors (loss={l!r})")
-            state = prev             # halt: last finite state wins
-            diverged_at = t
-            break
-        if test is not None:
-            te_losses.append(test_loss(state, test))
-        if logger is not None and ((t + 1) % log_every == 0 or t == epochs - 1):
-            msg = f"epoch {t + 1}/{epochs} train_loss={l:.6f}"
+    try:
+        for t in range(start, epochs):
+            if on_nonfinite == "halt":
+                prev = DMFState(state.U.clone(), state.P.clone(), state.Q.clone())
+            t0 = time.perf_counter() if tele_on else 0.0
+            with trace_lib.span("fit.epoch", epoch=t):
+                if plan is not None:
+                    out = train_epoch_churn(state, prop, train, cfg, rng, t, plan, ring,
+                                            accountant=accountant, attack=attack_plan, byz=byz,
+                                            device=dev, tele=tele_on)
+                elif dense_reference:
+                    out = train_epoch_dense(state, prop, train, cfg, rng, device=dev)
+                else:
+                    out = train_epoch(state, prop, train, cfg, rng, accountant=accountant,
+                                      device=dev, tele=tele_on)
+            state, l = out[:2]
+            tr_losses.append(l)
+            if on_nonfinite == "warn":
+                if not warned and not np.isfinite(l):
+                    warnings.warn(
+                        f"epoch {t}: non-finite training loss {l!r} — training has "
+                        "diverged (see fit(on_nonfinite=...))", RuntimeWarning, stacklevel=2)
+                    warned = True
+            elif not _epoch_finite(state, l):
+                if on_nonfinite == "raise":
+                    raise DivergenceError(f"epoch {t}: non-finite loss or factors (loss={l!r})")
+                state = prev             # halt: last finite state wins
+                diverged_at = t
+                break
             if test is not None:
-                msg += f" test_loss={te_losses[-1]:.6f}"
-            if accountant is not None and accountant.eps_trajectory:
-                msg += f" eps={accountant.eps_trajectory[-1]:.4f}"
-            logger.info(msg)
-        if callback is not None:
-            callback(t, state, l)
-        if checkpoint_dir is not None and checkpoint_every > 0 and (t + 1) % checkpoint_every == 0:
-            from repro_torch.robustness import recovery
-            recovery.save_training(checkpoint_dir, step=t + 1, state=state, rng=rng, ring=ring,
-                                   accountant=accountant, train_losses=tr_losses,
-                                   test_losses=te_losses)
+                te_losses.append(test_loss(state, test))
+            if collector is not None:
+                collector.record(t, train_loss=l, device_stats=out[2],
+                                 test_loss=te_losses[-1] if test is not None else None,
+                                 accountant=accountant, plan=plan, ring=ring, byz=byz,
+                                 wall_s=time.perf_counter() - t0)
+            if logger is not None and ((t + 1) % log_every == 0 or t == epochs - 1):
+                msg = f"epoch {t + 1}/{epochs} train_loss={l:.6f}"
+                if test is not None:
+                    msg += f" test_loss={te_losses[-1]:.6f}"
+                if accountant is not None and accountant.eps_trajectory:
+                    msg += f" eps={accountant.eps_trajectory[-1]:.4f}"
+                logger.info(msg)
+            if callback is not None:
+                callback(t, state, l)
+            if (checkpoint_dir is not None and checkpoint_every > 0
+                    and (t + 1) % checkpoint_every == 0):
+                from repro_torch.robustness import recovery
+                recovery.save_training(checkpoint_dir, step=t + 1, state=state, rng=rng, ring=ring,
+                                       accountant=accountant, train_losses=tr_losses,
+                                       test_losses=te_losses)
+    finally:   # the JSONL stream closes on a raise too
+        if collector is not None:
+            collector.close()
     return FitResult(state, tr_losses, te_losses,
                      privacy=accountant.summary() if accountant else None,
-                     diverged_at=diverged_at)
+                     diverged_at=diverged_at,
+                     telemetry=collector.events if collector else None)
 
 
 def evaluate(

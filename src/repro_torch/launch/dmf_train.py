@@ -4,7 +4,9 @@ model and graph hyperparameters, the dense oracle, the DP mechanism,
 churn (`--churn-*`), Byzantine attacks and defenses (`--byz-*`,
 `--screen`, `--norm-cap`, `--aggregation`, `--trim-frac`), checkpoints
 (`--checkpoint-dir`, `--checkpoint-every`, `--resume-from`), the
-divergence sentinel, logging and the seed, plus ``--device``.
+divergence sentinel, telemetry, tracing and metrics (`--telemetry`,
+`--telemetry-out`, `--trace-out`, `--metrics-out`), logging and the seed,
+plus ``--device``.
 
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --epochs 20
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --full --dp-sigma 1.0 --dp-clip 0.5
@@ -12,15 +14,18 @@ divergence sentinel, logging and the seed, plus ``--device``.
     PYTHONPATH=src python -m repro_torch.launch.dmf_train --full --epochs 12 \
         --churn-dropout 0.2 --churn-delay 2 --dp-sigma 0.5 --dp-clip 0.25 \
         --screen --aggregation trim --checkpoint-dir ck --checkpoint-every 4
-    PYTHONPATH=src python -m repro_torch.launch.dmf_train --device cpu --epochs 5
+    PYTHONPATH=src python -m repro_torch.launch.dmf_train --device cpu --epochs 5 \
+        --telemetry-out tele.jsonl --trace-out trace.json --metrics-out metrics.jsonl
 
 Runs on the card unless ``--device cpu`` is given. Prints the reference's
 lines: ``churn ...`` and ``byzantine ...`` when those are on, the
 calibrated τ for ``--screen --norm-cap 0``, the dataset and propagation
 line, ``epoch N train_loss`` every 10 epochs, ``training halted`` on a
-halted divergence, a ``privacy {...}`` line when DP noise is on, and the
-final P@k/R@k JSON. The telemetry, tracing, metrics, sharding and
-``--use-pallas`` flags are not ported; argparse rejects them.
+halted divergence, a ``privacy {...}`` line when DP noise is on, a
+``telemetry {...}`` line with the last epoch's event, ``trace written to
+...`` and ``metrics snapshot appended to ...`` when those are asked for,
+and the final P@k/R@k JSON. The sharding and ``--use-pallas`` flags are
+not ported; argparse rejects them.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import numpy as np
 from repro_torch import device as device_lib
 from repro_torch.core import dmf, graph
 from repro_torch.data import synthetic_poi
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as trace_lib
 from repro_torch.privacy import screening_threshold, sigma_for_epsilon
 from repro_torch.robustness import AttackConfig, ChurnConfig, DefenseConfig
 
@@ -118,6 +125,20 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume-from", default=None,
                     help="a step_<t> dir or checkpoint root: restore and continue, "
                          "bit-identical to the uninterrupted run")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-epoch training telemetry (obs/telemetry.py): loss, update and "
+                         "message norms, DP ε, online counts, ring occupancy, screening "
+                         "counts; factor trajectories stay bit for bit those of a run "
+                         "without it")
+    ap.add_argument("--telemetry-out", default=None,
+                    help="stream each epoch's telemetry event as one JSON line to this file "
+                         "(implies --telemetry)")
+    ap.add_argument("--trace-out", default=None,
+                    help="enable span tracing and write a Chrome-trace/Perfetto JSON here "
+                         "when the run finishes")
+    ap.add_argument("--metrics-out", default=None,
+                    help="append a final metrics-registry snapshot (JSONL) here when the "
+                         "run finishes")
     ap.add_argument("--log-every", type=int, default=0,
                     help="log train/test loss (and ε so far) every N epochs via "
                          "the `repro_torch.dmf` logger (0 = off)")
@@ -153,6 +174,8 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
     dev = device_lib.resolve(args.device)
     if args.log_every > 0:
         logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
+    if args.trace_out:
+        trace_lib.configure_tracing(True)
     maker = (synthetic_poi.foursquare_like if args.dataset == "foursquare"
              else synthetic_poi.alipay_like)
     ds = maker(reduced=not args.full, seed=args.seed)
@@ -213,7 +236,9 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
                   dense_reference=args.dense_reference, dp_delta=args.dp_delta,
                   churn=churn, checkpoint_dir=args.checkpoint_dir,
                   checkpoint_every=args.checkpoint_every, resume_from=args.resume_from,
-                  attack=attack, defense=defense, on_nonfinite=args.on_nonfinite, log_every=args.log_every, device=dev)
+                  attack=attack, defense=defense, on_nonfinite=args.on_nonfinite,
+                  telemetry=args.telemetry, telemetry_out=args.telemetry_out,
+                  log_every=args.log_every, device=dev)
     if res.diverged_at is not None:
         print(f"training halted: diverged at epoch {res.diverged_at}")
     ev = dmf.evaluate(res.state, ds.train, ds.test, ds.n_users, ds.n_items, device=dev)
@@ -221,6 +246,17 @@ def main(argv: list[str] | None = None) -> dict[str, float]:
         pv = dict(res.privacy)
         pv.pop("eps_trajectory", None)
         print("privacy " + json.dumps(pv))
+    if res.telemetry:
+        last = res.telemetry[-1]
+        print("telemetry " + json.dumps(
+            {k: last[k] for k in ("epoch", "train_loss", "n_messages") if k in last}))
+    if args.trace_out:
+        tracer = trace_lib.get_tracer()
+        tracer.export_chrome_trace(args.trace_out)
+        print(f"trace written to {args.trace_out} ({len(tracer.events())} events)")
+    if args.metrics_out:
+        obs_metrics.get_registry().write_jsonl(args.metrics_out, event="dmf_train_final")
+        print(f"metrics snapshot appended to {args.metrics_out}")
     print(json.dumps({k: round(v, 4) for k, v in ev.items()}))
     return ev
 

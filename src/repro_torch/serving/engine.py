@@ -1,9 +1,12 @@
 """ServingEngine — microbatched, geo-pruned, online-updatable POI serving.
 Port of `src/repro/serving/engine.py:55-157, 193-590` for one device:
-`ServingConfig`, `EngineStats`, `_dispatch_pruned`, `_dispatch_dense`,
-`_dispatch_rows` and `ServingEngine` (`recommend`, `serve_stream`,
-`serve_microbatch`, `ingest`, the popularity fallback). Sharded serving
-(`serve_wave`, the SPMD dispatch) and trace spans are not ported yet.
+`ServingConfig`, `EngineStats` (with `publish`), `_dispatch_pruned`,
+`_dispatch_dense`, `_dispatch_rows` and `ServingEngine` (`recommend`,
+`serve_stream`, `serve_microbatch`, `ingest`, the popularity fallback),
+with the reference's trace spans ``engine.dispatch``,
+``engine.serve_microbatch`` and ``engine.ingest``. Sharded serving
+(`serve_wave`, the SPMD dispatch, its ``engine.serve_wave`` span) is not
+ported yet.
 
 Request path:
 
@@ -37,6 +40,7 @@ from repro_torch.core import graph as graph_lib
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as trace_lib
 from repro_torch.serving import online as online_lib
 from repro_torch.serving.candidates import CandidateIndex
 
@@ -73,6 +77,19 @@ class EngineStats:
     def dispatch_latency_percentiles(self, qs=(50, 95, 99)) -> dict[str, float]:
         """Per-dispatch wall-time percentiles (not per request)."""
         return obs_metrics.latency_percentiles(self.dispatch_seconds, qs)
+
+    def publish(self, registry=None, prefix: str = "serving") -> None:
+        """Mirror the counters and latency streams into a metrics registry
+        (the global one by default). Counters export as gauges and the
+        latency streams replace their histograms' series: this object is
+        the source of truth and may be `reset()`."""
+        reg = registry if registry is not None else obs_metrics.get_registry()
+        for f in ("n_requests", "n_dispatches", "n_refreshes", "n_events", "n_fallbacks"):
+            reg.gauge(f"{prefix}_{f}").set(getattr(self, f))
+        for nm in ("dispatch_seconds", "request_seconds"):
+            h = reg.histogram(f"{prefix}_{nm}")
+            h.reset()
+            h.observe_many(getattr(self, nm))
 
 
 def _dispatch_pruned(U, V, seen, bucket_items, user_bucket, uids, k: int):
@@ -196,14 +213,16 @@ class ServingEngine:
         idx) per microbatch, one dispatch each, padding sliced off."""
         for buf, n, arr in self._microbatches(user_ids, _t_arrival):
             t0 = time.perf_counter()
-            uids = torch.as_tensor(buf, device=self.device)
-            if self.cfg.prune:
-                vals, idx = _dispatch_pruned(
-                    self.state.U, self.V, self.seen, self._bucket_items,
-                    self._user_bucket, uids, self.cfg.k)
-            else:
-                vals, idx = _dispatch_dense(self.state.U, self.V, self.seen, uids, self.cfg.k)
-            vals, idx = vals.cpu().numpy(), idx.cpu().numpy()   # waits for the card
+            with trace_lib.span("engine.dispatch", n_real=n, prune=self.cfg.prune):
+                uids = torch.as_tensor(buf, device=self.device)
+                if self.cfg.prune:
+                    vals, idx = _dispatch_pruned(
+                        self.state.U, self.V, self.seen, self._bucket_items,
+                        self._user_bucket, uids, self.cfg.k)
+                else:
+                    vals, idx = _dispatch_dense(self.state.U, self.V, self.seen, uids,
+                                                self.cfg.k)
+                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()   # waits for the card
             t1 = time.perf_counter()
             self.stats.dispatch_seconds.append(t1 - t0)
             self.stats.n_dispatches += 1
@@ -227,10 +246,11 @@ class ServingEngine:
         buf[:n] = np.where(flags, 0, user_ids)
         buf[n:] = buf[0]           # pad with a real user id (results dropped)
         t0 = time.perf_counter()
-        vals, idx = _dispatch_rows(
-            self.state.U, self.state.P, self.state.Q, self.seen, self._bucket_items,
-            self._user_bucket, torch.as_tensor(buf, device=self.device), k, self.cfg.prune)
-        vals, idx = vals.cpu().numpy()[:n], idx.cpu().numpy()[:n]
+        with trace_lib.span("engine.serve_microbatch", n_real=n):
+            vals, idx = _dispatch_rows(
+                self.state.U, self.state.P, self.state.Q, self.seen, self._bucket_items,
+                self._user_bucket, torch.as_tensor(buf, device=self.device), k, self.cfg.prune)
+            vals, idx = vals.cpu().numpy()[:n], idx.cpu().numpy()[:n]   # waits for the card
         dt = time.perf_counter() - t0
         self.stats.dispatch_seconds.append(dt)
         self.stats.request_seconds.extend([dt] * n)
@@ -290,9 +310,10 @@ class ServingEngine:
         assert self.nbr is not None and self.dmf_cfg is not None, (
             "engine built without nbr/dmf_cfg — online refresh unavailable")
         events = np.asarray(events)
-        self.state, report = online_lib.online_refresh(
-            self.state, self.nbr, events, self.dmf_cfg, ocfg,
-            rng if rng is not None else self._rng)
+        with trace_lib.span("engine.ingest", n_events=len(events)):
+            self.state, report = online_lib.online_refresh(
+                self.state, self.nbr, events, self.dmf_cfg, ocfg,
+                rng if rng is not None else self._rng)
         if len(report.touched_users):
             t = torch.as_tensor(report.touched_users, device=self.device)
             self.V[t] = self.state.P[t] + self.state.Q[t]

@@ -30,10 +30,9 @@ Quantization, exact to the reference's numpy and bf16 cast bit for bit:
 
 `shard_rows` slices the store along `sharding.dmf.shard_row_slices`, so
 requests route by ``user // rows_per_shard``; shard-local results equal
-the unsharded store's bit for bit.
-
-Not ported: the reference's ``tiled.dispatch`` trace span (the port has
-no tracer yet).
+the unsharded store's bit for bit. Each dispatch runs in the reference's
+``tiled.dispatch`` trace span (``mode=``), which ends at the slate's copy
+back.
 """
 from __future__ import annotations
 
@@ -45,6 +44,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.kernels import ops
+from repro_torch.obs import trace as trace_lib
 from repro_torch.serving.candidates import CandidateIndex
 from repro_torch.serving.engine import EngineStats, ServingConfig
 
@@ -367,16 +367,18 @@ class TiledServingEngine:
         place (`ops.serve_topk_tiled_quant`: no gathers); fp32 gathers the
         windows off the device-resident store first."""
         st, k = self.store, self.cfg.k
-        ids = torch.as_tensor(uids, device=st.device)
-        if self.mode == "fp32":
-            cand = self._bucket_items[self._user_bucket[ids]]
-            vals, idx = ops.serve_topk_window(st.U[ids], st.slab[ids], cand, st.seen[ids], k)
-        else:
-            Vq, scale = ((st.q_codes, st.q_scale) if self.mode == "int8"
-                         else (st.slab_bf16, None))
-            vals, idx = ops.serve_topk_tiled_quant(ids, st.U, Vq, scale, self._user_bucket,
-                                                   self._bucket_items, st.seen, k)
-        return vals.cpu().numpy(), idx.cpu().numpy()     # waits for the card
+        with trace_lib.span("tiled.dispatch", mode=self.mode):
+            ids = torch.as_tensor(uids, device=st.device)
+            if self.mode == "fp32":
+                cand = self._bucket_items[self._user_bucket[ids]]
+                vals, idx = ops.serve_topk_window(st.U[ids], st.slab[ids], cand, st.seen[ids],
+                                                  k)
+            else:
+                Vq, scale = ((st.q_codes, st.q_scale) if self.mode == "int8"
+                             else (st.slab_bf16, None))
+                vals, idx = ops.serve_topk_tiled_quant(ids, st.U, Vq, scale, self._user_bucket,
+                                                       self._bucket_items, st.seen, k)
+            return vals.cpu().numpy(), idx.cpu().numpy()     # waits for the card
 
     def recommend(self, user_ids, return_flags: bool = False):
         """Serve a batch of user ids, results in input order — the contract

@@ -43,7 +43,11 @@ defense gives plain `fit`'s bits (DP off and on), a resumed churn + DP +
 screened run gives the uninterrupted run's bits on the card, an attacked,
 defended, churned DP run agrees with the same run on the CPU (losses 1e-4
 relative, factors 1e-5 absolute), and `robust_combine` on the card agrees
-with the CPU (median bit for bit, trim within 1e-6 relative).
+with the CPU (median bit for bit, trim within 1e-6 relative). Observability
+and scheduling on the card: a DP `fit` with telemetry gives the bits of
+the same fit without it, the scheduler's slates equal a direct `recommend`
+bit for bit, and a profiled scheduler run's trace holds a kernel event for
+every dispatch.
 """
 import numpy as np
 import pytest
@@ -1183,3 +1187,64 @@ def test_robust_combine_on_the_card_agrees_with_the_cpu(dev, aggregation):
     np.testing.assert_array_equal(np.isnan(card.cpu().numpy()), np.isnan(host.numpy()))
     np.testing.assert_allclose(card.cpu().numpy(), host.numpy(),
                                rtol=0 if aggregation == "median" else 1e-6, atol=0)
+
+
+def test_telemetry_leaves_a_dp_fit_bit_for_bit_on_the_card(dev):
+    import dataclasses
+
+    from repro_torch.core import dmf
+    ds, nbr, cfg = _robust_world(dev)
+    cfg = dataclasses.replace(cfg, dp_sigma=1.0, dp_clip=0.5, dp_seed=3)
+    off = dmf.fit(cfg, ds.train, nbr, epochs=2, device=dev)
+    on = dmf.fit(cfg, ds.train, nbr, epochs=2, telemetry=True, device=dev)
+    assert on.train_losses == off.train_losses and on.privacy == off.privacy
+    for n in "UPQ":
+        assert torch.equal(getattr(on.state, n), getattr(off.state, n)), n
+    assert [ev["epoch"] for ev in on.telemetry] == [0, 1]
+    assert all(ev["n_messages"] > 0 and ev["dp_eps"] > 0 for ev in on.telemetry)
+
+
+def _scheduled_engine(dev):
+    from repro_torch.core import dmf
+    from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+    ds, nbr, cfg = _robust_world(dev)
+    state = dmf.fit(cfg, ds.train, nbr, epochs=2, device=dev).state
+
+    def engine():
+        return ServingEngine(state, index_from_dataset(ds), ServingConfig(microbatch=8, k=5),
+                             train=ds.train, nbr=nbr, dmf_cfg=cfg, device=dev)
+    return ds, engine
+
+
+def test_scheduler_slates_equal_recommend_on_the_card(dev):
+    from repro_torch.scheduling import Scheduler, WorkloadConfig, generate
+    ds, engine = _scheduled_engine(dev)
+    reqs = generate(WorkloadConfig(n_requests=60, rate_rps=500.0, users="powerlaw", slo_ms=0,
+                                   seed=3), ds.n_users)
+    rep = Scheduler(engine()).run(reqs, ingest_events=[ds.test[:8]])
+    served = rep.served()
+    assert len(served) == len(reqs) and rep.n_ingest_windows == 1
+    pre = [r for r in served if r.ingest_epoch == 0]
+    vals, idx, flags = engine().recommend([r.user for r in pre], return_flags=True)
+    for j, r in enumerate(pre):
+        np.testing.assert_array_equal(r.vals, vals[j])
+        np.testing.assert_array_equal(r.idx, idx[j])
+        assert r.fallback == bool(flags[j])
+
+
+def test_profiled_scheduler_run_records_a_kernel_per_dispatch(dev, tmp_path):
+    from repro_torch.obs import trace as trace_lib
+    from repro_torch.scheduling import Scheduler, WorkloadConfig, generate
+    ds, engine = _scheduled_engine(dev)
+    eng = engine()
+    eng.serve_microbatch(np.arange(8))        # builds the kernels outside the window
+    reqs = generate(WorkloadConfig(n_requests=64, rate_rps=2000.0, slo_ms=0, seed=1),
+                    ds.n_users)
+    tracer = trace_lib.Tracer(enabled=True)
+    launches = ops.serve_topk_rows.launches
+    with tracer.torch_profiler(tmp_path, device=dev):
+        rep = Scheduler(eng).run(reqs)
+    n_disp = sum(rep.n_dispatches_per_shard)
+    assert ops.serve_topk_rows.launches - launches == n_disp
+    busy = trace_lib.device_busy(tracer.profiler_traces[-1])
+    assert busy["n_kernel"] >= n_disp and 0.0 < busy["busy_share"] <= 1.0

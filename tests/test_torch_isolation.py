@@ -32,7 +32,9 @@ def test_every_module_imports_without_jax_or_repro():
         "    importlib.import_module(n)\n"
         "new = {'repro_torch.checkpoint.ckpt', 'repro_torch.robustness.faults',\n"
         "       'repro_torch.robustness.byzantine', 'repro_torch.robustness.recovery',\n"
-        "       'repro_torch.privacy.audit'}\n"
+        "       'repro_torch.privacy.audit', 'repro_torch.obs.trace',\n"
+        "       'repro_torch.obs.telemetry', 'repro_torch.scheduling.workload',\n"
+        "       'repro_torch.scheduling.metrics', 'repro_torch.scheduling.scheduler'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
