@@ -3,8 +3,9 @@
 the GPU: builds its CUDA kernels, holds each against its plain PyTorch
 version on the card, drives the serving and the training slices, the
 paper's baseline comparison, the robustness slice (churn, Byzantine
-defenses, crash-resume, the leakage audit) and the scheduler with the
+defenses, crash-resume, the leakage audit), the scheduler with the
 observability layer (telemetry, spans, the profiler's device busy share)
+and learner-sharded training (one rank per process, over nccl and gloo)
 at full Foursquare scale and
 million-user tiled serving at the reference's million configuration, and
 times each kernel beside its bound.
@@ -164,6 +165,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       `SchedulerReport.publish` go into the registry, which `write_jsonl`
       writes under build/; `device_memory_snapshot` must show allocated
       bytes. The ``scheduler`` and ``obs`` lines print before phase 4.
+   g. sharded training (learner sharding over `torch.distributed`, one
+      rank per process, started by `launch.mesh.spawn_ranks` after phase
+      1's build), counted as one path summed over the ranks: D=1 over nccl
+      and D=2 over gloo (two ranks on the one card), one spawn each. For
+      DP off and σ=1, C=0.5: the unsharded `fit` (rank 0 alone) and the
+      sharded `fit`, 5 epochs each, in turns (unsharded, sharded, sharded,
+      unsharded; the sharded repeat by hand, its losses bit for bit the
+      first's), losses and factors within 1e-5; `evaluate(n_shards=D)`
+      equal to the unsharded `evaluate`.
+      At D=1 (`fit` is the unsharded path there, as in the reference) the
+      sharded side is the sharded epoch driven by hand over nccl
+      (`train_epoch_sharded`, `evaluate_sharded`). At D=2: the trivial
+      churn plan with an inactive defense for 3 epochs (losses bit for bit
+      the plain sharded run's), screen + trim 0.25 under e's λ=100 attack
+      at its τ for 3 epochs within 1e-6 (losses) and 1e-5 (factors) of the
+      unsharded run, and 3 epochs by hand with every collective timed
+      between two device synchronisations (the exchange's wall share).
+      Kernels 2, 3, 7 and 8a must launch. The ``sharded`` line prints
+      before phase 4; a rank that fails, times out or misses a hold fails
+      the script.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -279,6 +300,13 @@ SCHED_REQUESTS, SCHED_SLO_MS, SCHED_LOADS, SCHED_ZIPF = 1024, 50.0, (0.5, 1.0, 2
 SCHED_ONOFF = dict(process="onoff", burst_factor=4.0, duty_cycle=0.2, period_s=0.05)
 SCHED_CAPACITY_REPS, SCHED_INGEST_EVENTS, SCHED_HALF, SCHED_GAP_S = 5, 32, 48, 5.0
 TELE_DP_EPOCHS, TELE_BYZ_EPOCHS = 3, 2
+# phase 3g: learner-sharded training at full width, one spawn per group
+SHARD_GROUPS = (("nccl", 1), ("gloo", 2))
+SHARD_EPOCHS, SHARD_SHORT_EPOCHS = 5, 3
+SHARD_TIMEOUT_S = 300.0
+BYZ_LOSS_TOL = 1e-6           # the reference's cross-shard bar for defended runs
+SHARDED_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
+                   "gauss_counter")
 # --obs-detail only: what tracing and telemetry cost, where an epoch's time goes
 SCHED_TRACE_TURNS = 2          # (plain, tracing, tracing, plain) repeats of the 1x stream
 SPAN_COST_N, SPAN_COST_DISPATCHES = 5000, 50   # empty spans; back-to-back dispatches a turn
@@ -2213,6 +2241,169 @@ def obs_snapshot(sched) -> dict:
                                   "allocated_bytes.all.peak", 0)}}
 
 
+# ------------------------------------------------------------ sharded training
+def sharded_rank(rank: int, D: int, tables: dict, cfg, tau: float, device: str) -> dict:
+    """Phase 3g on one rank of D (spawned by `launch.mesh.spawn_ranks`).
+
+    For DP off and on: the unsharded `fit` on rank 0 alone (the others wait
+    at a barrier) and the sharded run on every rank, in turns (unsharded,
+    sharded, sharded, unsharded); the first sharded run held within 1e-5 of
+    the first unsharded one (losses and factors) and its losses repeated
+    bit for bit. The first sharded run is `fit` at D>1; at D=1, where `fit`
+    is the unsharded path as in the reference, and for the repeat, the
+    sharded epoch is driven by hand through `train_epoch_sharded` (with an
+    accountant, as `fit` keeps one).
+    `evaluate_sharded` of the DP-off state equal to the unsharded
+    `evaluate`. At D>1 also the trivial churn plan with an inactive
+    defense (losses bit for bit those of the plain sharded run), a screen
+    + trim run under phase 3e's λ=100 attack within 1e-6 (losses) and 1e-5
+    (factors) of the unsharded one, and the exchange's wall share of three
+    DP-off epochs by hand. Launch counts are taken only around the sharded
+    runs and summed over the ranks."""
+    import torch.distributed as dist
+
+    from repro_torch import device as device_lib
+    from repro_torch.core import dmf, graph
+    from repro_torch.kernels import ops
+    from repro_torch.privacy import GaussianAccountant
+    from repro_torch.robustness import AttackConfig, ChurnConfig, DefenseConfig
+    from repro_torch.sharding import dmf as sharded_dmf
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = device_lib.resolve(device)
+    train, test = tables["train"], tables["test"]
+    I, J = cfg.n_users, cfg.n_items
+    nbr = graph.NeighborTable(*(torch.as_tensor(tables[k], device=dev) for k in ("idx", "wgt")))
+    group = sharded_dmf.learner_group(D, dev)
+    counts = np.zeros(len(ops.KERNELS), np.int64)
+
+    def counted(fn):
+        for kern in ops.KERNELS:
+            kern.launches = 0
+        out = fn()
+        counts[:] += [kern.launches for kern in ops.KERNELS]
+        return out
+
+    def gap(a, b) -> dict:
+        return {"loss": float(np.abs(np.subtract(a.train_losses, b.train_losses)).max()),
+                "state": max(float((getattr(a.state, n) - getattr(b.state, n)).abs().max())
+                             for n in "UPQ")}
+
+    def hold(name, g, loss_tol, state_tol=STATE_TOL):
+        assert g["loss"] <= loss_tol and g["state"] <= state_tol, f"phase 3g {name} at D={D}: {g}"
+        return g
+
+    def by_hand(cs, epochs: int, plan=None, clock=None):
+        """The sharded epoch driven by hand (`train_epoch_sharded`), each
+        epoch timed on the host (it ends in the loss read), and the exchange
+        seconds an epoch when ``clock`` times the plan's collectives."""
+        plan = plan or sharded_dmf.make_shard_plan(nbr, cs, dev)
+        rng = np.random.default_rng(cs.seed)
+        st = sharded_dmf.init_local_state(cs, rng, plan)
+        acc = (GaussianAccountant(n_users=I, sigma=cs.dp_sigma, delta=1e-5)
+               if cs.dp and cs.dp_sigma > 0 else None)      # as `fit` keeps one
+        losses, secs, xs = [], [], []
+        for _ in range(epochs):
+            t0, x0 = time.perf_counter(), clock.seconds if clock else 0.0
+            losses.append(sharded_dmf.train_epoch_sharded(st, plan, train, cs, rng,
+                                                          accountant=acc, device=dev)[1])
+            secs.append(time.perf_counter() - t0)
+            xs.append(clock.seconds - x0 if clock else 0.0)
+        return dmf.FitResult(st, losses, []), secs, xs, plan
+
+    def sharded_run(cs, first: bool):
+        """(the run with its full state, or only its losses when not
+        ``first``; its epoch seconds): `fit` at D > 1 first; by hand at D=1,
+        where `fit` is the unsharded path as in the reference, and for the
+        repeat, which needs no gather of the state."""
+        if D > 1 and first:
+            return stamped_fit(dmf.fit, cs, train, nbr, epochs=SHARD_EPOCHS, device=dev)
+        res, secs, _, plan = by_hand(cs, SHARD_EPOCHS)
+        res.state = sharded_dmf.unpad_state(res.state, plan, I) if first else None
+        return res, secs
+
+    out = {"ranks": D, "backend": group.backend, "epoch_s": {}, "holds": {}}
+    kept = {}
+    for name, c in (("dp_off", cfg), ("dp_on", dataclasses.replace(cfg, **DP))):
+        cs = dataclasses.replace(c, n_shards=D)
+        turns = {"unsharded": [], "sharded": []}
+        ref = first = None
+        for who in ("unsharded", "sharded", "sharded", "unsharded"):
+            if who == "unsharded":
+                if rank == 0:
+                    res, ep = stamped_fit(dmf.fit, c, train, nbr, epochs=SHARD_EPOCHS, device=dev)
+                    turns[who].append(ep)
+                    if ref is None:
+                        ref = res
+                group.barrier()
+                continue
+            res, ep = counted(lambda: sharded_run(cs, first is None))
+            turns[who].append(ep)
+            if first is None:
+                first = res
+            else:
+                assert res.train_losses == first.train_losses, f"phase 3g {name}: repeat differs"
+            del res
+        if rank == 0:
+            out["holds"][name] = hold(name, gap(first, ref), TOL)
+        out["epoch_s"][name] = {who: [float(np.median(ep[1:])) for ep in eps]
+                                for who, eps in turns.items()}
+        if name == "dp_off":
+            kept["losses"] = first.train_losses
+            ev = counted(lambda: sharded_dmf.evaluate_sharded(first.state, train, test, I, J, D,
+                                                              device=dev))
+            if rank == 0:
+                plain = dmf.evaluate(first.state, train, test, I, J, device=dev)
+                assert ev == plain, f"phase 3g evaluate at D={D}: {ev} != {plain}"
+                out["evaluate"] = ev
+        del ref, first
+    if D > 1:
+        cs = dataclasses.replace(cfg, n_shards=D)
+        triv = counted(lambda: dmf.fit(cs, train, nbr, epochs=SHARD_SHORT_EPOCHS,
+                                       churn=ChurnConfig(), defense=DefenseConfig(), device=dev))
+        assert triv.train_losses == kept["losses"][:SHARD_SHORT_EPOCHS], "phase 3g trivial plan"
+        out["holds"]["trivial_plan_bitexact"] = True
+        del triv
+        kw = dict(epochs=SHARD_SHORT_EPOCHS, on_nonfinite="halt", device=dev,
+                  attack=AttackConfig(family="norm_inflate", frac=BYZ_FRAC, scale=BYZ_SCALE,
+                                      seed=0),
+                  defense=DefenseConfig(screen=True, norm_cap=tau, aggregation="trim",
+                                        trim_frac=0.25))
+        trim, out["epoch_s"]["screen_trim"] = counted(
+            lambda: stamped_fit(dmf.fit, cs, train, nbr, **kw))
+        if rank == 0:
+            plain = dmf.fit(cfg, train, nbr, **kw)
+            out["holds"]["screen_trim"] = hold("screen_trim", gap(trim, plain), BYZ_LOSS_TOL)
+            del plain
+        group.barrier()
+        del trim
+        clock = sharded_dmf.ExchangeClock()
+        timed = sharded_dmf.make_shard_plan(nbr, cs, dev, clock)
+        _, secs, xs, _ = counted(lambda: by_hand(cs, SHARD_SHORT_EPOCHS, timed, clock))
+        out["exchange"] = {"collectives": clock.calls, "epoch_s": secs, "exchange_s": xs,
+                           "share": [x / t for x, t in zip(xs, secs)]}
+    total = torch.as_tensor(counts, device=dev)
+    dist.all_reduce(total)
+    out["launches"] = {kern.__name__: int(c) for kern, c in zip(ops.KERNELS, total.tolist())}
+    return out
+
+
+def drive_sharded(ds, nbr, cfg, tau: float) -> dict:
+    """Phase 3g: `sharded_rank` at D=1 over nccl and at D=2 over gloo (two
+    ranks on the one card), each in one spawn; the kernels are built
+    already (phase 1)."""
+    from repro_torch.launch.mesh import spawn_ranks
+    tables = {"train": ds.train, "test": ds.test, "idx": nbr.idx.cpu().numpy(),
+              "wgt": nbr.wgt.cpu().numpy()}
+    out = {}
+    for backend, D in SHARD_GROUPS:
+        t0 = time.perf_counter()
+        out[f"D{D}"] = spawn_ranks(sharded_rank, D, backend=backend, device="cuda",
+                                   timeout_s=SHARD_TIMEOUT_S,
+                                   args=(D, tables, cfg, tau, "cuda"))
+        out[f"D{D}"]["spawn_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------- e2e turns
 def e2e_probe(root: pathlib.Path) -> dict:
     """One turn of ``--e2e-turns`` on the `repro_torch` of the checkout in
@@ -3419,6 +3610,18 @@ def main(argv=None) -> int:
     obs["launches"] = {k: launches["telemetry"][k] for k in TELE_KERNELS}
     log("obs", json.dumps(obs))
     log(f"phase 3f scheduling and observability: {time.perf_counter() - t3f} s")
+
+    t0 = time.perf_counter()
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    sharded = drive_sharded(ds, nbr, cfg, robust["byzantine"]["tau"])
+    launches["sharded"] = {kern.__name__: kern.launches + sum(
+        run["launches"][kern.__name__] for run in sharded.values()) for kern in ops.KERNELS}
+    log(f"phase 3 sharded path: {time.perf_counter() - t0} s, launches "
+        f"{json.dumps(launches['sharded'])}")
+    for name in SHARDED_KERNELS:
+        assert launches["sharded"][name] > 0, f"kernel {name} was not launched on the sharded path"
+    log("sharded", json.dumps(sharded))
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

@@ -8,12 +8,13 @@ and its thin wrapper `_sparse_batch_update` (:425-435), `_epoch_scan`
 (:438-496), the fault-injected epoch `_epoch_scan_churn` /
 `train_epoch_churn` (:499-748), `sample_with_negatives` / `sample_epoch`
 (:751-777), `train_epoch_dense` (:780-805), `_as_neighbor_table` /
-`epoch_dp_inputs` / `train_epoch` (:808-875, ``n_shards == 1``), `scores`
-/ `test_loss` (:878-890), `FitResult`, `DivergenceError`,
-`_epoch_finite`, `fit` (:893-1142; churn, attacks, defenses,
-checkpoints, telemetry and the ``fit.epoch`` span included; without
-sharding) and `evaluate` / `evaluate_dense` (:1145-1212,
-``n_shards == 1``).
+`epoch_dp_inputs` / `train_epoch` (:808-875), `scores` / `test_loss`
+(:878-890), `FitResult`, `DivergenceError`, `_epoch_finite`, `fit`
+(:893-1142; churn, attacks, defenses, checkpoints, telemetry and the
+``fit.epoch`` span included) and `evaluate` / `evaluate_dense`
+(:1145-1212). With ``cfg.n_shards > 1`` (:71-79) the epochs, `fit` and
+`evaluate(n_shards=)` run learner-sharded, one rank of a
+`torch.distributed` group per process (`sharding/dmf.py`).
 
 Model (paper Eqs. 5-11): user i holds u_i (K,), a private copy p^i = P[i]
 of the common item factors (J, K) and personal factors q^i = Q[i] (J, K);
@@ -69,6 +70,8 @@ class DMFConfig:
     mode: str = "dmf"                # dmf | gdmf | ldmf
     init_scale: float = 0.1
     seed: int = 0
+    n_shards: int = 1                # learner-group width; >1 = ranks of a process
+                                     # group, each holding its rows (sharding/dmf.py)
     dp_clip: float = float("inf")    # C — L2 bound per outgoing gradient message
     dp_sigma: float = 0.0            # σ — noise multiplier relative to C
     dp_seed: int = 0                 # DP mechanism base seed (privacy/mechanism.py)
@@ -76,6 +79,8 @@ class DMFConfig:
     def __post_init__(self):
         if self.mode not in ("dmf", "gdmf", "ldmf"):
             raise ValueError(f"mode {self.mode!r} (dmf, gdmf or ldmf)")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards={self.n_shards} must be >= 1")
         if not (self.dp_sigma >= 0.0 and self.dp_clip > 0.0):
             raise ValueError(f"dp_sigma={self.dp_sigma} must be >= 0 and "
                              f"dp_clip={self.dp_clip} > 0")
@@ -104,12 +109,18 @@ def init_state(cfg: DMFConfig, rng: np.random.Generator | None = None,
     """U random (drawn with numpy, so it equals the reference's); P and Q
     zero, so an item outside a user's neighborhood scores exactly 0."""
     dev = device_lib.resolve(device)
-    rng = rng or np.random.default_rng(cfg.seed)
+    U = torch.as_tensor(init_user_factors(cfg, rng), device=dev)
     I, J, K = cfg.n_users, cfg.n_items, cfg.dim
-    U = torch.as_tensor(rng.normal(0, cfg.init_scale, (I, K)).astype(np.float32), device=dev)
     P = torch.zeros((I, J, K), dtype=torch.float32, device=dev)
     Q = torch.zeros((I, J, K), dtype=torch.float32, device=dev)
     return DMFState(U=U, P=P, Q=Q)
+
+
+def init_user_factors(cfg: DMFConfig, rng: np.random.Generator | None = None) -> np.ndarray:
+    """The (I, K) float32 initial U on the host: `init_state`'s one rng
+    draw, which a sharded run makes on every rank before keeping its rows."""
+    rng = rng or np.random.default_rng(cfg.seed)
+    return rng.normal(0, cfg.init_scale, (cfg.n_users, cfg.dim)).astype(np.float32)
 
 
 def state_from_numpy(U, P, Q, device="cuda") -> DMFState:
@@ -493,7 +504,16 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     ``accountant`` (a `privacy.GaussianAccountant`) observes the epoch's
     realized minibatch stream. Returns the state and float64(Σ per-batch
     fp32 losses) / rows, read from the card once; with ``tele``, also the
-    epoch's (TELE_W,) float32 reduction sum, read in the same copy."""
+    epoch's (TELE_W,) float32 reduction sum, read in the same copy.
+
+    With ``cfg.n_shards > 1`` this is a rank of a learner group
+    (`sharding.dmf.train_epoch_sharded`): ``state`` holds the rank's padded
+    rows, the loss is the global one, and ``tele`` gives the (D, TELE_W)
+    block of every rank's sums."""
+    if cfg.n_shards > 1:
+        from repro_torch.sharding import dmf as sharded_dmf
+        return sharded_dmf.train_epoch_sharded(state, prop, train, cfg, rng,
+                                               accountant=accountant, device=device, tele=tele)
     dev = _require_state_on(state, device, "train_epoch")
     nbr = _as_neighbor_table(prop, dev)
     ui, vj, r, conf = sample_epoch(train, cfg, rng)
@@ -515,19 +535,22 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     return state, total / max(n, 1)
 
 
-def _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg: DMFConfig, byz=None) -> None:
+def _deliver_ring(P, nbr_idx, nbr_wgt, recv_gate, ring, cfg: DMFConfig, byz=None,
+                  row0: int = 0) -> None:
     """Start-of-epoch delivery of the delay ring's messages due now, in
     place on P: neighbour slots only (the straggler applied its own line-11
     update at release), gated by the receivers' online mask NOW. Under a
     defense a message is screened AT DELIVERY, so a malicious message
     buffered k epochs ago does not dodge the gate by arriving late.
     ``ring`` is ``(gp (L, n, K), ui (L·n,), vj (L·n,), deliver (L·n,))``
-    on the device."""
+    on the device. A rank of a sharded run passes its column of the
+    partitioned table (receivers as local rows), its ``recv_gate`` rows and
+    its first global row ``row0``."""
     ring_gp, ring_ui, ring_vj, deliver = ring
     gflat = ring_gp.reshape(-1, ring_gp.shape[-1])         # (L·n, K)
     nbd = nbr_idx[ring_ui]                                 # (L·n, S)
     wbd = nbr_wgt[ring_ui]
-    selfm = (nbd == ring_ui[:, None]).to(wbd.dtype)
+    selfm = ((nbd + row0) == ring_ui[:, None]).to(wbd.dtype)
     wbd = wbd * (1.0 - selfm) * recv_gate[nbd] * deliver[:, None]
     if byz is not None and byz.screen:
         from repro_torch.robustness import byzantine as byz_lib
@@ -612,7 +635,13 @@ def train_epoch_churn(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
     screening / robust aggregation. The ring buffers the SENT messages,
     re-addressed as shill rows are (``vjm``). ``tele`` appends the epoch's
     (TELE_W,) reduction sum, read with the losses, as `train_epoch`
-    does."""
+    does. ``cfg.n_shards > 1`` runs `sharding.dmf.train_epoch_churn_sharded`
+    on this rank."""
+    if cfg.n_shards > 1:
+        from repro_torch.sharding import dmf as sharded_dmf
+        return sharded_dmf.train_epoch_churn_sharded(
+            state, prop, train, cfg, rng, t, plan, ring, accountant=accountant, attack=attack,
+            byz=byz, device=device, tele=tele)
     dev = _require_state_on(state, device, "train_epoch_churn")
     if attack is not None and byz is None:
         raise ValueError("an attack needs a DefenseConfig (DefenseConfig() for an "
@@ -703,11 +732,15 @@ class DivergenceError(RuntimeError):
     (``fit(on_nonfinite="raise")``)."""
 
 
-def _epoch_finite(state: DMFState, loss: float) -> bool:
+def _epoch_finite(state: DMFState, loss: float, shards=None) -> bool:
     """Epoch health check: loss AND factors finite (only paid under
-    on_nonfinite="raise" or "halt")."""
+    on_nonfinite="raise" or "halt"); a sharded rank asks every rank
+    (``shards`` its `ShardPlan`)."""
     if not np.isfinite(loss):
         return False
+    if shards is not None:
+        from repro_torch.sharding import dmf as sharded_dmf
+        return sharded_dmf.all_finite(state, shards)
     return bool(torch.isfinite(state.U).all() & torch.isfinite(state.P).all()
                 & torch.isfinite(state.Q).all())
 
@@ -818,6 +851,17 @@ def fit(
     epoch runs inside a ``fit.epoch`` span of the global tracer
     (`obs.trace.configure_tracing`).
 
+    Learner sharding (``cfg.n_shards > 1``, `sharding/dmf.py`): this
+    process is one rank of an initialised `torch.distributed` group of
+    ``n_shards`` ranks (`launch.mesh.spawn_ranks`, or torchrun), and every
+    rank calls `fit` with the same inputs; it raises without such a group.
+    ``M`` may then also be this rank's `sharding.dmf.ShardPlan`.
+    Each rank trains its rows of U, P and Q; the state is all-gathered at
+    the end, so every rank returns the same `FitResult` with the full
+    unpadded state (``callback`` sees the rank's padded rows). Checkpoints
+    hold the unpadded state, written by rank 0, and resume at any shard
+    count.
+
     ``on_nonfinite``: "warn" (default) warns once on a non-finite epoch loss
     and goes on; "raise" raises `DivergenceError`; "halt" stops, returns the
     last finite state (a clone taken before each epoch, since the epoch
@@ -829,14 +873,24 @@ def fit(
         raise ValueError("telemetry rides the sparse epoch, not dense_reference")
     dev = device_lib.resolve(device)
     rng = np.random.default_rng(cfg.seed if seed is None else seed)
-    state = init_state(cfg, rng, device=dev)
+    sharded = cfg.n_shards > 1
+    if sharded:
+        from repro_torch.sharding import dmf as sharded_dmf
+        if dense_reference:
+            raise ValueError("dense_reference is the single-device oracle (n_shards=1)")
+        shards = sharded_dmf._as_plan(M, cfg, dev)      # raises without a process group
+        state = sharded_dmf.init_local_state(cfg, rng, shards)
+    else:
+        state = init_state(cfg, rng, device=dev)
     accountant = None
     if cfg.dp and cfg.dp_sigma > 0.0:   # ldmf: no releases, no ε claim
         accountant = GaussianAccountant(n_users=cfg.n_users, sigma=cfg.dp_sigma,
                                         delta=dp_delta)
-    plan, ring, attack_plan, byz = _fault_plans(cfg, train, epochs, churn, attack, defense,
-                                                dense_reference, dev)
-    if dense_reference:
+    churn_plan, ring, attack_plan, byz = _fault_plans(cfg, train, epochs, churn, attack,
+                                                      defense, dense_reference, dev)
+    if sharded:
+        prop = shards
+    elif dense_reference:
         if isinstance(M, graph_lib.NeighborTable):
             raise ValueError("dense_reference needs the dense M")
         if cfg.dp:
@@ -847,14 +901,21 @@ def fit(
     collector = None
     if tele_on:
         from repro_torch.obs import telemetry as tele_lib
-        collector = tele_lib.EpochCollector(jsonl_path=telemetry_out)
+        # every rank records the same events; rank 0 alone writes the stream
+        collector = tele_lib.EpochCollector(
+            jsonl_path=telemetry_out if not sharded or shards.rank == 0 else None)
     logger = logging.getLogger("repro_torch.dmf") if log_every else None
     tr_losses, te_losses = [], []
     start = 0
     if resume_from is not None:
         from repro_torch.robustness import recovery
+        # a sharded rank reads the unpadded snapshot on the host and keeps
+        # its rows, so a run may resume at another shard count
+        like = DMFState(*(np.empty(0, np.float32),) * 3) if sharded else state
         state, rng, ring, start, tr_losses, te_losses = recovery.load_training(
-            resume_from, like_state=state, ring=ring, accountant=accountant, device=dev)
+            resume_from, like_state=like, ring=ring, accountant=accountant, device=dev)
+        if sharded:
+            state = sharded_dmf.shard_state(state, shards)
     diverged_at = None
     warned = False
     try:
@@ -863,8 +924,8 @@ def fit(
                 prev = DMFState(state.U.clone(), state.P.clone(), state.Q.clone())
             t0 = time.perf_counter() if tele_on else 0.0
             with trace_lib.span("fit.epoch", epoch=t):
-                if plan is not None:
-                    out = train_epoch_churn(state, prop, train, cfg, rng, t, plan, ring,
+                if churn_plan is not None:
+                    out = train_epoch_churn(state, prop, train, cfg, rng, t, churn_plan, ring,
                                             accountant=accountant, attack=attack_plan, byz=byz,
                                             device=dev, tele=tele_on)
                 elif dense_reference:
@@ -880,18 +941,19 @@ def fit(
                         f"epoch {t}: non-finite training loss {l!r} — training has "
                         "diverged (see fit(on_nonfinite=...))", RuntimeWarning, stacklevel=2)
                     warned = True
-            elif not _epoch_finite(state, l):
+            elif not _epoch_finite(state, l, shards if sharded else None):
                 if on_nonfinite == "raise":
                     raise DivergenceError(f"epoch {t}: non-finite loss or factors (loss={l!r})")
                 state = prev             # halt: last finite state wins
                 diverged_at = t
                 break
             if test is not None:
-                te_losses.append(test_loss(state, test))
+                te_losses.append(sharded_dmf.test_loss_sharded(state, shards, test) if sharded
+                                 else test_loss(state, test))
             if collector is not None:
                 collector.record(t, train_loss=l, device_stats=out[2],
                                  test_loss=te_losses[-1] if test is not None else None,
-                                 accountant=accountant, plan=plan, ring=ring, byz=byz,
+                                 accountant=accountant, plan=churn_plan, ring=ring, byz=byz,
                                  wall_s=time.perf_counter() - t0)
             if logger is not None and ((t + 1) % log_every == 0 or t == epochs - 1):
                 msg = f"epoch {t + 1}/{epochs} train_loss={l:.6f}"
@@ -905,12 +967,21 @@ def fit(
             if (checkpoint_dir is not None and checkpoint_every > 0
                     and (t + 1) % checkpoint_every == 0):
                 from repro_torch.robustness import recovery
-                recovery.save_training(checkpoint_dir, step=t + 1, state=state, rng=rng, ring=ring,
-                                       accountant=accountant, train_losses=tr_losses,
-                                       test_losses=te_losses)
+                # the unpadded snapshot in the reference's layout, written by
+                # rank 0 after the gather; every rank waits for it
+                snap = sharded_dmf.unpad_state(state, shards, cfg.n_users) if sharded else state
+                if not sharded or shards.rank == 0:
+                    recovery.save_training(checkpoint_dir, step=t + 1, state=snap, rng=rng,
+                                           ring=ring, accountant=accountant,
+                                           train_losses=tr_losses, test_losses=te_losses)
+                del snap
+                if sharded:
+                    shards.group.barrier()
     finally:   # the JSONL stream closes on a raise too
         if collector is not None:
             collector.close()
+    if sharded:
+        state = sharded_dmf.unpad_state(state, shards, cfg.n_users)
     return FitResult(state, tr_losses, te_losses,
                      privacy=accountant.summary() if accountant else None,
                      diverged_at=diverged_at,
@@ -919,7 +990,7 @@ def fit(
 
 def evaluate(
     state: DMFState, train: np.ndarray, test: np.ndarray, n_users: int, n_items: int,
-    ks=(5, 10), chunk_users: int | None = None, device="cuda",
+    ks=(5, 10), chunk_users: int | None = None, n_shards: int = 1, device="cuda",
 ) -> dict[str, float]:
     """P@k / R@k through the per-user top-k kernel
     (`ops.recommend_topk_peruser`, kernel 2): the (I, J) score matrix never
@@ -929,7 +1000,15 @@ def evaluate(
     ``chunk_users`` streams the user axis: each chunk builds only its own
     mask rows and reads its slices of U, P and Q (views, no copy). Hit
     counts are integers reduced in the same global user order, so the
-    result is the same floats as unchunked."""
+    result is the same floats as unchunked.
+
+    ``n_shards > 1`` runs on each rank of a learner group over its own
+    users' rows of the full ``state`` (`sharding.dmf.evaluate_sharded`):
+    the same metrics."""
+    if n_shards > 1:
+        from repro_torch.sharding import dmf as sharded_dmf
+        return sharded_dmf.evaluate_sharded(state, train, test, n_users, n_items, n_shards,
+                                            ks=ks, chunk_users=chunk_users, device=device)
     dev = _require_state_on(state, device, "evaluate")
     kmax = max(ks)
     if chunk_users is None:

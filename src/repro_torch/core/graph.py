@@ -1,13 +1,15 @@
 """User adjacency graph + random-walk propagation (paper Eqs. 2-4) — port
 of `src/repro/core/graph.py:33-163` (`GraphConfig`, `pairwise_dist`,
 `build_adjacency`, `row_normalize`, `walk_propagation_matrix`,
-`NeighborTable`, `neighbor_table_from_dense`, `walk_neighbor_table`) and
+`NeighborTable`, `neighbor_table_from_dense`, `walk_neighbor_table`),
+:166-216 (`PartitionedNeighborTable`, `partition_neighbor_table`) and
 :231-254 (`neighbor_counts`, `communication_bytes`).
 
 The graph is built on the host in numpy, exactly as the reference does,
 so the dense matrices are bit-identical. Only the exported neighbor table
 moves to the device, as torch tensors: ``idx`` int64 (it indexes U/P/Q
-directly) and ``wgt`` float32.
+directly) and ``wgt`` float32. Its split for learner sharding stays on the
+host, in numpy; each rank uploads its own slices (`sharding/dmf.py`).
 
     w_{ii'} = I^{ii'} * f(d_{ii'})                         (Eq. 2)
     P(n_i = k)  = w_{ik} / sum_{i'} w_{ii'}                (Eq. 3)
@@ -129,6 +131,47 @@ def neighbor_table_from_dense(M: np.ndarray, device="cuda") -> NeighborTable:
 def walk_neighbor_table(W: np.ndarray, cfg: GraphConfig, device="cuda") -> NeighborTable:
     """Sparse export of `walk_propagation_matrix`, shape (I, S)."""
     return neighbor_table_from_dense(walk_propagation_matrix(W, cfg), device)
+
+
+class PartitionedNeighborTable(NamedTuple):
+    """`NeighborTable` split for a row-sharded learner group, on the host.
+
+    Users are partitioned contiguously into ``n_shards`` shards of
+    ``rows_per_shard`` rows (the user axis padded to ``n_shards *
+    rows_per_shard``). Slot (i, d, s) carries the weight and the
+    **shard-local** row of receiver ``nbr.idx[i, s]`` iff that receiver
+    lives on shard d, else (0, 0.0): a weight-0 slot scatter-adds exactly
+    zero. What shard s ships to shard d for sender i is the (i, d, :)
+    slice weighted by i's batch gradient, so the exchange has one static
+    shape per step."""
+
+    idx: np.ndarray    # (I_pad, n_shards, S) int64 — receiver rows, shard-local
+    wgt: np.ndarray    # (I_pad, n_shards, S) float32
+    rows_per_shard: int
+    n_users: int       # real (unpadded) user count
+
+
+def partition_neighbor_table(nbr: NeighborTable, n_shards: int,
+                             n_users: int | None = None) -> PartitionedNeighborTable:
+    """Split each user's (S,) receiver row by the receiver's home shard
+    (``r // rows_per_shard``), re-indexed to shard-local rows; slots whose
+    receiver lives elsewhere become (0, 0.0). Summed over destinations the
+    split gives back the original table exactly."""
+    idx, wgt = nbr.idx.cpu().numpy(), nbr.wgt.cpu().numpy()
+    I, S = idx.shape
+    if n_users is None:
+        n_users = I
+    rows = -(-I // n_shards)
+    dest = idx // rows
+    local = idx % rows
+    live = wgt != 0.0
+    pidx = np.zeros((rows * n_shards, n_shards, S), np.int64)
+    pwgt = np.zeros((rows * n_shards, n_shards, S), np.float32)
+    for d in range(n_shards):
+        keep = live & (dest == d)
+        pidx[:I, d] = np.where(keep, local, 0)
+        pwgt[:I, d] = np.where(keep, wgt, 0.0)
+    return PartitionedNeighborTable(idx=pidx, wgt=pwgt, rows_per_shard=rows, n_users=n_users)
 
 
 def neighbor_counts(W: np.ndarray, max_d: int) -> np.ndarray:

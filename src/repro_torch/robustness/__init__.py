@@ -1,5 +1,5 @@
 """Fault injection and fault tolerance for decentralized training — port of
-`src/repro/robustness/` (without the sharded bucket assignment).
+`src/repro/robustness/`.
 
 * `faults`   — seeded `ChurnConfig`/`ChurnPlan` (dropout, power-law
   sessions, stragglers, late joiners) and the `DelayRing` that applies a

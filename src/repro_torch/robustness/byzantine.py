@@ -2,9 +2,9 @@
 defenses — port of `src/repro/robustness/byzantine.py:71-392` (the host
 half `AttackConfig`, `AttackPlan`, `no_attack`, `DefenseConfig`,
 `MessageGroups`, `_round_up`, `_cumcount`, `_assign_buckets`,
-`group_messages` as numpy copies; the device half `corrupt_messages`,
-`screen_ok`, `_sort_cols`, `robust_combine` on tensors). The sharded
-bucket assignment (`group_messages_sharded`) is not ported.
+`group_messages`, :394-439 `group_messages_sharded` as numpy copies; the
+device half `corrupt_messages`, `screen_ok`, `_sort_cols`,
+`robust_combine` on tensors).
 
 In DMF a learner's P rows are updated by scatter-adding whatever gradient
 messages arrive, so one compromised phone can poison every neighbour.
@@ -351,3 +351,48 @@ def group_messages(ui, vj_msg, nbr_idx, nbr_wgt, n_items,
     bid, pos, brecv, bitem, cap = _assign_buckets(grp, recv, item, valid, nb, I, int(n_items))
     return MessageGroups(bucket_id=bid.reshape(nb, B, S), pos=pos.reshape(nb, B, S),
                          recv=brecv, item=bitem, cap=cap)
+
+
+def group_messages_sharded(ui_local, vj_msg, valid_rows, part_idx, part_wgt, rows: int,
+                           n_shards: int, n_items: int, prop_now=None,
+                           online=None) -> MessageGroups:
+    """Bucket assignment per (batch, destination shard) for the sharded
+    epoch, on the host: enumerates every shard's incoming slots after the
+    exchange in their received order — (source shard, routed row, table
+    slot) — so the indexes line up with the flattened (D, Bs, S) tensors a
+    rank receives.
+
+    ``ui_local (nb, D, Bs)`` routed local sender rows, ``vj_msg`` routed
+    message items, ``valid_rows`` routed row validity (padding and offline
+    senders), ``part_idx``/``part_wgt (I_pad, D, S)`` the partitioned
+    table, ``online (I_pad,)`` the receivers' global mask. Receiver ids in
+    the result are shard-local rows; rank d takes ``[:, d]`` of each
+    array."""
+    pidx = np.asarray(part_idx)
+    pwgt = np.asarray(part_wgt)
+    ui_local = np.asarray(ui_local)
+    nb, D, Bs = ui_local.shape
+    S = pidx.shape[2]
+    g = np.arange(D)[None, :, None] * rows + ui_local       # global senders
+    w = pwgt[g]                                             # (nb, Dsrc, Bs, Ddst, S)
+    ri = pidx[g]
+    dest = np.arange(D)[None, None, None, :, None]
+    grecv = dest * rows + ri
+    valid = (w > 0) & (grecv != g[..., None, None])
+    valid &= np.asarray(valid_rows).astype(bool)[..., None, None]
+    if prop_now is not None:
+        valid &= np.asarray(prop_now).astype(bool)[..., None, None]
+    if online is not None:
+        valid &= np.asarray(online).astype(bool)[grecv]
+    item = np.broadcast_to(np.asarray(vj_msg)[..., None, None], ri.shape)
+    # (nb, Dsrc, Bs, Ddst, S) -> (nb, Ddst, Dsrc, Bs, S): the received order
+    ri_t = np.moveaxis(ri, 3, 1)
+    val_t = np.moveaxis(valid, 3, 1)
+    item_t = np.moveaxis(item, 3, 1)
+    grp = np.arange(nb)[:, None] * D + np.arange(D)[None, :]
+    grp = np.broadcast_to(grp[:, :, None, None, None], ri_t.shape)
+    bid, pos, brecv, bitem, cap = _assign_buckets(grp, ri_t, item_t, val_t, nb * D, rows,
+                                                  int(n_items))
+    M = D * Bs * S
+    return MessageGroups(bucket_id=bid.reshape(nb, D, M), pos=pos.reshape(nb, D, M),
+                         recv=brecv.reshape(nb, D, -1), item=bitem.reshape(nb, D, -1), cap=cap)

@@ -1248,3 +1248,33 @@ def test_profiled_scheduler_run_records_a_kernel_per_dispatch(dev, tmp_path):
     assert ops.serve_topk_rows.launches - launches == n_disp
     busy = trace_lib.device_busy(tracer.profiler_traces[-1])
     assert busy["n_kernel"] >= n_disp and 0.0 < busy["busy_share"] <= 1.0
+
+
+@pytest.mark.parametrize("backend,n_shards", [("nccl", 1), ("gloo", 2)])
+def test_sharded_fit_on_the_card_matches_the_unsharded_fit(dev, backend, n_shards):
+    """Learner-sharded `fit` DP off and on, and the sharded epoch driven by
+    hand (so that one nccl rank runs it too), on the small world: within
+    1e-5 of the unsharded card run; `evaluate(n_shards=D)` equal to the
+    unsharded metrics. Two gloo ranks share the one card."""
+    import _torch_sharded_ranks as ranks
+    from repro_torch.core import dmf
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh
+    if backend == "nccl" and torch.cuda.device_count() < n_shards:
+        pytest.skip(f"nccl needs {n_shards} cards")
+    build.load()                        # before the ranks start
+    got = mesh.spawn_ranks(ranks.card_case, n_shards, backend=backend, device="cuda",
+                           timeout_s=300.0, args=(n_shards,))
+    ds, nbr = ranks.world()
+    nbr = type(nbr)(nbr.idx.to(dev), nbr.wgt.to(dev))
+    for name, kw in (("plain", {}), ("dp", ranks.DP)):
+        ref = dmf.fit(ranks.config(ds, **kw), ds.train, nbr, epochs=ranks.EPOCHS,
+                      test=ds.test, device=dev)
+        for run in (got[name], got[name + "_by_epoch"]):
+            np.testing.assert_allclose(run["losses"], ref.train_losses, rtol=0, atol=TOL)
+            for n in "UPQ":
+                np.testing.assert_allclose(run[n], getattr(ref.state, n).cpu().numpy(),
+                                           rtol=0, atol=TOL, err_msg=n)
+        if name == "plain":
+            assert got["evaluate"] == dmf.evaluate(ref.state, ds.train, ds.test, ds.n_users,
+                                                   ds.n_items, device=dev)

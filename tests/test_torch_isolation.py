@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
         "       'repro_torch.robustness.byzantine', 'repro_torch.robustness.recovery',\n"
         "       'repro_torch.privacy.audit', 'repro_torch.obs.trace',\n"
         "       'repro_torch.obs.telemetry', 'repro_torch.scheduling.workload',\n"
-        "       'repro_torch.scheduling.metrics', 'repro_torch.scheduling.scheduler'}\n"
+        "       'repro_torch.scheduling.metrics', 'repro_torch.scheduling.scheduler',\n"
+        "       'repro_torch.sharding.dmf', 'repro_torch.launch.mesh'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
@@ -198,3 +199,23 @@ def test_robustness_entry_points_default_to_cuda_and_raise_without_a_card(monkey
     back = recovery.load_training(tmp_path, state, device="cpu")[0]
     assert back.P.device.type == "cpu"
     assert audit.observe_messages(cfg, train, nbr, device="cpu").gp.shape == (16, 4)
+
+
+def test_sharded_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from repro_torch.launch import mesh
+    from repro_torch.sharding import dmf as sharded_dmf
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dmf.DMFConfig(n_users=6, n_items=5, dim=4, batch_size=2, n_shards=2)
+    train = np.array([[0, 1], [2, 3], [4, 0], [5, 2]])
+    nbr = graph.neighbor_table_from_dense(np.eye(6, dtype=np.float32), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf.fit(cfg, train, nbr, epochs=1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.spawn_ranks(print, 2, backend="gloo", device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        dmf_train.main(["--epochs", "1", "--n-shards", "2"])
+    # asked for the CPU, they need a process group of n_shards ranks instead
+    with pytest.raises(RuntimeError, match="process group"):
+        dmf.fit(cfg, train, nbr, epochs=1, device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        sharded_dmf.learner_group(2, device="cpu")

@@ -255,7 +255,10 @@ def test_cli_prints_the_reference_report(argv, capsys, monkeypatch):
 
 
 def test_cli_rejects_flags_of_later_slices():
-    for flag in (["--n-shards", "2"], ["--use-pallas"]):
+    # --n-shards is ported (tests/test_torch_sharded.py); a width below 1
+    # and an unknown backend are refused, as --use-pallas still is
+    for flag in (["--use-pallas"], ["--n-shards", "0"], ["--n-shards", "2", "--dist-backend",
+                                                          "mpi"]):
         with pytest.raises(SystemExit):
             dmf_train.main(flag + ["--device", "cpu"])
 
