@@ -5,8 +5,8 @@ version on the card, drives the serving and the training slices, the
 paper's baseline comparison, the robustness slice (churn, Byzantine
 defenses, crash-resume, the leakage audit), the scheduler with the
 observability layer (telemetry, spans, the profiler's device busy share)
-and learner-sharded training (one rank per process, over nccl and gloo)
-at full Foursquare scale and
+and learner-sharded training and serving (one rank per process, over
+nccl and gloo) at full Foursquare scale and
 million-user tiled serving at the reference's million configuration, and
 times each kernel beside its bound.
 
@@ -165,11 +165,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       `SchedulerReport.publish` go into the registry, which `write_jsonl`
       writes under build/; `device_memory_snapshot` must show allocated
       bytes. The ``scheduler`` and ``obs`` lines print before phase 4.
-   g. sharded training (learner sharding over `torch.distributed`, one
-      rank per process, started by `launch.mesh.spawn_ranks` after phase
-      1's build), counted as one path summed over the ranks: D=1 over nccl
-      and D=2 over gloo (two ranks on the one card), one spawn each. For
-      DP off and σ=1, C=0.5: the unsharded `fit` (rank 0 alone) and the
+   g. sharded training and serving (learner sharding over
+      `torch.distributed`, one rank per process, started by
+      `launch.mesh.spawn_ranks` after phase 1's build), counted as one
+      path summed over the ranks: D=1 over nccl and D=2 over gloo (two
+      ranks on the one card), one spawn each. For DP off and σ=1,
+      C=0.5: the unsharded `fit` (rank 0 alone) and the
       sharded `fit`, 5 epochs each, in turns (unsharded, sharded, sharded,
       unsharded; the sharded repeat by hand, its losses bit for bit the
       first's), losses and factors within 1e-5; `evaluate(n_shards=D)`
@@ -182,7 +183,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       at its τ for 3 epochs within 1e-6 (losses) and 1e-5 (factors) of the
       unsharded run, and 3 epochs by hand with every collective timed
       between two device synchronisations (the exchange's wall share).
-      Kernels 2, 3, 7 and 8a must launch. The ``sharded`` line prints
+      Kernels 2, 3, 7 and 8a must launch. Then, in the same spawns, the
+      serving half (`sharded_serving`), counted on its own: the sharded
+      `ServingEngine` on the DP-off state (microbatch 64, k=10) serves
+      phase 3a's 4,096 pruned and 1,024 dense requests, ingests its test
+      check-ins and serves them again, every slate bit for bit the
+      one-device engine's (built on rank 0), and every rank's U, P, Q
+      after the ingest equal (digests, all-gathered). At D=2 also phase
+      3f's 1x Poisson stream through `Scheduler` (one broadcast a
+      dispatch; run twice, the broadcast off the clock as in the
+      reference and then charged to it) and `simulate_lockstep` (waves),
+      with no clock on the group: every rank's report equal, the served
+      slates `recommend`'s bit for bit, one launch of kernel 5 a scheduled
+      dispatch and one a rank a wave. At D=1 the engine runs on a one-rank
+      nccl group. Kernels 5, 2 and 3 must launch. The ``sharded`` and
+      ``sharded_serving`` lines (waves, their p50/p99, lockstep
+      requests/s, goodput of scheduler both ways and lockstep, the
+      collectives' wall share, the broadcasts' seconds, device memory a
+      rank) print
       before phase 4; a rank that fails, times out or misses a hold fails
       the script.
 4. Time each kernel, its plain version and one library call on the main
@@ -307,6 +325,10 @@ SHARD_TIMEOUT_S = 300.0
 BYZ_LOSS_TOL = 1e-6           # the reference's cross-shard bar for defended runs
 SHARDED_KERNELS = ("recommend_topk_peruser", "dmf_fused_step", "dmf_fused_step_dp",
                    "gauss_counter")
+# phase 3g's serving half: the sharded engine on the DP-off state, phase
+# 3a's requests and test check-ins, phase 3f's 1x Poisson stream
+SHARDED_SERVING_KERNELS = ("serve_topk_rows", "recommend_topk_peruser", "dmf_fused_step")
+SCHED_1X_SEED = 100 + SCHED_LOADS.index(1.0)
 # --obs-detail only: what tracing and telemetry cost, where an epoch's time goes
 SCHED_TRACE_TURNS = 2          # (plain, tracing, tracing, plain) repeats of the 1x stream
 SPAN_COST_N, SPAN_COST_DISPATCHES = 5000, 50   # empty spans; back-to-back dispatches a turn
@@ -2242,7 +2264,8 @@ def obs_snapshot(sched) -> dict:
 
 
 # ------------------------------------------------------------ sharded training
-def sharded_rank(rank: int, D: int, tables: dict, cfg, tau: float, device: str) -> dict:
+def sharded_rank(rank: int, D: int, tables: dict, cfg, tau: float, capacity: float,
+                 device: str) -> dict:
     """Phase 3g on one rank of D (spawned by `launch.mesh.spawn_ranks`).
 
     For DP off and on: the unsharded `fit` on rank 0 alone (the others wait
@@ -2348,7 +2371,7 @@ def sharded_rank(rank: int, D: int, tables: dict, cfg, tau: float, device: str) 
         out["epoch_s"][name] = {who: [float(np.median(ep[1:])) for ep in eps]
                                 for who, eps in turns.items()}
         if name == "dp_off":
-            kept["losses"] = first.train_losses
+            kept["losses"], kept["state"] = first.train_losses, first.state
             ev = counted(lambda: sharded_dmf.evaluate_sharded(first.state, train, test, I, J, D,
                                                               device=dev))
             if rank == 0:
@@ -2384,22 +2407,233 @@ def sharded_rank(rank: int, D: int, tables: dict, cfg, tau: float, device: str) 
     total = torch.as_tensor(counts, device=dev)
     dist.all_reduce(total)
     out["launches"] = {kern.__name__: int(c) for kern, c in zip(ops.KERNELS, total.tolist())}
+    out["serving"] = sharded_serving(rank, D, group, kept.pop("state"), tables, nbr, cfg,
+                                     capacity, dev)
     return out
 
 
-def drive_sharded(ds, nbr, cfg, tau: float) -> dict:
+class BroadcastCharged:
+    """A sharded engine whose per-shard dispatch charges its broadcast to
+    the scheduler's clock as well: the seconds `serve_microbatch` returns
+    plus the slowest rank's wall time of its broadcast (agreed by one
+    `all_reduce` MAX, itself not charged), so that a scheduled dispatch
+    pays for its exchange as a lockstep wave pays for its collectives."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self.engine, name)
+
+    def serve_microbatch(self, user_ids, return_flags: bool = False):
+        *out, dt = self.engine.serve_microbatch(user_ids, return_flags)
+        return (*out, dt + self.engine.agreed_seconds(self.engine.broadcast_seconds[-1]))
+
+
+def sharded_serving(rank: int, D: int, group, state, tables: dict, nbr, cfg, capacity: float,
+                    dev) -> dict:
+    """Phase 3g's serving half on one rank of D: the learner-sharded
+    `ServingEngine` on the DP-off state at full width (microbatch 64,
+    k=10). Phase 3a's requests (4,096 pruned, 1,024 dense), then its test
+    check-ins ingested, then the requests again: every slate, value and id,
+    equal to the one-device engine's built on rank 0 from the same state,
+    bit for bit, and every rank's full U, P, Q after the ingest equal (a
+    digest a rank, all-gathered). The engines' group has a clock for
+    these drains (the collectives' wall share). At D > 1 also phase 3f's
+    1x Poisson stream, on the group without a clock, through `Scheduler`
+    twice (a dispatch's seconds alone, the reference's clock, then with
+    its broadcast charged, `BroadcastCharged`) and `simulate_lockstep`:
+    every rank's report equal (digests), the served slates `recommend`'s
+    bit for bit, each scheduled dispatch one launch of kernel 5 on its
+    home rank and each wave one on every rank. At D = 1 the engine runs
+    on a one-rank group (``group=``), so that a wave's collectives run
+    over nccl. Launch counts are summed over the ranks, and only the
+    sharded engines' calls are counted."""
+    import hashlib
+
+    from repro_torch.kernels import ops
+    from repro_torch.scheduling import Scheduler, WorkloadConfig, generate, simulate_lockstep
+    from repro_torch.serving import ServingConfig, ServingEngine
+    from repro_torch.sharding import dmf as sharded_dmf
+    index, train, test = tables["index"], tables["train"], tables["test"]
+    I = cfg.n_users
+    rng = np.random.default_rng(SEED)          # phase 3a's request set
+    ids = {"pruned": rng.integers(0, I, N_PRUNED), "dense": rng.integers(0, I, N_DENSE)}
+    counts = np.zeros(len(ops.KERNELS), np.int64)
+
+    def summed(x) -> list:
+        t = torch.as_tensor(np.asarray(x, np.int64), device=dev)
+        return group.all_reduce(t).tolist()
+
+    def counted(fn):
+        before = [kern.launches for kern in ops.KERNELS]
+        out = fn()
+        counts[:] += [kern.launches - b for kern, b in zip(ops.KERNELS, before)]
+        return out
+
+    def gathered(values, dtype=np.float64) -> list:
+        """Every rank's ``values``, rank after rank."""
+        t = torch.as_tensor(np.asarray(values, dtype), device=dev)
+        return group.all_gather(t).reshape(-1).tolist()
+
+    def digest(obj) -> int:
+        return int.from_bytes(hashlib.sha256(obj).digest()[:8], "little", signed=True)
+
+    def state_digest(st) -> int:
+        h = hashlib.sha256()
+        for x in (st.U, st.P, st.Q):
+            h.update(x.cpu().numpy())
+        return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+    def report_digest(rep) -> int:
+        recs = [(r.rid, r.shard, r.status, r.dispatch_start, r.completion, r.fallback,
+                 r.ingest_epoch, None if r.vals is None else (r.vals.tolist(), r.idx.tolist()))
+                for r in rep.records]
+        gauges = [(g.t, g.shard, g.depth, g.oldest_age, g.batch_occupancy) for g in rep.gauges]
+        return digest(json.dumps([recs, gauges, rep.n_dispatches_per_shard]).encode())
+
+    def config(prune: bool, shards: int) -> ServingConfig:
+        return ServingConfig(microbatch=MICROBATCH, k=K_TOP, prune=prune, n_shards=shards)
+
+    def dense_of(eng, shards: int):
+        return ServingEngine(eng.state, index, config(False, shards),
+                             seen=eng.seen.cpu().numpy(), group=eng.group, device=dev)
+
+    def equal(tag: str, got, want) -> None:
+        for part, a, b in zip(("values", "ids", "flags"), got, want):
+            np.testing.assert_array_equal(a, b, err_msg=f"phase 3g sharded {tag} at D={D}: {part}")
+
+    def waves(eng, dense) -> dict:
+        """Phase 3a's requests through the sharded engines, the pruned drain
+        timed: its waves, their agreed seconds, the exchange's wall share.
+        One wave first, off the clock: a group's first collective sets up
+        its communicator (~0.1-0.2 s)."""
+        eng.serve_wave(np.zeros((group.size, MICROBATCH), np.int64))
+        eng.stats.reset()
+        sync(dev)
+        x0, t0 = eng.exchange.seconds, time.perf_counter()
+        pruned = counted(lambda: eng.recommend(ids["pruned"], return_flags=True))
+        wall = time.perf_counter() - t0
+        share = (eng.exchange.seconds - x0) / wall
+        lat = eng.stats.dispatch_latency_percentiles((50, 99))
+        row = {"waves": eng.stats.n_dispatches, "wave_p50_ms": lat["p50_ms"],
+               "wave_p99_ms": lat["p99_ms"], "requests_per_s": eng.requests_per_sec,
+               "collectives_wall_share_by_rank": gathered([share])}
+        return row, {"pruned": pruned,
+                     "dense": counted(lambda: dense.recommend(ids["dense"], return_flags=True))}
+
+    t_start = time.perf_counter()
+    out = {"ranks": D, "backend": group.backend}
+    one = (ServingEngine(state, index, config(True, 1), train=train, nbr=nbr, dmf_cfg=cfg,
+                         device=dev) if rank == 0 or D == 1 else None)
+    want = {}
+    if one is not None:
+        want["before"] = {"pruned": one.recommend(ids["pruned"], return_flags=True),
+                          "dense": dense_of(one, 1).recommend(ids["dense"], return_flags=True)}
+    # the sharded engines on a group whose clock times every collective
+    # between two device synchronisations (at D = 1 a one-rank group, so
+    # that a wave's collectives run over nccl)
+    clocked = sharded_dmf.learner_group(D, dev, sharded_dmf.ExchangeClock())
+    eng = ServingEngine(state, index, config(True, D), train=train, nbr=nbr, dmf_cfg=cfg,
+                        group=clocked, device=dev)
+    dense = dense_of(eng, D)
+    del state
+    out["before_ingest"], got = waves(eng, dense)
+    if rank == 0:
+        for kind in got:
+            equal(f"{kind} before ingest", got[kind], want["before"][kind])
+    out["slates_bitwise_vs_one_device"] = {"before_ingest": N_PRUNED + N_DENSE}
+    if D > 1:
+        if rank == 0:
+            one.ingest(test)
+            want["after"] = {"pruned": one.recommend(ids["pruned"], return_flags=True),
+                             "dense": dense_of(one, 1).recommend(ids["dense"],
+                                                                 return_flags=True)}
+            one_digest = state_digest(one.state)
+            del one
+        group.barrier()
+        t0 = time.perf_counter()
+        rep = counted(lambda: eng.ingest(test))
+        out["ingest"] = {"events": rep.n_events, "batches": rep.n_batches,
+                         "touched_users": len(rep.touched_users),
+                         "seconds_by_rank": gathered([time.perf_counter() - t0])}
+        digests = gathered([state_digest(eng.state)], np.int64)
+        assert len(set(digests)) == 1, f"phase 3g: the ranks' states split after ingest {digests}"
+        if rank == 0:
+            assert digests[0] == one_digest, "phase 3g: sharded ingest != one-device ingest"
+        out["ingest"]["states_bitwise_equal_across_ranks_and_one_device"] = True
+        del dense
+        dense = dense_of(eng, D)
+        out["after_ingest"], got = waves(eng, dense)
+        del dense
+        if rank == 0:
+            for kind in got:
+                equal(f"{kind} after ingest", got[kind], want["after"][kind])
+        out["slates_bitwise_vs_one_device"]["after_ingest"] = N_PRUNED + N_DENSE
+        reqs = generate(WorkloadConfig(n_requests=SCHED_REQUESTS, rate_rps=capacity,
+                                       slo_ms=SCHED_SLO_MS, users="powerlaw", zipf_s=SCHED_ZIPF,
+                                       seed=SCHED_1X_SEED), I)
+        k5 = ops.KERNELS.index(ops.serve_topk_rows)
+        eng.group = group     # the same ranks, no clock: nothing synchronises around a collective
+        for run in ("scheduler", "scheduler_broadcast_charged", "lockstep"):
+            n0, b0 = counts[k5], len(eng.broadcast_seconds)
+            t0 = time.perf_counter()
+            rep = counted(lambda: simulate_lockstep(eng, reqs) if run == "lockstep"
+                          else Scheduler(eng if run == "scheduler" else BroadcastCharged(eng)
+                                         ).run(reqs))
+            wall = time.perf_counter() - t0
+            launched = summed([counts[k5] - n0])[0]
+            n_disp = sum(rep.n_dispatches_per_shard)
+            n_waves = len({r.dispatch_start for r in rep.served()})
+            assert launched == (D * n_waves if run == "lockstep" else n_disp), (run, launched)
+            digests = gathered([report_digest(rep)], np.int64)
+            assert len(set(digests)) == 1, f"phase 3g {run}: the ranks' reports differ"
+            served = rep.served()
+            vals, idx, flags = eng.recommend([r.user for r in served], return_flags=True)
+            assert all(np.array_equal(r.vals, vals[j]) and np.array_equal(r.idx, idx[j])
+                       and r.fallback == bool(flags[j]) for j, r in enumerate(served)), run
+            row = sched_row(rep)
+            del row["summary"]
+            row.update(host_s=wall, launches_kernel5=launched, reports_equal_across_ranks=True,
+                       slates_bitwise_vs_recommend=len(served))
+            if run == "lockstep":
+                row["waves"] = n_waves
+            else:
+                bc = eng.broadcast_seconds[b0:]
+                row["broadcasts"] = len(bc)
+                row["broadcast_s"] = {"sum": float(np.sum(bc)), "p50": float(np.median(bc)),
+                                      "p99": float(np.percentile(bc, 99))}
+            out[run] = row
+        out["goodput_scheduler_over_lockstep"] = {
+            how: out[run]["goodput_rps"] / out["lockstep"]["goodput_rps"]
+            for how, run in (("dispatch_alone", "scheduler"),
+                             ("broadcast_charged", "scheduler_broadcast_charged"))}
+        out["stream"] = {"n_requests": SCHED_REQUESTS, "rate_rps": capacity,
+                         "slo_ms": SCHED_SLO_MS, "seed": SCHED_1X_SEED}
+    del eng
+    if dev.type == "cuda":
+        out["device_memory_by_rank"] = {
+            "allocated_gb": gathered([torch.cuda.memory_allocated(dev) / 1e9]),
+            "peak_gb": gathered([torch.cuda.max_memory_allocated(dev) / 1e9])}
+    out["launches"] = {kern.__name__: int(c) for kern, c in zip(ops.KERNELS, summed(counts))}
+    group.barrier()
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def drive_sharded(ds, nbr, index, cfg, tau: float, capacity: float) -> dict:
     """Phase 3g: `sharded_rank` at D=1 over nccl and at D=2 over gloo (two
     ranks on the one card), each in one spawn; the kernels are built
-    already (phase 1)."""
+    already (phase 1). ``capacity`` is phase 3f's, the 1x stream's rate."""
     from repro_torch.launch.mesh import spawn_ranks
     tables = {"train": ds.train, "test": ds.test, "idx": nbr.idx.cpu().numpy(),
-              "wgt": nbr.wgt.cpu().numpy()}
+              "wgt": nbr.wgt.cpu().numpy(), "index": index}
     out = {}
     for backend, D in SHARD_GROUPS:
         t0 = time.perf_counter()
         out[f"D{D}"] = spawn_ranks(sharded_rank, D, backend=backend, device="cuda",
                                    timeout_s=SHARD_TIMEOUT_S,
-                                   args=(D, tables, cfg, tau, "cuda"))
+                                   args=(D, tables, cfg, tau, capacity, "cuda"))
         out[f"D{D}"]["spawn_s"] = time.perf_counter() - t0
     return out
 
@@ -3614,14 +3848,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     for kern in ops.KERNELS:
         kern.launches = 0
-    sharded = drive_sharded(ds, nbr, cfg, robust["byzantine"]["tau"])
+    sharded = drive_sharded(ds, nbr, index, cfg, robust["byzantine"]["tau"],
+                            sched["capacity_rps"])
+    served = {d: run.pop("serving") for d, run in sharded.items()}
     launches["sharded"] = {kern.__name__: kern.launches + sum(
         run["launches"][kern.__name__] for run in sharded.values()) for kern in ops.KERNELS}
+    launches["sharded_serving"] = {kern.__name__: sum(
+        run["launches"][kern.__name__] for run in served.values()) for kern in ops.KERNELS}
     log(f"phase 3 sharded path: {time.perf_counter() - t0} s, launches "
-        f"{json.dumps(launches['sharded'])}")
+        f"{json.dumps(launches['sharded'])}; serving half "
+        f"{json.dumps(launches['sharded_serving'])}")
     for name in SHARDED_KERNELS:
         assert launches["sharded"][name] > 0, f"kernel {name} was not launched on the sharded path"
+    for name in SHARDED_SERVING_KERNELS:
+        assert launches["sharded_serving"][name] > 0, (
+            f"kernel {name} was not launched on the sharded serving path")
     log("sharded", json.dumps(sharded))
+    log("sharded_serving", json.dumps(served))
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

@@ -1,16 +1,20 @@
 """Continuous-batching request scheduler with SLO-aware admission control
 — port of `src/repro/scheduling/scheduler.py` (`SchedulerConfig`,
-`SchedulerReport` with `publish`, `Scheduler`, `simulate_lockstep`) for
-the port's one-device `ServingEngine`.
+`SchedulerReport` with `publish`, `Scheduler`, `simulate_lockstep`).
 
 The scheduler sits in front of the engine and replaces its drain
 discipline with a serving loop:
 
   * **Per-shard waiting queues, dispatched independently.** A queue fires
-    its own `engine.serve_microbatch` once it holds a full microbatch and
-    its shard is free. The port's engine serves one device, so there is
-    one queue (D = 1) and requests route on ``engine._n_users``; learner
-    sharding will set D.
+    its own dispatch once it holds a full microbatch and its shard is
+    free: one slow or empty queue never holds a global batch hostage. A
+    dispatch is `engine.serve_microbatch`. On one device there is one
+    queue. At ``engine.cfg.n_shards = D > 1`` users route to shard
+    ``u // engine._rows`` and every rank of the engine's group runs the
+    same loop on the same requests: the engine serves a dispatch of shard
+    d's queue on rank d's own rows and broadcasts it. The
+    one-wave-at-a-time discipline is `simulate_lockstep`, the measured
+    baseline.
   * **Deadline- and priority-aware admission.** A request whose SLO cannot
     be met behind the queue's backlog is rejected at arrival; one whose
     deadline passes while it waits expires at batch formation. Within a
@@ -28,7 +32,12 @@ the workload's timestamps; each dispatch really runs, and its measured
 wall time (to the slate's copy back to the host) advances the clock.
 Latency is arrival → completion on that clock. Served slates are the
 engine's outputs, bit for bit a direct `ServingEngine.recommend` of the
-same users at the same factor snapshot.
+same users at the same factor snapshot. At D ranks every second that
+moves the clock is one number all ranks agree on: a dispatch's is the
+serving rank's, broadcast with its slates, an ingest window's the
+largest rank's (`engine.agreed_seconds`), a wave's the slowest rank's.
+So admission, batches and ingest windows fall alike on every rank, and
+every rank returns the same report.
 """
 from __future__ import annotations
 
@@ -136,16 +145,16 @@ class Scheduler:
     through admission → the per-shard queues → independent microbatch
     dispatch.
 
-    Routing: user u lives on shard ``u // rows`` with rows =
-    ``engine._n_users`` on one device (ids outside [0, n_users) are
-    clamped for routing; they pass admission like any request and get the
-    engine's flagged fallback slate at dispatch)."""
+    Routing reuses the engine's shard layout: user u lives on shard
+    ``u // engine._rows`` (ids outside [0, n_users) are clamped for
+    routing; they pass admission like any request and get the engine's
+    flagged fallback slate at dispatch)."""
 
     def __init__(self, engine, cfg: SchedulerConfig = SchedulerConfig()):
         self.engine = engine
         self.cfg = cfg
-        self.n_shards = 1
-        self._rows = engine._n_users
+        self.n_shards = engine.cfg.n_shards
+        self._rows = engine._rows if self.n_shards > 1 else engine._n_users
         self._svc_est: float | None = None   # EMA of measured dispatch seconds
         self._ingest_est: float | None = None
 
@@ -192,9 +201,9 @@ class Scheduler:
 
     def _dispatch(self, d: int, take: list[RequestRecord], now: float,
                   n_ingested: int) -> float:
+        users = [r.user for r in take]
         with trace_lib.span("scheduler.dispatch", shard=d, n=len(take)):
-            vals, idx, flags, dt = self.engine.serve_microbatch(
-                [r.user for r in take], return_flags=True)
+            vals, idx, flags, dt = self.engine.serve_microbatch(users, return_flags=True)
         if self._svc_est is None:
             self._svc_est = dt
         else:
@@ -244,6 +253,8 @@ class Scheduler:
             with trace_lib.span("scheduler.ingest_window", n_events=len(ev)):
                 ingest_reports.append(eng.ingest(np.asarray(ev), ocfg))
             din = time.perf_counter() - t0
+            if D > 1:              # every rank's clock moves by the same seconds
+                din = eng.agreed_seconds(din)
             self._ingest_est = din if self._ingest_est is None else (
                 0.5 * din + 0.5 * self._ingest_est)
             ingest_intervals.append((at, at + din))
@@ -300,11 +311,13 @@ class Scheduler:
 def simulate_lockstep(engine, requests: list[Request]) -> SchedulerReport:
     """The pre-scheduler dispatch discipline on the same virtual clock:
     one wave at a time takes up to `microbatch` FIFO requests from every
-    shard queue and completes together, with no admission control and no
-    expiry. On one device (D = 1) a wave is one `serve_microbatch`."""
-    D = 1
+    shard queue and completes together (`engine.serve_wave`, one launch
+    on every rank and the slowest rank's seconds), with no admission
+    control and no expiry. Requests pay for the widest batch. At
+    ``n_shards == 1`` the wave is one `serve_microbatch`."""
+    D = engine.cfg.n_shards
     R = engine.cfg.microbatch
-    rows = engine._n_users
+    rows = engine._rows if D > 1 else engine._n_users
     reqs = sorted(requests, key=lambda r: (r.arrival, r.rid))
     queues: list[list[RequestRecord]] = [[] for _ in range(D)]
     records: list[RequestRecord] = []
@@ -337,8 +350,28 @@ def simulate_lockstep(engine, requests: list[Request]) -> SchedulerReport:
         for d in range(D):
             queues[d] = queues[d][len(takes[d]):]
         flat = [rec for t in takes for rec in t]
-        out_v, out_i, flags, dt = engine.serve_microbatch([r.user for r in flat],
-                                                          return_flags=True)
+        if D > 1:
+            users = np.asarray([r.user for r in flat])
+            flags = (engine._fallback_mask(users) if engine.cfg.fallback
+                     else np.zeros(len(flat), bool))
+            safe = np.where(flags, 0, users).astype(np.int64)
+            uids_l = np.zeros((D, R), np.int64)
+            off = 0
+            for d in range(D):
+                m = len(takes[d])
+                uids_l[d, :m] = safe[off:off + m] % rows
+                off += m
+            vals, idx, dt = engine.serve_wave(uids_l)
+            engine.stats.n_requests += len(flat)
+            out_v = np.concatenate([vals[d, : len(takes[d])] for d in range(D)])
+            out_i = np.concatenate([idx[d, : len(takes[d])] for d in range(D)])
+            if flags.any():
+                out_v[flags] = engine._pop_vals
+                out_i[flags] = engine._pop_items
+                engine.stats.n_fallbacks += int(flags.sum())
+        else:
+            out_v, out_i, flags, dt = engine.serve_microbatch([r.user for r in flat],
+                                                              return_flags=True)
         done = t_fire + dt
         for j, rec in enumerate(flat):
             rec.status = SERVED

@@ -123,9 +123,16 @@ class LearnerGroup:
         self._timed(lambda: dist.all_to_all_single(out, x))
         return out
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over ranks, in place; returns ``x``."""
-        self._timed(lambda: dist.all_reduce(x, op=dist.ReduceOp.SUM))
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Sum (``op="sum"``) or maximum (``op="max"``) over ranks, in
+        place; returns ``x``."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        self._timed(lambda: dist.all_reduce(x, op=red))
+        return x
+
+    def broadcast(self, x: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank, in place; returns ``x``."""
+        self._timed(lambda: dist.broadcast(x, src=src))
         return x
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -241,12 +248,19 @@ def local_rows(x, plan: ShardPlan) -> torch.Tensor:
     """This rank's rows of a full (unpadded, I leading) host array or
     tensor, zero-padded to ``plan.rows``, as a new tensor on the plan's
     device."""
-    lo = min(plan.row0, x.shape[0])
-    hi = min(plan.row0 + plan.rows, x.shape[0])
+    return group_rows(x, plan.group, plan.rows)
+
+
+def group_rows(x, group: LearnerGroup, rows: int) -> torch.Tensor:
+    """Rows ``[rank·rows, (rank+1)·rows)`` of a full (unpadded, I leading)
+    host array or tensor, zero-padded to ``rows``, as a new tensor on the
+    group's device."""
+    row0 = group.rank * rows
+    lo, hi = min(row0, x.shape[0]), min(row0 + rows, x.shape[0])
     part = x[lo:hi]
     if not torch.is_tensor(part):
         part = torch.as_tensor(np.ascontiguousarray(part))
-    out = torch.zeros((plan.rows, *part.shape[1:]), dtype=part.dtype, device=plan.device)
+    out = torch.zeros((rows, *part.shape[1:]), dtype=part.dtype, device=group.device)
     out[:hi - lo].copy_(part)
     return out
 

@@ -1278,3 +1278,23 @@ def test_sharded_fit_on_the_card_matches_the_unsharded_fit(dev, backend, n_shard
         if name == "plain":
             assert got["evaluate"] == dmf.evaluate(ref.state, ds.train, ds.test, ds.n_users,
                                                    ds.n_items, device=dev)
+
+
+def test_sharded_serving_on_the_card_equals_the_one_device_engine(dev):
+    """Two gloo ranks on the one card serve the small world's requests
+    through `ServingEngine(n_shards=2)` (kernel 5 in place pruned, kernel
+    2 on the rank's rows dense): the slates of the one-device engine on
+    the card, bit for bit, values and ids."""
+    import _torch_sharded_serving_ranks as ranks
+    from repro_torch.core import dmf
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh
+    build.load()                        # before the ranks start
+    ds, nbr = ranks.world()
+    st = dmf.fit(ranks.config(ds), ds.train, nbr, epochs=6, device="cpu").state
+    states = {"fit6": tuple(x.numpy() for x in (st.U, st.P, st.Q))}
+    got = mesh.spawn_ranks(ranks.card_case, 2, backend="gloo", device="cuda",
+                           timeout_s=300.0, args=(2, states))
+    for prune in (True, False):
+        for a, b in zip(got[prune]["sharded"], got[prune]["one"]):
+            np.testing.assert_array_equal(a, b)

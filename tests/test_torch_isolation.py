@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax_or_repro():
         "       'repro_torch.privacy.audit', 'repro_torch.obs.trace',\n"
         "       'repro_torch.obs.telemetry', 'repro_torch.scheduling.workload',\n"
         "       'repro_torch.scheduling.metrics', 'repro_torch.scheduling.scheduler',\n"
-        "       'repro_torch.sharding.dmf', 'repro_torch.launch.mesh'}\n"
+        "       'repro_torch.sharding.dmf', 'repro_torch.launch.mesh',\n"
+        "       'repro_torch.examples.quickstart', 'repro_torch.examples.poi_serving'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
@@ -68,6 +69,14 @@ def test_source_scan_finds_no_reference_imports():
         text = f.read_text()
         for needle in ("import jax", "from repro.", "import repro.", "from repro import"):
             assert needle not in text, (f, needle)
+
+
+@pytest.mark.parametrize("helper", ["_torch_sharded_ranks.py",
+                                    "_torch_sharded_serving_ranks.py"])
+def test_rank_helpers_import_no_reference(helper):
+    """The modules the spawned ranks import start without JAX."""
+    roots = _imported_roots(pathlib.Path(__file__).resolve().parent / helper)
+    assert not roots & {"jax", "jaxlib", "repro", "ml_dtypes"}, roots
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
