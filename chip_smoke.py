@@ -7,8 +7,10 @@ defenses, crash-resume, the leakage audit), the scheduler with the
 observability layer (telemetry, spans, the profiler's device busy share)
 and learner-sharded training and serving (one rank per process, over
 nccl and gloo) at full Foursquare scale and
-million-user tiled serving at the reference's million configuration, and
-times each kernel beside its bound.
+million-user tiled serving at the reference's million configuration, the
+LM stack's prefill and cached decode for every architecture family
+(qwen1.5-4b at full width and depth), and times each kernel beside its
+bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold kernels 9, 5 (in place,
@@ -203,6 +205,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       rank) print
       before phase 4; a rank that fails, times out or misses a hold fails
       the script.
+   h. LM serving (`launch/serve.py` `make_prefill_step` /
+      `make_decode_step` over `models/transformer.py`), which runs none of
+      the port's kernels (every count must stay 0): qwen1.5-4b at its
+      published width and depth (40 layers, fp32 parameters initialised on
+      the card from the seed), bf16 compute as published: the prefill of
+      4 × 4,096 tokens (4 q-chunks × 2 kv-chunks a layer), timed twice,
+      its caches spliced into a decode cache of 4,160 positions and 64
+      greedy decode steps timed with CUDA events; then fp32 compute on the
+      same weights: prefill 504 tokens, 8 teacher-forced decode steps,
+      their logits held against `forward` over the 512 tokens within the
+      reference's decode-vs-forward tolerance (rtol 5e-2, atol 5e-3). The
+      other nine configs of `ARCH_IDS` and yi-34b-swa at their published
+      widths, one period of depth (`reduced()` where one period of fp32
+      parameters exceeds 30 GB: Jamba), fp32, MoE capacity factor
+      n_experts/top_k (a forward drops routes that a one-token step
+      keeps): prefill 56, 8 teacher-forced steps held against `forward`;
+      yi-34b-swa prefills 8,192 and decodes to position 10,239 through its
+      ring, its last step held against `forward` over 10,240 tokens.
+      Zero- and one-initialised parameters (norms, biases, the cross gate)
+      are randomised first. Then all eleven at `reduced()` in fp32, the
+      same numpy weights on the card and on the CPU: prefill logits, 4
+      decode steps and every cache leaf within 1e-4 × the CPU tensor's
+      largest magnitude. The ``lm_serving`` line prints before phase 4
+      (prefill tokens/s, decode ms/step p50/p99 and tokens/s, peak GB
+      above the parameters, the meta device's parameter bytes, one
+      prefill and 4 decode steps again under `torch.profiler` with the
+      device's busy share and the kernels with the most time, each hold's
+      deviation, the cuts under ``reduced``).
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -338,6 +368,18 @@ E2E_ORDER = ("other", "this", "this", "other") * 3
 E2E_SERVES, E2E_DP_EPOCHS = 3, 4
 SCHED_KERNELS = ("serve_topk_rows", "dmf_fused_step")
 TELE_KERNELS = ("dmf_fused_step_dp", "gauss_counter", "dmf_fused_step")
+# phase 3h: the LM stack's serving path, no kernel of the port on it
+LM_QWEN, LM_SWA = "qwen1.5-4b", "yi-34b-swa"
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 4096, 64        # bf16 prefill B x S, greedy decode steps
+LM_CACHE = LM_PROMPT + LM_DECODE                    # 4,160 decode cache positions
+LM_HOLD_PROMPT, LM_HOLD_STEPS = 504, 8              # fp32 hold: prefill, teacher-forced steps
+LM_HOLD_RTOL, LM_HOLD_ATOL = 5e-2, 5e-3             # tests/test_models_smoke.py decode vs forward
+LM_PROMPT_OTHER = 56                                # the other configs' prefill (+8 steps = 64)
+LM_PERIOD_CAP_BYTES = 30e9                          # one period above this runs at reduced()
+LM_SWA_PROMPT, LM_SWA_TOKENS = 8192, 10_240         # the ring of 8,192 wraps at position 8,192
+LM_CPU_PREFILL, LM_CPU_STEPS = 8, 4                 # card vs CPU at reduced()
+LM_CARD_CPU_REL = 1e-4
+LM_PROFILED = 4                                     # decode steps under the profiler
 
 
 def log(*parts) -> None:
@@ -2638,6 +2680,279 @@ def drive_sharded(ds, nbr, index, cfg, tau: float, capacity: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------- LM serving
+def lm_inputs(cfg, B: int, S: int, gen, dev):
+    """Seeded token ids (B, S) or (B, S, n_q), and media for vision models."""
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    tokens = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    media = (torch.randn((B, cfg.n_image_tokens, cfg.d_model), generator=gen, device=dev) * 0.5
+             if cfg.n_image_tokens else None)
+    return tokens, media
+
+
+def lm_randomize_constants(model, gen) -> int:
+    """Adds N(0, 0.3²) draws to every small parameter that is all zeros or
+    all ones at init (norm scales, qkv biases, the cross gate, `conv_b`,
+    `D`), so that the holds hold them to something; returns their count."""
+    n = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.numel() <= 1 << 20 and (bool((p == 0).all()) or bool((p == 1).all())):
+                p.add_(torch.randn(p.shape, generator=gen, device=p.device) * 0.3)
+                n += 1
+    return n
+
+
+def lm_decode_vs_forward(model, prompt: int, steps: int, dev, gen, last_only: bool = False) -> dict:
+    """Prefill ``prompt`` tokens, splice the caches into a cache of prompt +
+    steps positions, decode the next ``steps`` tokens teacher-forced, and
+    hold the decoded logits against `forward` over all prompt + steps
+    tokens at the same positions (every step, or the last with
+    ``last_only``), within the reference's decode-vs-forward tolerance."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    cfg = model.cfg
+    tokens, media = lm_inputs(cfg, 1, prompt + steps, gen, dev)
+    batch = {"tokens": tokens[:, :prompt]}
+    if media is not None:
+        batch["media"] = media
+    sync(dev)
+    t0 = time.perf_counter()
+    _, pcache = serve.make_prefill_step(cfg, device=dev)(model, batch)
+    cache = serve.cache_from_prefill(cfg, pcache, prompt + steps, device=dev)
+    del pcache
+    step = serve.make_decode_step(cfg, device=dev)
+    decoded = []
+    for t in range(prompt, prompt + steps):
+        logits, cache = step(model, cache, tokens[:, t:t + 1], t)
+        if not last_only or t == prompt + steps - 1:
+            decoded.append(logits[:, 0])
+    sync(dev)
+    served_s = time.perf_counter() - t0
+    del cache
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        h, _, _ = transformer.forward(model, tokens, media=media)
+        full = transformer.logits_of(model, h[:, -len(decoded):])
+        del h
+    sync(dev)
+    forward_s = time.perf_counter() - t0
+    got = torch.stack(decoded, 1)
+    dev_abs = (got - full).abs()
+    ratio = float((dev_abs / (LM_HOLD_ATOL + LM_HOLD_RTOL * full.abs())).max())
+    out = {"prompt": prompt, "steps": steps, "held_positions": len(decoded),
+           "max_abs_dev": float(dev_abs.max()), "max_abs_logit": float(full.abs().max()),
+           "worst_over_tolerance": ratio, "finite": bool(torch.isfinite(got).all()),
+           "prefill_and_decode_s": served_s, "forward_s": forward_s}
+    assert out["finite"] and ratio <= 1.0, f"phase 3h {cfg.name}: decode != forward {out}"
+    return out
+
+
+def lm_profile(fn) -> dict:
+    """One call of ``fn`` under `torch.profiler` (CPU and CUDA activity):
+    the device's busy share over the window (`obs.trace.device_busy`) and
+    the kernels with the most device time."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import trace as obs_trace
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        doc = json.loads(path.read_text())
+    return {"device_busy": obs_trace.device_busy(doc), "kernels": kernel_time_by_name(doc, top=8)}
+
+
+def lm_qwen(dev) -> dict:
+    """qwen1.5-4b at its published width and depth: the bf16 prefill of
+    LM_BATCH × LM_PROMPT tokens (twice: the first call pays the libraries'
+    first use), its caches spliced into a decode cache of LM_CACHE
+    positions, LM_DECODE greedy steps timed with CUDA events; then, fp32
+    compute on the same weights, the decode-vs-forward hold."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+    from repro_torch.utils import tree
+    cfg = registry.get_config(LM_QWEN)
+    param_bytes = tree.tree_bytes(transformer.abstract_params(cfg))
+    sync(dev)
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    randomized = lm_randomize_constants(model, gen)
+    tokens, _ = lm_inputs(cfg, LM_BATCH, LM_PROMPT, gen, dev)
+    prefill = serve.make_prefill_step(cfg, device=dev)
+    decode = serve.make_decode_step(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    prefill_s = []
+    for _ in range(2):
+        logits = pcache = None
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, pcache = prefill(model, {"tokens": tokens})
+        sync(dev)
+        prefill_s.append(time.perf_counter() - t0)
+    prefill_peak = torch.cuda.max_memory_allocated(dev) - resident
+    cache = serve.cache_from_prefill(cfg, pcache, LM_CACHE, device=dev)
+    del pcache
+    tok = logits.argmax(-1)                                   # (B, 1) greedy
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(LM_DECODE)]
+    fed = []
+    sync(dev)
+    t0 = time.perf_counter()
+    for i, (start, end) in enumerate(events):
+        start.record()
+        fed.append(tok)
+        logits, cache = decode(model, cache, tok, LM_PROMPT + i)
+        tok = logits.argmax(-1)
+        end.record()
+    sync(dev)
+    decode_wall_s = time.perf_counter() - t0
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    assert bool(torch.isfinite(logits).all()), "phase 3h: non-finite decode logits"
+    peak = torch.cuda.max_memory_allocated(dev) - resident
+    # where a step's time goes: the last LM_PROFILED steps again (the same
+    # tokens at the same positions rewrite the same cache entries)
+    last = range(LM_CACHE - LM_PROFILED, LM_CACHE)
+    decode_profile = lm_profile(lambda: [decode(model, cache, fed[t - LM_PROMPT], t) for t in last])
+    decode_profile["steps"] = LM_PROFILED
+    prefill_profile = lm_profile(lambda: prefill(model, {"tokens": tokens}))
+    cache_bytes = sum(v.numel() * v.element_size() for c in cache.values() for v in c.values())
+    del cache, logits
+    model.cfg = dataclasses.replace(cfg, compute_dtype="float32")   # the same weights
+    hold = lm_decode_vs_forward(model, LM_HOLD_PROMPT, LM_HOLD_STEPS, dev, gen)
+    del model
+    torch.cuda.empty_cache()
+    decode_s = sum(step_ms) / 1e3
+    return {
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                   "qkv_bias": cfg.qkv_bias, "compute_dtype": cfg.compute_dtype},
+        "param_bytes_meta": param_bytes, "allocated_after_init": resident, "init_s": init_s,
+        "randomized_constant_leaves": randomized,
+        "prefill": {"batch": LM_BATCH, "tokens": LM_PROMPT, "s": prefill_s,
+                    "tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s[-1],
+                    "peak_gb_above_params": prefill_peak / 1e9},
+        "decode": {"steps": LM_DECODE, "cache_positions": LM_CACHE,
+                   "ms_p50": float(np.percentile(step_ms, 50)),
+                   "ms_p99": float(np.percentile(step_ms, 99)),
+                   "ms_min": step_ms[0], "ms_max": step_ms[-1],
+                   "tokens_per_s": LM_BATCH * LM_DECODE / decode_s, "wall_s": decode_wall_s,
+                   "cache_gb": cache_bytes / 1e9},
+        "peak_gb_above_params": peak / 1e9,
+        "profiled": {"decode": decode_profile, "prefill": prefill_profile},
+        "hold_fp32": hold,
+    }
+
+
+def lm_other_config(arch: str, dev) -> dict:
+    """One config at its published width, cut to one period of depth (to
+    `reduced()` where one period of fp32 parameters exceeds
+    LM_PERIOD_CAP_BYTES), fp32 compute, MoE without capacity drops: the
+    decode-vs-forward hold (yi-34b-swa past its ring's wrap)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    from repro_torch.utils import tree
+    full = registry.get_config(arch)
+    one = dataclasses.replace(full, n_layers=len(full.period), compute_dtype="float32")
+    one_bytes = tree.tree_bytes(transformer.abstract_params(one))
+    if one_bytes > LM_PERIOD_CAP_BYTES:
+        cfg, cut = mc.reduced(full), (f"reduced(): one period of fp32 parameters is "
+                                      f"{one_bytes / 1e9:.1f} GB > {LM_PERIOD_CAP_BYTES / 1e9:.0f} GB")
+    else:
+        cfg, cut = one, f"one period: {len(full.period)} of {full.n_layers} layers"
+    if cfg.n_routed_experts:
+        # a forward drops routes a one-token decode step keeps; the hold
+        # compares the two only without drops
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_routed_experts / cfg.moe_top_k)
+        cut += "; capacity_factor n_experts/top_k (no route dropped)"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = transformer.init_params(cfg, seed=SEED, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    randomized = lm_randomize_constants(model, gen)
+    if arch == LM_SWA:
+        held = lm_decode_vs_forward(model, LM_SWA_PROMPT, LM_SWA_TOKENS - LM_SWA_PROMPT, dev,
+                                    gen, last_only=True)
+        held["ring_slots"] = min(LM_SWA_TOKENS, cfg.period[0].sliding_window)
+    else:
+        held = lm_decode_vs_forward(model, LM_PROMPT_OTHER, LM_HOLD_STEPS, dev, gen)
+    del model
+    torch.cuda.empty_cache()
+    return {"cut": cut, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "param_bytes": tree.tree_bytes(transformer.abstract_params(cfg)), "init_s": init_s,
+            "randomized_constant_leaves": randomized, **held}
+
+
+def lm_card_vs_cpu(arch: str, dev) -> dict:
+    """`reduced()` width, fp32: the same numpy weights carried to the card
+    and to the CPU; prefill logits, LM_CPU_STEPS decode steps' logits and
+    every cache leaf within LM_CARD_CPU_REL × the CPU tensor's largest
+    magnitude."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    cfg = mc.reduced(registry.get_config(arch))
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=SEED, device="cpu"))
+    gen = torch.Generator().manual_seed(SEED)
+    tokens, media = lm_inputs(cfg, 2, LM_CPU_PREFILL + LM_CPU_STEPS, gen, "cpu")
+    runs = {}
+    for where in ("cpu", dev):
+        model = transformer.params_from_numpy(tree, cfg, device=where)
+        batch = {"tokens": tokens[:, :LM_CPU_PREFILL].to(where)}
+        if media is not None:
+            batch["media"] = media.to(where)
+        logits, pcache = serve.make_prefill_step(cfg, device=where)(model, batch)
+        cache = serve.cache_from_prefill(cfg, pcache, LM_CPU_PREFILL + LM_CPU_STEPS, device=where)
+        step = serve.make_decode_step(cfg, device=where)
+        outs = [logits.cpu()]
+        for t in range(LM_CPU_PREFILL, LM_CPU_PREFILL + LM_CPU_STEPS):
+            logits, cache = step(model, cache, tokens[:, t:t + 1].to(where), t)
+            outs.append(logits.cpu())
+        runs[where == "cpu"] = (outs, {f"{p}/{n}": v.cpu() for p, c in cache.items()
+                                       for n, v in c.items()})
+    (card_logits, card_cache), (cpu_logits, cpu_cache) = runs[False], runs[True]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    out = {"logits_rel": max(rel(a, b) for a, b in zip(card_logits, cpu_logits)),
+           "cache_rel": max(rel(card_cache[n], cpu_cache[n]) for n in cpu_cache),
+           "cache_leaves": len(cpu_cache)}
+    assert out["logits_rel"] <= LM_CARD_CPU_REL and out["cache_rel"] <= LM_CARD_CPU_REL, (
+        f"phase 3h card vs CPU {arch}: {out}")
+    return out
+
+
+def drive_lm_serving(dev) -> dict:
+    """Phase 3h: the LM stack's serving path (`launch/serve.py` over
+    `models/transformer.py`) on the card; see the module docstring, h."""
+    from repro_torch.configs import registry
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"qwen1.5-4b": lm_qwen(dev)}
+    out["qwen1.5-4b"]["s"] = time.perf_counter() - t0
+    configs = {}
+    for arch in [a for a in registry.ARCH_IDS if a != LM_QWEN] + [LM_SWA]:
+        t0 = time.perf_counter()
+        configs[arch] = lm_other_config(arch, dev)
+        configs[arch]["s"] = time.perf_counter() - t0
+    out["configs"] = configs
+    out["reduced"] = {"qwen1.5-4b": "none: 40 of 40 layers (bf16 timing; fp32 hold)",
+                      **{a: c["cut"] for a, c in configs.items()}}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = {a: lm_card_vs_cpu(a, dev) for a in registry.ARCH_IDS + [LM_SWA]}
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    return out
+
+
 # ------------------------------------------------------------- e2e turns
 def e2e_probe(root: pathlib.Path) -> dict:
     """One turn of ``--e2e-turns`` on the `repro_torch` of the checkout in
@@ -3865,6 +4180,16 @@ def main(argv=None) -> int:
             f"kernel {name} was not launched on the sharded serving path")
     log("sharded", json.dumps(sharded))
     log("sharded_serving", json.dumps(served))
+
+    t0 = time.perf_counter()
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    lm = drive_lm_serving(dev)
+    lm["kernel_launches"] = sum(kern.launches for kern in ops.KERNELS)
+    assert lm["kernel_launches"] == 0, "phase 3h launched one of the port's kernels"
+    lm["s"] = time.perf_counter() - t0
+    log(f"phase 3h LM serving: {lm['s']} s")
+    log("lm_serving", json.dumps(lm))
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

@@ -1298,3 +1298,58 @@ def test_sharded_serving_on_the_card_equals_the_one_device_engine(dev):
     for prune in (True, False):
         for a, b in zip(got[prune]["sharded"], got[prune]["one"]):
             np.testing.assert_array_equal(a, b)
+
+
+LM_ARCHS = ["minicpm3-4b", "llama-3.2-vision-90b", "deepseek-v2-lite-16b", "qwen1.5-4b",
+            "musicgen-medium", "minitron-4b", "deepseek-v2-236b", "mamba2-2.7b",
+            "jamba-1.5-large-398b", "yi-34b", "yi-34b-swa"]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serving_on_the_card_agrees_with_the_cpu(dev, arch):
+    """The LM serving path at `reduced()` width in fp32 (TF32 off): the same
+    numpy weights carried to the card and to the CPU give prefill logits,
+    4 decode steps' logits and every cache leaf within 1e-4 × the CPU
+    tensor's largest magnitude. None of the port's kernels launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    cfg = mc.reduced(registry.get_config(arch))
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=0, device="cpu"))
+    rng = np.random.default_rng(0)
+    B, S, steps = 2, 8, 4
+    shape = (B, S + steps, cfg.n_codebooks) if cfg.n_codebooks else (B, S + steps)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape))
+    media = (torch.as_tensor(rng.normal(0, 0.5, (B, cfg.n_image_tokens, cfg.d_model)),
+                             dtype=torch.float32) if cfg.n_image_tokens else None)
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for where in ("cpu", dev):
+            model = transformer.params_from_numpy(tree, cfg, device=where)
+            batch = {"tokens": tokens[:, :S].to(where)}
+            if media is not None:
+                batch["media"] = media.to(where)
+            logits, pcache = serve.make_prefill_step(cfg, device=where)(model, batch)
+            cache = serve.cache_from_prefill(cfg, pcache, S + steps, device=where)
+            step = serve.make_decode_step(cfg, device=where)
+            outs = [logits]
+            for t in range(S, S + steps):
+                logits, cache = step(model, cache, tokens[:, t:t + 1].to(where), t)
+                outs.append(logits)
+            runs[str(where)] = ([o.cpu() for o in outs],
+                                {f"{p}/{n}": v.cpu() for p, c in cache.items() for n, v in c.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (cpu_logits, cpu_cache), (card_logits, card_cache) = runs["cpu"], runs[str(dev)]
+    for got, want in zip(card_logits, cpu_logits):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+    for name, want in cpu_cache.items():
+        np.testing.assert_allclose(card_cache[name].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()), err_msg=name)
+    assert all(kern.launches == 0 for kern in ops.KERNELS)

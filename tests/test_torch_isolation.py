@@ -36,7 +36,13 @@ def test_every_module_imports_without_jax_or_repro():
         "       'repro_torch.obs.telemetry', 'repro_torch.scheduling.workload',\n"
         "       'repro_torch.scheduling.metrics', 'repro_torch.scheduling.scheduler',\n"
         "       'repro_torch.sharding.dmf', 'repro_torch.launch.mesh',\n"
-        "       'repro_torch.examples.quickstart', 'repro_torch.examples.poi_serving'}\n"
+        "       'repro_torch.examples.quickstart', 'repro_torch.examples.poi_serving',\n"
+        "       'repro_torch.models.config', 'repro_torch.models.layers',\n"
+        "       'repro_torch.models.attention', 'repro_torch.models.ssm',\n"
+        "       'repro_torch.models.moe', 'repro_torch.models.transformer',\n"
+        "       'repro_torch.utils.tree', 'repro_torch.launch.serve',\n"
+        "       'repro_torch.configs.registry', 'repro_torch.configs.yi_34b_swa',\n"
+        "       'repro_torch.configs.qwen1_5_4b', 'repro_torch.configs.jamba_1_5_large_398b'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
@@ -228,3 +234,38 @@ def test_sharded_entry_points_default_to_cuda_and_raise_without_a_card(monkeypat
         dmf.fit(cfg, train, nbr, epochs=1, device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         sharded_dmf.learner_group(2, device="cpu")
+
+
+def test_lm_serving_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = mc.reduced(registry.get_config("qwen1.5-4b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.make_prefill_step(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.make_decode_step(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.Transformer(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.init_cache(cfg, 1, 8)
+    with pytest.raises(ValueError):
+        transformer.Transformer(cfg, device="mps")
+    # the meta device needs no card; asked for the CPU, each runs there
+    assert transformer.abstract_params(cfg).final_norm.device.type == "meta"
+    model = transformer.init_params(cfg, seed=0, device="cpu")
+    tree = transformer.params_to_numpy(model)
+    with pytest.raises(RuntimeError, match="cuda"):
+        transformer.params_from_numpy(tree, cfg)
+    assert transformer.params_from_numpy(tree, cfg, device="cpu").embed.device.type == "cpu"
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    logits, pcache = serve.make_prefill_step(cfg, device="cpu")(model, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.cache_from_prefill(cfg, pcache, 8)
+    cache = serve.cache_from_prefill(cfg, pcache, 8, device="cpu")
+    logits, cache = serve.make_decode_step(cfg, device="cpu")(model, cache, tokens[:, :1], 4)
+    assert logits.device.type == "cpu" and cache["0"]["k"].device.type == "cpu"
