@@ -9,8 +9,9 @@ and learner-sharded training and serving (one rank per process, over
 nccl and gloo) at full Foursquare scale and
 million-user tiled serving at the reference's million configuration, the
 LM stack's prefill and cached decode for every architecture family
-(qwen1.5-4b at full width and depth), and times each kernel beside its
-bound.
+(qwen1.5-4b at full width and depth) and its training half (qwen1.5-4b
+trained at full width and depth, gossip across learners), and times each
+kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold kernels 9, 5 (in place,
@@ -70,8 +71,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    time; rows too wide to stage).
 3. The main paths at the paper's primary configuration, full Table-1
    scale (`dmf_foursquare` on `foursquare_like(reduced=False, seed=0)`),
-   each with every launch count set to 0 just before it and read just
-   after:
+   and the LM stack's, each with every launch count set to 0 just before
+   it and read just after. The LM phases h and i run first, right after
+   phase 2, in a child process of this script (``--lm-phases``), while the
+   card holds nothing else: i takes ~69 GB of the card's 85, and phases
+   a-g keep ~16 GB of state for phase 4's timing; and their profiler
+   sessions stay out of this process, whose first session is f's.
    a. serving: ingest the train check-ins (kernel 3), recommend pruned
       (kernel 5 reading the engine's state in place) and dense (kernel 2),
       ingest the test check-ins, recommend again; 256 served slates of
@@ -233,6 +238,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       prefill and 4 decode steps again under `torch.profiler` with the
       device's busy share and the kernels with the most time, each hold's
       deviation, the cuts under ``reduced``).
+   i. LM training (`launch/train.py` `make_train_step` over
+      `transformer.loss_fn`, remat and the in-place AdamW), which runs
+      none of the port's kernels either (every count must stay 0), after
+      3h's model and caches are freed: qwen1.5-4b at its published width
+      and depth (40 layers, fp32 parameters from the seed, bf16 compute,
+      remat on, as published) trained by the ``allreduce`` step with
+      `examples/train_lm.py`'s AdamW (linear warmup to 3e-3 over 20 steps
+      then cosine, weight decay 0.01, clip 1.0) applied in place, on one
+      fixed `SyntheticLM` batch of 1 × 4,096 tokens at the model's vocab
+      (train_4k's sequence; its global batch of 256 cut to 1): one
+      warm-up step, 8 steps timed with CUDA events, 2 under
+      `torch.profiler`. Every loss finite, and the loss after the warm-up
+      and timed steps below the first by more than 1 nat. Before it, at 2
+      layers of the same width, `loss_fn` and its gradients with remat on
+      and off, bit for bit. Then the reference's
+      `test_gossip_training_converges_small_lm` on the card (its reduced
+      qwen, 4 learners, D=2, adamw(6e-3), 60 steps, its assertions: the
+      last loss below the first minus 0.3, the consensus error below 0.5).
+      Then the ten `ARCH_IDS` at `reduced()` in fp32, the same numpy
+      weights and batch on the card and on the CPU: the loss, every
+      gradient and every parameter after one AdamW step (eps=1e-3) within
+      1e-4 × the CPU leaf's largest magnitude. The ``lm_training`` line
+      prints before phase 4: step s p50/p99, tokens/s, the model FLOPs
+      6·N·T and `mfu` against the dense bf16 peak, peak GB split into the
+      state (parameters, gradients, both moments) and the rest, the
+      profiled busy share and top kernels, the holds, the cuts under
+      ``reduced``.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -380,6 +412,18 @@ LM_SWA_PROMPT, LM_SWA_TOKENS = 8192, 10_240         # the ring of 8,192 wraps at
 LM_CPU_PREFILL, LM_CPU_STEPS = 8, 4                 # card vs CPU at reduced()
 LM_CARD_CPU_REL = 1e-4
 LM_PROFILED = 4                                     # decode steps under the profiler
+# phase 3i: the LM stack's training half, no kernel of the port on it either
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 1, 4096              # train_4k's sequence; its batch 256 cut to 1
+LM_TRAIN_WARMUP, LM_TRAIN_TIMED, LM_TRAIN_PROFILED = 1, 8, 2
+LM_TRAIN_PEAK_LR, LM_TRAIN_WARMUP_STEPS = 3e-3, 20  # examples/train_lm.py's schedule and decay
+LM_TRAIN_WD = 0.01
+LM_TRAIN_DROP = 1.0                                 # nats the loss must fall over the timed steps
+LM_REMAT_LAYERS = 2                                 # remat on vs off, full width, bit for bit
+# the reference's test_gossip_training_converges_small_lm (tests/test_gossip.py:84-111)
+LM_GOSSIP = dict(n_kv_heads=4, vocab_size=256, d_model=128, d_ff=256, n_heads=4, head_dim=32)
+LM_GOSSIP_LEARNERS, LM_GOSSIP_WALK, LM_GOSSIP_LR, LM_GOSSIP_STEPS = 4, 2, 6e-3, 60
+LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ = 2, 32        # card vs CPU at reduced()
+BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
 
 
 def log(*parts) -> None:
@@ -2953,6 +2997,297 @@ def drive_lm_serving(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------- LM training
+def lm_train_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """One `SyntheticLM` batch at the model's vocab, uploaded once."""
+    from repro_torch.data.lm_pipeline import LMDataConfig, SyntheticLM
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=S, batch_size=B, seed=seed))
+    return {k: torch.as_tensor(v, device=dev)
+            for k, v in data.batch(0, n_codebooks=cfg.n_codebooks).items()}
+
+
+def lm_loss_and_grads(model, batch) -> tuple:
+    """`loss_fn`'s loss and the gradient of every parameter (by name)."""
+    from repro_torch.models import transformer
+    model.zero_grad(set_to_none=True)
+    loss = transformer.loss_fn(model, batch)
+    loss.backward()
+    grads = {name: torch.zeros_like(p) if p.grad is None else p.grad
+             for name, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach(), grads
+
+
+def lm_remat_hold(cfg, batch, dev) -> dict:
+    """qwen1.5-4b at full width, LM_REMAT_LAYERS layers: `loss_fn` and its
+    gradients with remat off and on, the same weights: equal bit for bit."""
+    from repro_torch.models import transformer
+    small = dataclasses.replace(cfg, n_layers=LM_REMAT_LAYERS)
+    model = transformer.init_params(small, seed=SEED, device=dev)
+    runs = []
+    for remat in (False, True):
+        model.cfg = dataclasses.replace(small, remat=remat)
+        runs.append(lm_loss_and_grads(model, batch))
+    (l0, g0), (l1, g1) = runs
+    out = {"n_layers": LM_REMAT_LAYERS, "loss": float(l0), "loss_equal": bool(torch.equal(l0, l1)),
+           "grad_leaves": len(g0),
+           "grads_equal": all(bool(torch.equal(g0[n], g1[n])) for n in g0)}
+    del model, runs, g0, g1
+    torch.cuda.empty_cache()
+    assert out["loss_equal"] and out["grads_equal"], f"phase 3i remat on != off: {out}"
+    return out
+
+
+def lm_train_qwen(dev) -> dict:
+    """qwen1.5-4b at its published width and depth (fp32 parameters, bf16
+    compute, remat as published) trained by the ``allreduce`` step with
+    `train_lm`'s AdamW: one warm-up step, LM_TRAIN_TIMED steps timed with
+    CUDA events, LM_TRAIN_PROFILED under `torch.profiler`, all on one fixed
+    batch of LM_TRAIN_BATCH × LM_TRAIN_SEQ tokens."""
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.utils import tree
+    cfg = registry.get_config(LM_QWEN)
+    batch = lm_train_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, SEED, dev)
+    t0 = time.perf_counter()
+    remat = lm_remat_hold(cfg, batch, dev)
+    remat["s"] = time.perf_counter() - t0
+    meta = transformer.abstract_params(cfg)
+    n_params = tree.tree_size(meta)
+    param_bytes = tree.tree_bytes(meta)
+    n_steps = LM_TRAIN_WARMUP + LM_TRAIN_TIMED + LM_TRAIN_PROFILED
+    opt = optim.adamw(optim.linear_warmup_cosine(LM_TRAIN_PEAK_LR, LM_TRAIN_WARMUP_STEPS, n_steps),
+                      weight_decay=LM_TRAIN_WD)
+    step, init_fn = train.make_train_step(cfg, opt, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    state = init_fn(SEED)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated(dev)      # parameters and both moments
+    losses = []
+    sync(dev)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                    # warm-up: the libraries' first use
+    losses.append(m["loss"])
+    sync(dev)
+    warmup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(LM_TRAIN_TIMED)]
+    t0 = time.perf_counter()
+    for start, end in events:
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        losses.append(m["loss"])
+    sync(dev)
+    timed_wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = sorted(s.elapsed_time(e) / 1e3 for s, e in events)
+
+    def profiled():
+        nonlocal state
+        for _ in range(LM_TRAIN_PROFILED):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+
+    profile = lm_profile(profiled)
+    profile["steps"] = LM_TRAIN_PROFILED
+    # the profiler slows the host, so its busy share is a lower bound; the
+    # profiled device time a step over the unprofiled step time estimates it
+    profile["busy_share_unprofiled_estimate"] = (
+        profile["device_busy"]["busy_ms"] / 1e3 / LM_TRAIN_PROFILED
+        / float(np.percentile(step_s, 50)))
+    losses = [float(x) for x in losses]
+    assert all(np.isfinite(losses)), f"phase 3i: non-finite loss {losses}"
+    after = losses[LM_TRAIN_WARMUP + LM_TRAIN_TIMED]   # after the warm-up and the timed steps
+    assert after < losses[0] - LM_TRAIN_DROP, f"phase 3i: loss {losses[0]} -> {after}"
+    assert [int(x) for x in state.opt_state.step.reshape(-1).tolist()] == [n_steps]
+    del state, m, step
+    torch.cuda.empty_cache()
+    p50 = float(np.percentile(step_s, 50))
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    flops = 6.0 * n_params * tokens
+    state_bytes = 4 * param_bytes                     # parameters, gradients, mu, nu (all fp32)
+    return {
+        "config": {"n_layers": cfg.n_layers, "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                   "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab_size": cfg.vocab_size,
+                   "qkv_bias": cfg.qkv_bias, "compute_dtype": cfg.compute_dtype,
+                   "remat": cfg.remat, "attn_chunk": cfg.attn_chunk,
+                   "loss_chunk": cfg.loss_chunk},
+        "optimizer": {"adamw": {"lr": f"linear_warmup_cosine({LM_TRAIN_PEAK_LR}, "
+                                      f"{LM_TRAIN_WARMUP_STEPS}, {n_steps})",
+                                "weight_decay": LM_TRAIN_WD, "grad_clip_norm": 1.0,
+                                "applied": "in place (Optimizer.update_)"}},
+        "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "tokens_per_step": tokens,
+        "n_params": n_params, "param_bytes": param_bytes,
+        "n_params_without_input_embedding": n_params - cfg.vocab_size * cfg.d_model,
+        "init_s": init_s, "warmup_step_s": warmup_s,
+        "losses": losses, "loss_drop": losses[0] - after, "loss_drop_margin": LM_TRAIN_DROP,
+        "step_s": {"p50": p50, "p99": float(np.percentile(step_s, 99)), "min": step_s[0],
+                   "max": step_s[-1], "timed": LM_TRAIN_TIMED, "wall_s": timed_wall_s},
+        "tokens_per_s": tokens / p50,
+        "model_flops_per_step": flops,
+        "model_flops": "6*N*T, N every parameter (input embedding included), T tokens a step",
+        "mfu": flops / p50 / BF16_FLOPS_PER_S,
+        "mfu_peak": "989 TFLOP/s, H100 SXM dense bf16 (data sheet, 700 W)",
+        "peak_gb": peak / 1e9, "resident_gb_after_init": resident / 1e9,
+        "state_gb": state_bytes / 1e9, "rest_gb": (peak - state_bytes) / 1e9,
+        "profiled": profile, "remat_hold": remat,
+    }
+
+
+def lm_train_gossip(dev) -> dict:
+    """The reference's `test_gossip_training_converges_small_lm` on the
+    card: its config, L learners, D rounds, ``adamw(6e-3)``, its 60 steps
+    and its assertions; each step timed with CUDA events."""
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.core import gossip
+    from repro_torch.data.lm_pipeline import LMDataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import config as mc
+    cfg = mc.reduced(registry.get_config(LM_QWEN), **LM_GOSSIP)
+    step, init_fn = train.make_train_step(
+        cfg, optim.adamw(LM_GOSSIP_LR), sync="gossip",
+        gossip=gossip.GossipConfig(learner_axis="data", walk_length=LM_GOSSIP_WALK),
+        n_learners=LM_GOSSIP_LEARNERS, device=dev)
+    data = SyntheticLM(LMDataConfig(vocab_size=256, seq_len=64, batch_size=16, seed=0))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()}
+               for i in range(LM_GOSSIP_STEPS)]
+    state = init_fn(SEED)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(LM_GOSSIP_STEPS)]
+    losses, cons = [], None
+    sync(dev)
+    t0 = time.perf_counter()
+    for b, (start, end) in zip(batches, events):
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        losses.append(m["loss"])
+        cons = m["consensus_err"]
+    sync(dev)
+    wall_s = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    step_ms = sorted(s.elapsed_time(e) for s, e in events)
+    out = {"learners": LM_GOSSIP_LEARNERS, "walk_length": LM_GOSSIP_WALK, "steps": LM_GOSSIP_STEPS,
+           "first_loss": losses[0], "last_loss": losses[-1], "consensus_err": float(cons),
+           "step_ms_p50": float(np.percentile(step_ms, 50)),
+           "step_ms_p99": float(np.percentile(step_ms, 99)), "wall_s": wall_s}
+    assert losses[-1] < losses[0] - 0.3 and out["consensus_err"] < 0.5, f"phase 3i gossip: {out}"
+    return out
+
+
+def lm_train_card_vs_cpu(arch: str, dev) -> dict:
+    """`reduced()` width, fp32: the same numpy weights and batch on the card
+    and on the CPU; `loss_fn`'s gradients, then one ``allreduce`` AdamW
+    step (eps=1e-3: at 1e-8 a first step moves a near-zero-gradient
+    element by ±lr on the last bit of its gradient). The loss, every
+    gradient and every updated parameter within LM_CARD_CPU_REL × the CPU
+    leaf's largest magnitude."""
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    from repro_torch.utils import tree as tree_lib
+    cfg = mc.reduced(registry.get_config(arch))
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=SEED, device="cpu"))
+    batch = lm_train_batch(cfg, LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ, SEED, "cpu")
+    if cfg.n_image_tokens:
+        gen = torch.Generator().manual_seed(SEED)
+        batch["media"] = torch.randn((LM_TRAIN_CPU_BATCH, cfg.n_image_tokens, cfg.d_model),
+                                     generator=gen) * 0.5
+    opt = optim.adamw(optim.linear_warmup_cosine(LM_TRAIN_PEAK_LR, 2, 10), weight_decay=LM_TRAIN_WD,
+                      eps=1e-3)
+    runs = {}
+    for where in ("cpu", dev):
+        state = train.train_state_from_numpy(cfg, opt, tree, device=where)
+        b = {k: v.to(where) for k, v in batch.items()}
+        _, grads = lm_loss_and_grads(state.params, b)
+        grads = {n: g.cpu() for n, g in grads.items()}
+        step, _ = train.make_train_step(cfg, opt, device=where)
+        state, m = step(state, b)
+        runs[where == "cpu"] = (m["loss"].cpu(), grads, transformer.params_to_numpy(state.params))
+    (card_loss, card_g, card_p), (cpu_loss, cpu_g, cpu_p) = runs[False], runs[True]
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    cpu_leaves, card_leaves = dict(tree_lib.tree_paths(cpu_p)), dict(tree_lib.tree_paths(card_p))
+    out = {"loss_rel": rel(card_loss, cpu_loss),
+           "grad_rel": max(rel(card_g[n], cpu_g[n]) for n in cpu_g),
+           "param_rel": max(rel(torch.from_numpy(card_leaves[k]), torch.from_numpy(v))
+                            for k, v in cpu_leaves.items()),
+           "leaves": len(cpu_leaves)}
+    assert max(out["loss_rel"], out["grad_rel"], out["param_rel"]) <= LM_CARD_CPU_REL, (
+        f"phase 3i card vs CPU {arch}: {out}")
+    return out
+
+
+def drive_lm_training(dev) -> dict:
+    """Phase 3i: the LM stack's training half (`launch/train.py` over
+    `loss_fn`, remat and the in-place AdamW) on the card; see the module
+    docstring, i."""
+    from repro_torch.configs import registry
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {LM_QWEN: lm_train_qwen(dev)}
+    out[LM_QWEN]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["gossip"] = lm_train_gossip(dev)
+    out["gossip"]["s"] = time.perf_counter() - t0
+    out["reduced"] = {
+        LM_QWEN: (f"none of width or depth (40 of 40 layers); batch {LM_TRAIN_BATCH} x "
+                  f"{LM_TRAIN_SEQ} tokens, train_4k's global batch of 256 cut to "
+                  f"{LM_TRAIN_BATCH}; {LM_TRAIN_WARMUP + LM_TRAIN_TIMED + LM_TRAIN_PROFILED} steps"),
+        "gossip": "none: the reference test's reduced() config",
+        "card_vs_cpu": "reduced()"}
+    t0 = time.perf_counter()
+    out["card_vs_cpu"] = {a: lm_train_card_vs_cpu(a, dev) for a in registry.ARCH_IDS}
+    out["card_vs_cpu_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_phases() -> int:
+    """``--lm-phases``: phases 3h and 3i, each with every launch count set
+    to 0 just before it and read just after (none of the port's kernels
+    runs on the LM paths); prints their lines."""
+    from repro_torch import device as device_lib
+    from repro_torch.kernels import ops
+    dev = device_lib.resolve("cuda")
+    for phase, name, title, drive in (("3h", "lm_serving", "LM serving", drive_lm_serving),
+                                      ("3i", "lm_training", "LM training", drive_lm_training)):
+        t0 = time.perf_counter()
+        for kern in ops.KERNELS:
+            kern.launches = 0
+        out = drive(dev)
+        out["kernel_launches"] = sum(kern.launches for kern in ops.KERNELS)
+        assert out["kernel_launches"] == 0, f"phase {phase} launched one of the port's kernels"
+        out["s"] = time.perf_counter() - t0
+        log(f"phase {phase} {title}: {out['s']} s")
+        log(name, json.dumps(out))
+        del out
+        torch.cuda.empty_cache()
+    return 0
+
+
+def lm_phases_in_child() -> None:
+    """Phases 3h and 3i in a child process, right after phase 2, while this
+    process holds almost nothing on the card: phase 3i takes ~69 GB of the
+    card's 85, and phases 3a-3g keep ~16 GB for phase 4's timing. The
+    child's own profiler sessions (3h's, and 3i's of ~100,000 kernels)
+    leave this process's first one to phase 3f, whose trace must hold a
+    kernel event for every dispatch. The child's lines are relayed; its
+    failure fails the script."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-phases"],
+                         capture_output=True, text=True, timeout=900)
+    for line in res.stdout.splitlines():
+        log(line)
+    assert res.returncode == 0, f"phases 3h/3i failed:\n{res.stderr[-6000:]}"
+
+
 # ------------------------------------------------------------- e2e turns
 def e2e_probe(root: pathlib.Path) -> dict:
     """One turn of ``--e2e-turns`` on the `repro_torch` of the checkout in
@@ -4020,6 +4355,7 @@ def main(argv=None) -> int:
     ap.add_argument("--obs-detail", action="store_true")
     ap.add_argument("--e2e-turns", type=pathlib.Path, metavar="DIR")
     ap.add_argument("--e2e-probe", type=pathlib.Path, help=argparse.SUPPRESS)
+    ap.add_argument("--lm-phases", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     parent = args.parent.resolve() if args.parent else None
     if not torch.cuda.is_available():
@@ -4036,6 +4372,8 @@ def main(argv=None) -> int:
         log("e2e turns", json.dumps(e2e_turns(args.e2e_turns.resolve())))
         return 0
     sys.path.insert(0, str(ROOT / "src"))
+    if args.lm_phases:
+        return lm_phases()
     from repro_torch import device as device_lib
     from repro_torch.data import synthetic_poi
     from repro_torch.kernels import build, ops
@@ -4055,6 +4393,9 @@ def main(argv=None) -> int:
     J = 3197
     errs = check_kernels(dev, J)
     log(f"phase 2 kernels vs plain: {json.dumps(errs)} ({time.perf_counter() - t0} s)")
+
+    # phases 3h and 3i first, in a process of their own (`lm_phases`)
+    lm_phases_in_child()
 
     t0 = time.perf_counter()
     ds = synthetic_poi.foursquare_like(reduced=False, seed=SEED)
@@ -4180,16 +4521,6 @@ def main(argv=None) -> int:
             f"kernel {name} was not launched on the sharded serving path")
     log("sharded", json.dumps(sharded))
     log("sharded_serving", json.dumps(served))
-
-    t0 = time.perf_counter()
-    for kern in ops.KERNELS:
-        kern.launches = 0
-    lm = drive_lm_serving(dev)
-    lm["kernel_launches"] = sum(kern.launches for kern in ops.KERNELS)
-    assert lm["kernel_launches"] == 0, "phase 3h launched one of the port's kernels"
-    lm["s"] = time.perf_counter() - t0
-    log(f"phase 3h LM serving: {lm['s']} s")
-    log("lm_serving", json.dumps(lm))
 
     t0 = time.perf_counter()
     rows: dict[str, dict] = {}

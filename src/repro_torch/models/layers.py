@@ -1,7 +1,7 @@
 """Common layers: RMSNorm, RoPE, dense (SwiGLU) MLP, embeddings — port of
 `src/repro/models/layers.py:14-78` (`rms_norm`, `init_rms_norm`,
 `rope_freqs`, `apply_rope`, `init_mlp`/`mlp`, `init_embedding`,
-`init_lm_head`). `chunked_cross_entropy` (:80) belongs to training.
+`init_lm_head`) and `chunked_cross_entropy` (:80-114).
 
 Parameters keep the reference's layouts (MLP weights ``(d, F)`` and
 ``(F, d)``, the embedding ``(vocab, d)``, the head ``(d, vocab)``) and are
@@ -15,6 +15,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -92,3 +93,53 @@ def init_embedding(vocab: int, d_model: int, *, generator=None, device=None) -> 
 
 def init_lm_head(d_model: int, vocab: int, *, generator=None, device=None) -> nn.Parameter:
     return normal((d_model, vocab), 0.02, generator, device)
+
+
+def _chunk_ce(hc: torch.Tensor, lm_head: torch.Tensor, lc: torch.Tensor):
+    """(sum of the chunk's token losses, its count of labels >= 0)."""
+    logits = torch.einsum("bsd,dv->bsv", hc, lm_head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lc, min=0).long()[..., None])[..., 0]
+    mask = (lc >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(
+    h: torch.Tensor,            # (B, S, D) final hidden states
+    lm_head: torch.Tensor,      # (D, V)
+    labels: torch.Tensor,       # (B, S) int, -1 = ignore
+    chunk: int = 1024,
+    *,
+    remat: bool = False,
+) -> torch.Tensor:
+    """Mean CE, computing logits chunk-by-chunk over the sequence so the
+    (B, S, V) logits tensor is never materialized (memory-roofline relevant
+    for 128k-256k vocabularies): ``S // chunk`` chunks, then the remainder
+    as one chunk of its own, as the reference's scan and tail do.
+
+    With ``remat`` (``cfg.remat``) and grad enabled, each chunk runs under
+    `torch.utils.checkpoint.checkpoint` (non-reentrant): its logits are
+    freed after the forward and recomputed in the backward, so the
+    backward never holds more than one chunk's (B, chunk, V) logits either
+    (at vocab 151,936 one sequence of 4,096 tokens is 2.5 GB of fp32
+    logits)."""
+    B, S, D = h.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    rem = S - n * chunk
+    ckpt = remat and torch.is_grad_enabled()
+
+    def one(hc, lc):
+        if ckpt:
+            return torch.utils.checkpoint.checkpoint(_chunk_ce, hc, lm_head, lc,
+                                                     use_reentrant=False)
+        return _chunk_ce(hc, lm_head, lc)
+
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        l, m = one(h[:, i * chunk:(i + 1) * chunk], labels[:, i * chunk:(i + 1) * chunk])
+        tot, cnt = tot + l, cnt + m
+    if rem:
+        l, m = one(h[:, n * chunk:], labels[:, n * chunk:])
+        tot, cnt = tot + l, cnt + m
+    return tot / torch.clamp(cnt, min=1.0)

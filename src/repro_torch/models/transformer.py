@@ -1,8 +1,8 @@
 """Composable decoder stack covering all assigned architecture families —
 port of `src/repro/models/transformer.py`: `init_params` (:66),
-`abstract_params` (:105), `_embed`, `_apply_layer`, `forward`, `_lm_head`,
-`prefill`, `init_cache`, `decode_step` (:121-374). `loss_fn` (:224)
-belongs to training.
+`abstract_params` (:105), `_embed`, `_apply_layer`, `forward` (with its
+remat, :210), `_lm_head`, `loss_fn` (:224-242), `prefill`, `init_cache`,
+`decode_step` (:121-374).
 
 The model is ``n_periods`` repeated periods; within a period, layers
 follow ``cfg.period``:
@@ -23,14 +23,23 @@ Caches keep the reference's layout, ``{pos: {"k","v"} | {"ckv","kr"} |
 `decode_step` writes its new entries into the cache tensors passed in (the
 reference donates the cache) and returns the same dict.
 
-Two entry points serve (`launch/serve.py`): ``prefill`` (forward returning
+Three entry points, as in the reference: ``loss_fn`` (the training
+forward and chunked cross-entropy, `launch/train.py`; its gradient is
+autograd's over these modules), ``prefill`` (forward returning
 last-position logits and caches) and ``decode_step`` (one token against a
-cache).
+cache), which serve (`launch/serve.py`).
+
+Remat: where the reference wraps its period body in `jax.checkpoint`
+(``cfg.remat``), the port runs each period under
+`torch.utils.checkpoint.checkpoint` (non-reentrant) when grad is enabled,
+so a period's activations are recomputed in the backward and only its
+input is kept; under `torch.inference_mode` (serving) nothing changes.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import device as device_lib
@@ -134,18 +143,51 @@ def abstract_params(cfg: ModelConfig) -> Transformer:
     return Transformer(cfg, device="meta")
 
 
+def reference_names(model: Transformer) -> dict[str, tuple[str, int | None]]:
+    """Each named parameter's place in the reference's tree: its
+    '/'-joined leaf path and its period along the stacked axis
+    (``periods.3.0.attn.wq`` → ``("blocks/0/attn/wq", 3)``), or None for
+    a leaf that is not stacked (``embed``, ``lm_head``, ``final_norm``,
+    ``media_proj``)."""
+    out: dict[str, tuple[str, int | None]] = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "periods":
+            out[name] = ("/".join(["blocks", parts[2], *parts[3:]]), int(parts[1]))
+        else:
+            out[name] = (name, None)
+    return out
+
+
 def _reference_paths(model: Transformer) -> dict[str, tuple[tuple[int, ...], list]]:
     """The reference tree's '/'-joined leaf paths, each with its stacked
     shape and the port parameters it fills, in period order."""
     out: dict[str, tuple[tuple[int, ...], list]] = {}
+    where = reference_names(model)
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "periods":
-            path = "/".join(["blocks", parts[2], *parts[3:]])
+        path, period = where[name]
+        if period is not None:
             shape, params = out.setdefault(path, ((model.cfg.n_periods, *p.shape), []))
             params.append(p)
         else:
-            out[name] = (tuple(p.shape), [p])
+            out[path] = (tuple(p.shape), [p])
+    return out
+
+
+def param_tree(model: Transformer) -> dict:
+    """The reference's parameter tree over the model's own parameters (no
+    copy): ``blocks/<pos>/<leaf>`` is the list of that leaf's parameters,
+    one a period in period order (the reference stacks them), every other
+    leaf the parameter itself. The optimisers take this tree
+    (`repro_torch.optim`), their weight-decay mask seeing the reference's
+    paths."""
+    out: dict = {}
+    for path, (_, params) in _reference_paths(model).items():
+        node = out
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = list(params) if path.startswith("blocks/") else params[0]
     return out
 
 
@@ -182,15 +224,14 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> Transforme
 def params_to_numpy(model: Transformer) -> dict:
     """The inverse of `params_from_numpy`: the model's parameters as the
     reference's tree of numpy float32 arrays, stacked over periods."""
-    out: dict = {}
-    for path, (_, params) in _reference_paths(model).items():
-        arrs = [p.detach().cpu().numpy() for p in params]
-        node = out
-        *parents, leaf = path.split("/")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = np.stack(arrs) if path.startswith("blocks/") else arrs[0]
-    return out
+    def host(node):
+        if isinstance(node, dict):
+            return {key: host(sub) for key, sub in node.items()}
+        if isinstance(node, list):
+            return np.stack([p.detach().cpu().numpy() for p in node])
+        return node.detach().cpu().numpy()
+
+    return host(param_tree(model))
 
 
 def init_cache_from_numpy(tree: dict, device="cuda") -> dict:
@@ -269,12 +310,26 @@ def _apply_layer(lp: Layer, spec: LayerSpec, x, positions, media, cfg: ModelConf
     return x, aux, cache_out
 
 
+def _period_body(period: nn.ModuleList, x, aux, positions, media, cfg: ModelConfig, dtype,
+                 collect_cache: bool = False):
+    """One period's layers (the reference's ``period_body``): returns the
+    new (x, aux) and, with ``collect_cache``, each position's cache."""
+    caches = {}
+    for pos, spec in enumerate(cfg.period):
+        x, a, c = _apply_layer(period[pos], spec, x, positions, media, cfg, dtype, collect_cache)
+        aux = aux + a
+        caches[str(pos)] = c
+    return x, aux, caches
+
+
 def forward(params: Transformer, tokens: torch.Tensor, *, media: torch.Tensor | None = None,
             return_cache: bool = False):
     """Full-sequence forward. Returns (hidden (B,S,D), aux, cache|None); the
     cache's leaves are stacked over periods on axis 0. ``media`` is
     projected by ``media_proj`` here (prefill's cross caches are
-    projections of the projected media)."""
+    projections of the projected media). With ``cfg.remat`` and grad
+    enabled (and no caches asked for), each period runs under a
+    non-reentrant checkpoint."""
     cfg = params.cfg
     dtype = _dtype(cfg)
     x = _embed(params, tokens, cfg, dtype)
@@ -284,13 +339,16 @@ def forward(params: Transformer, tokens: torch.Tensor, *, media: torch.Tensor | 
         media = torch.einsum("bmd,de->bme", media.to(dtype), params.media_proj.to(dtype))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: dict = {}
+    remat = cfg.remat and torch.is_grad_enabled() and not return_cache
     for p, period in enumerate(params.periods):
-        for pos, spec in enumerate(cfg.period):
-            x, a, c = _apply_layer(period[pos], spec, x, positions, media, cfg, dtype,
-                                   return_cache)
-            aux = aux + a
+        if remat:
+            x, aux, _ = torch.utils.checkpoint.checkpoint(
+                _period_body, period, x, aux, positions, media, cfg, dtype, use_reentrant=False)
+            continue
+        x, aux, cs = _period_body(period, x, aux, positions, media, cfg, dtype, return_cache)
+        for pos, c in cs.items():
             for name, leaf in c.items():
-                stacked = caches.setdefault(str(pos), {})
+                stacked = caches.setdefault(pos, {})
                 if name not in stacked:   # one buffer a leaf, stacked over periods
                     stacked[name] = torch.empty((cfg.n_periods, *leaf.shape), dtype=leaf.dtype,
                                                 device=leaf.device)
@@ -303,6 +361,28 @@ def _lm_head(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params.embed.T
     return params.lm_head
+
+
+def loss_fn(params: Transformer, batch: dict) -> torch.Tensor:
+    """Mean next-token CE (+ router aux): `chunked_cross_entropy` over
+    ``cfg.loss_chunk`` tokens at a time against the head (tied or not, as
+    `_lm_head` decides), cast to the hidden states' dtype; with codebooks
+    the mean over the codebooks, each against its own head and labels.
+    ``batch`` holds ``tokens``, ``labels`` (-1 = ignore) and, for vision
+    models, ``media``. Each CE chunk is checkpointed when ``cfg.remat``."""
+    cfg = params.cfg
+    h, aux, _ = forward(params, batch["tokens"], media=batch.get("media"))
+    labels = batch["labels"]
+    if cfg.n_codebooks:
+        ce = 0.0
+        for q in range(cfg.n_codebooks):
+            ce += L.chunked_cross_entropy(h, params.lm_head[q].to(h.dtype), labels[..., q],
+                                          cfg.loss_chunk, remat=cfg.remat)
+        ce = ce / cfg.n_codebooks
+    else:
+        ce = L.chunked_cross_entropy(h, _lm_head(params, cfg).to(h.dtype), labels,
+                                     cfg.loss_chunk, remat=cfg.remat)
+    return ce + cfg.router_aux_weight * aux
 
 
 def logits_of(params: Transformer, h: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Small tree utilities over nested dicts (and lists or tuples) of tensors
 or arrays — port of `src/repro/utils/tree.py` (`tree_size`, `tree_bytes`,
 `global_norm`, `tree_add`, `tree_scale`, `tree_zeros_like`, `tree_cast`,
-`tree_paths`). An `nn.Module` counts as the tree of its named parameters
+`tree_paths`); `tree_map_with_path` is the port's counterpart of
+`jax.tree_util.tree_map_with_path` with the paths '/'-joined. An `nn.Module` counts as the tree of its named parameters
 (``a.b.c`` read as ``a/b/c``), so `tree_bytes(abstract_params(cfg))`
 counts a model on the meta device without allocating it.
 """
@@ -15,12 +16,25 @@ def _leaves(tree) -> list:
     return [leaf for _, leaf in tree_paths(tree)]
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *rs) for v, *rs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over a tree of dicts, lists and tuples, ``path``
+    the leaf's '/'-joined keys and indices (as `tree_paths` gives them)."""
+    join = lambda key: f"{prefix}/{key}" if prefix else str(key)
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, join(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, join(i)) for i, v in enumerate(tree))
+    return fn(prefix, tree)
 
 
 def tree_size(tree) -> int:

@@ -47,7 +47,14 @@ with the CPU (median bit for bit, trim within 1e-6 relative). Observability
 and scheduling on the card: a DP `fit` with telemetry gives the bits of
 the same fit without it, the scheduler's slates equal a direct `recommend`
 bit for bit, and a profiled scheduler run's trace holds a kernel event for
-every dispatch.
+every dispatch. The LM training half on the card (none of the port's
+kernels launches): one AdamW ``allreduce`` step of each `ARCH_IDS` config
+at `reduced()` in fp32 agrees with the same step on the CPU (loss,
+gradients, updated parameters within 1e-4 × the CPU leaf's largest
+magnitude; AdamW with eps=1e-3, see `tests/test_torch_lm_training.py`);
+remat on and off give the same loss and gradients bit for bit in bf16;
+the in-place AdamW equals the functional form bit for bit; the gossip
+step meets `test_gossip_training_converges_small_lm`'s assertions.
 """
 import numpy as np
 import pytest
@@ -1353,3 +1360,130 @@ def test_lm_serving_on_the_card_agrees_with_the_cpu(dev, arch):
         np.testing.assert_allclose(card_cache[name].numpy(), want.numpy(), rtol=0,
                                    atol=1e-4 * float(want.abs().max()), err_msg=name)
     assert all(kern.launches == 0 for kern in ops.KERNELS)
+
+
+def _lm_grads(model, batch) -> dict:
+    """loss_fn's loss and gradients (on the host, by the reference's paths)."""
+    from repro_torch.models import transformer
+    model.zero_grad(set_to_none=True)
+    loss = transformer.loss_fn(model, batch)
+    loss.backward()
+    grads = {name: p.grad.detach().cpu() for name, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.detach().cpu(), grads
+
+
+def _lm_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    shape = (B, S, cfg.n_codebooks) if cfg.n_codebooks else (B, S)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.n_image_tokens:
+        batch["media"] = rng.normal(0, 0.5, (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _no_tf32():
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return tf32
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS[:-1])
+def test_lm_training_step_on_the_card_agrees_with_the_cpu(dev, arch):
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    cfg = mc.reduced(registry.get_config(arch))
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=0, device="cpu"))
+    batch = _lm_batch(cfg, 2, 32, 1)
+    opt = optim.adamw(optim.linear_warmup_cosine(3e-3, 2, 10), weight_decay=0.01, eps=1e-3)
+    for kern in ops.KERNELS:
+        kern.launches = 0
+    tf32 = _no_tf32()
+    try:
+        runs = {}
+        for where in ("cpu", dev):
+            state = train.train_state_from_numpy(cfg, opt, tree, device=where)
+            tb = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+            _, grads = _lm_grads(state.params, tb)
+            step, _ = train.make_train_step(cfg, opt, device=where)
+            state, m = step(state, tb)
+            runs[str(where)] = (m["loss"].cpu(), grads, transformer.params_to_numpy(state.params))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = runs["cpu"], runs[str(dev)]
+    np.testing.assert_allclose(float(l_card), float(l_cpu), rtol=1e-4)
+    for name, want in g_cpu.items():
+        np.testing.assert_allclose(g_card[name].numpy(), want.numpy(), rtol=0,
+                                   atol=1e-4 * float(want.abs().max()), err_msg=name)
+    from repro_torch.utils import tree as tree_lib
+    for (name, want), (_, got) in zip(tree_lib.tree_paths(p_cpu), tree_lib.tree_paths(p_card)):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * float(np.abs(want).max()),
+                                   err_msg=name)
+    assert all(kern.launches == 0 for kern in ops.KERNELS)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b"])
+def test_lm_remat_on_the_card_is_bit_for_bit(dev, arch):
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    cfg = mc.reduced(registry.get_config(arch), compute_dtype="bfloat16")
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=0, device="cpu"))
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in _lm_batch(cfg, 2, 128, 2).items()}
+    runs = [_lm_grads(transformer.params_from_numpy(
+        tree, dataclasses.replace(cfg, remat=remat), device=dev), batch) for remat in (False, True)]
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1)
+    for name in g0:
+        assert torch.equal(g0[name], g1[name]), name
+
+
+def test_lm_adamw_in_place_on_the_card_equals_the_functional_form(dev):
+    from repro_torch import optim
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda shape, s=0.1: torch.randn(shape, generator=gen, device=dev) * s
+    params = {"blocks": {"0": {"attn": {"bq": rand((3, 4, 8)), "wq": rand((3, 64, 4, 8))},
+                               "ln1": rand((3, 64))}},
+              "embed": rand((1000, 64)), "final_norm": rand((64,))}
+    decay = lambda path: not path.split("/")[-1].startswith(("b", "ln", "final"))
+    opt = optim.adamw(optim.linear_warmup_cosine(3e-3, 2, 10), weight_decay=0.01,
+                      grad_clip_norm=0.5, mask=decay)
+    a, b = tree_map(torch.clone, params), tree_map(torch.clone, params)
+    sa, sb = opt.init(a), opt.init(b)
+    for _ in range(4):
+        grads = tree_map(lambda x: rand(tuple(x.shape), 1.0), params)
+        upd, sa = opt.update(grads, sa, a)
+        a = optim.apply_updates(a, upd)
+        opt.update_(grads, sb, b)
+        for x, y in zip(optim.optimizers.leaves(a) + optim.optimizers.leaves(sa.inner),
+                        optim.optimizers.leaves(b) + optim.optimizers.leaves(sb.inner)):
+            assert torch.equal(x, y)
+
+
+def test_lm_gossip_on_the_card_converges(dev):
+    """`test_gossip_training_converges_small_lm`'s config and assertions."""
+    from repro_torch import optim
+    from repro_torch.configs import registry
+    from repro_torch.core import gossip
+    from repro_torch.data.lm_pipeline import LMDataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import config as mc
+    cfg = mc.reduced(registry.get_config("qwen1.5-4b"), n_kv_heads=4, vocab_size=256,
+                     d_model=128, d_ff=256, n_heads=4, head_dim=32)
+    step, init_fn = train.make_train_step(cfg, optim.adamw(6e-3), sync="gossip",
+                                          gossip=gossip.GossipConfig(walk_length=2),
+                                          n_learners=4, device=dev)
+    state = init_fn(0)
+    data = SyntheticLM(LMDataConfig(vocab_size=256, seq_len=64, batch_size=16, seed=0))
+    losses = []
+    for i in range(60):
+        state, m = step(state, data.batch(i))
+        losses.append(float(m["loss"]))
+    assert losses[-1] < losses[0] - 0.3, (losses[0], losses[-1])
+    assert float(m["consensus_err"]) < 0.5

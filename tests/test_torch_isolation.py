@@ -2,6 +2,7 @@
 nor `ml_dtypes` (a JAX dependency the card's machine lacks), and its entry
 points run on the card unless the caller asks for the CPU."""
 import ast
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -42,7 +43,11 @@ def test_every_module_imports_without_jax_or_repro():
         "       'repro_torch.models.moe', 'repro_torch.models.transformer',\n"
         "       'repro_torch.utils.tree', 'repro_torch.launch.serve',\n"
         "       'repro_torch.configs.registry', 'repro_torch.configs.yi_34b_swa',\n"
-        "       'repro_torch.configs.qwen1_5_4b', 'repro_torch.configs.jamba_1_5_large_398b'}\n"
+        "       'repro_torch.configs.qwen1_5_4b', 'repro_torch.configs.jamba_1_5_large_398b',\n"
+        "       'repro_torch.data.lm_pipeline', 'repro_torch.optim',\n"
+        "       'repro_torch.optim.optimizers', 'repro_torch.optim.schedules',\n"
+        "       'repro_torch.core.gossip', 'repro_torch.launch.train',\n"
+        "       'repro_torch.examples.train_lm', 'repro_torch.examples.decentralized_lm'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
@@ -269,3 +274,34 @@ def test_lm_serving_entry_points_default_to_cuda_and_raise_without_a_card(monkey
     cache = serve.cache_from_prefill(cfg, pcache, 8, device="cpu")
     logits, cache = serve.make_decode_step(cfg, device="cpu")(model, cache, tokens[:, :1], 4)
     assert logits.device.type == "cpu" and cache["0"]["k"].device.type == "cpu"
+
+
+def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import registry
+    from repro_torch.launch import train
+    from repro_torch.models import config as mc
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = mc.reduced(registry.get_config("qwen1.5-4b"), n_layers=1, d_model=32, n_heads=2,
+                     head_dim=16, v_head_dim=16, d_ff=32, vocab_size=16)
+    opt = adamw(1e-3)
+    for sync in ("allreduce", "gossip"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            train.make_train_step(cfg, opt, sync=sync)
+    tree = transformer.params_to_numpy(transformer.init_params(cfg, seed=0, device="cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.train_state_from_numpy(cfg, opt, tree)
+    with pytest.raises(ValueError, match="sync"):
+        train.make_train_step(cfg, opt, sync="ring", device="cpu")
+    # asked for the CPU, each runs there
+    batch = {"tokens": np.zeros((4, 8), np.int32), "labels": np.ones((4, 8), np.int32)}
+    for sync in ("allreduce", "gossip"):
+        step, init_fn = train.make_train_step(cfg, opt, sync=sync, n_learners=2, device="cpu")
+        state, metrics = step(init_fn(0), batch)
+        assert metrics["loss"].device.type == "cpu" and np.isfinite(float(metrics["loss"]))
+        assert int(state.opt_state.step.reshape(-1)[0]) == 1
+    state = train.train_state_from_numpy(cfg, opt, tree, device="cpu")
+    with pytest.raises(ValueError, match="the step"):    # a model of another config
+        train.make_train_step(dataclasses.replace(cfg, name="other"), opt, device="cpu")[0](
+            state, batch)
