@@ -9,9 +9,10 @@ and learner-sharded training and serving (one rank per process, over
 nccl and gloo) at full Foursquare scale and
 million-user tiled serving at the reference's million configuration, the
 LM stack's prefill and cached decode for every architecture family
-(qwen1.5-4b at full width and depth) and its training half (qwen1.5-4b
-trained at full width and depth, gossip across learners), and times each
-kernel beside its bound.
+(qwen1.5-4b at full width and depth), its training half (qwen1.5-4b
+trained at full width and depth, gossip across learners) and its mesh
+half (DTensor-sharded steps, expert parallelism, the sequence-sharded
+decode, learners as ranks), and times each kernel beside its bound.
 
     python3 chip_smoke.py                 # needs one CUDA card, no arguments
     python3 chip_smoke.py --parent DIR    # also hold kernels 9, 5 (in place,
@@ -27,6 +28,7 @@ kernel beside its bound.
                                           # DP, `nan` + screen and screen + trim
                                           # epochs, the checkout in DIR and this
                                           # one in alternating processes
+    python3 chip_smoke.py --mesh-phase    # only phase 3j (no kernel build)
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -76,7 +78,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    phase 2, in a child process of this script (``--lm-phases``), while the
    card holds nothing else: i takes ~69 GB of the card's 85, and phases
    a-g keep ~16 GB of state for phase 4's timing; and their profiler
-   sessions stay out of this process, whose first session is f's.
+   sessions stay out of this process, whose first session is f's. Phase j
+   follows them in a child process of its own (``--mesh-phase``).
    a. serving: ingest the train check-ins (kernel 3), recommend pruned
       (kernel 5 reading the engine's state in place) and dense (kernel 2),
       ingest the test check-ins, recommend again; 256 served slates of
@@ -265,6 +268,42 @@ Phases (any failure raises and exits non-zero; nothing is caught):
       state (parameters, gradients, both moments) and the rest, the
       profiled busy share and top kernels, the holds, the cuts under
       ``reduced``.
+   j. LM mesh half (`launch/train.py` and `launch/serve.py` with ``mesh=``,
+      `moe_ffn_sharded`), which runs none of the port's kernels either, in
+      a child process of its own (``--mesh-phase``) after h and i: first
+      the one-device runs on the card (qwen1.5-4b at its published width,
+      2 of 40 layers: 3 ``allreduce`` steps in fp32 and in bf16 and 3
+      gossip steps at L=2 in fp32, of 2 × 4,096 tokens, their parameters
+      saved under a temporary directory of ``build/``; bf16 prefill of 4
+      × 4,096 and 4 greedy decode steps), then gloo ranks on the one card
+      (`launch.mesh.spawn_ranks`): 2 ranks for the ``allreduce`` steps
+      (fp32 and bf16) and the gossip step on (2,1), `moe_ffn_sharded`
+      expert parallel on (1,2) and the decode with the cache's positions
+      over ``model`` on (1,2); 4 ranks for the fp32 steps on (2,2), the
+      gossip step once more with the clipping norm summed in the
+      one-device order (a probe of where gossip's deviation at model=2
+      comes from) and `moe_ffn_sharded` weight-stationary on (2,2); then
+      a one-rank nccl group: the ``allreduce`` step on a 1×1 mesh at all
+      40 layers in bf16 against the one-device step run first in the
+      same process (every collective is of one rank there: no NCCL
+      traffic). Holds (`LM_MESH_TOLS`): losses within 1e-6 relative and
+      every rank's parameter shards within 1e-5 of the leaf's largest
+      magnitude (gossip: consensus within 1e-6, parameters at (2,1) and
+      the probe's within 1e-6; the bf16 step within the tolerances set
+      from its readings; eps=1e-3 as in 3i); deepseek-v2-lite's MoE
+      layer at published width within 1e-5 of `moe_ffn_local` (B=4 and
+      1); the decode's logits within 1e-2 of the largest (bf16: one bf16
+      ulp of an activation moves a logit ~4e-3) and its ids equal, but
+      where the one-device logit of the id picked lies within twice the
+      row's measured deviation of the row's maximum (no smaller
+      deviation can flip the order); each rank's parameter and moment
+      shards equal to the analytic bytes of `params_pspecs` to the byte.
+      Each rank counts the port's kernel launches from 0 and returns
+      them; the counts summed with the one-device runs' must be 0. The
+      ``lm_mesh`` line: step s p50/p99 (CUDA events), GB a rank measured
+      beside the analytic shards, peak GB, the collectives' wall share of
+      the clocked step (`ExchangeClock`), the holds' worst deviations and
+      tolerances, the launches, the cuts under ``reduced``.
 4. Time each kernel, its plain version and one library call on the main
    paths' own inputs (kernel 10's rows also name the route taken, as
    ``mix_route``, and at the walk shape time the route's count with its
@@ -319,6 +358,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -424,6 +464,36 @@ LM_GOSSIP = dict(n_kv_heads=4, vocab_size=256, d_model=128, d_ff=256, n_heads=4,
 LM_GOSSIP_LEARNERS, LM_GOSSIP_WALK, LM_GOSSIP_LR, LM_GOSSIP_STEPS = 4, 2, 6e-3, 60
 LM_TRAIN_CPU_BATCH, LM_TRAIN_CPU_SEQ = 2, 32        # card vs CPU at reduced()
 BF16_FLOPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
+# phase 3j: the LM stack's mesh half, no kernel of the port on it
+LM_MESH_LAYERS, LM_MESH_DECODE_LAYERS = 2, 2        # qwen1.5-4b's 40 cut (see `reduced`)
+LM_MESH_BATCH, LM_MESH_SEQ, LM_MESH_STEPS = 2, 4096, 3
+LM_MESH_DECODE_STEPS = 4
+# losses 1e-6 and ``allreduce``'s parameters 1e-5 (a rank's products over its share of the
+# batch round otherwise); gossip's losses, consensus and parameters 1e-6. Gossip at model=2
+# sums each gradient's squares a model half at a time for the clipping norm; it is run once
+# more with the one-device order of that sum (`one_device_norm`), which shows whether that
+# order is the whole difference
+LM_MESH_LOSS_REL, LM_MESH_PARAM_REL, LM_MESH_GOSSIP_REL = 1e-6, 1e-5, 1e-6
+LM_MESH_TOLS = {      # (loss, parameters) where a job's differ from the above
+    "gossip_2x1": (LM_MESH_GOSSIP_REL, LM_MESH_GOSSIP_REL),
+    "gossip_2x2": (LM_MESH_GOSSIP_REL, LM_MESH_GOSSIP_REL),
+    "gossip_2x2_one_device_norm": (LM_MESH_GOSSIP_REL, LM_MESH_GOSSIP_REL),
+    # bf16 compute: a rank's products over its 1 sequence take other cuBLAS algorithms than
+    # the one device's over 2; read on the H100 at 2 layers: loss 2.03e-5, parameters 3.25e-3
+    "allreduce_bf16_2x1": (5e-5, 1e-2),
+}
+LM_MESH_DECODE_REL = 1e-2     # bf16: an element one bf16 ulp (2^-8) away moves a logit ~4e-3
+LM_MESH_MOE, LM_MESH_MOE_BATCH, LM_MESH_MOE_SEQ, LM_MESH_MOE_REL = (
+    "deepseek-v2-lite-16b", 4, 512, 1e-5)
+LM_MESH_TIMEOUT_S = 900
+LM_MESH_GROUPS = (   # (gloo ranks on the one card, [(name, job, mesh)])
+    (2, [("allreduce_2x1", "allreduce", (2, 1)), ("allreduce_bf16_2x1", "allreduce_bf16", (2, 1)),
+         ("gossip_2x1", "gossip", (2, 1)), ("moe_ep_1x2", "moe_ep", (1, 2)),
+         ("decode_1x2", "decode", (1, 2))]),
+    (4, [("allreduce_2x2", "allreduce", (2, 2)), ("gossip_2x2", "gossip", (2, 2)),
+         ("gossip_2x2_one_device_norm", "gossip_one_device_norm", (2, 2)),
+         ("moe_ws_2x2", "moe_ws", (2, 2))]),
+)
 
 
 def log(*parts) -> None:
@@ -3250,6 +3320,533 @@ def drive_lm_training(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 3j
+def lm_mesh_cfg(layers: int, dtype: str = "float32"):
+    """qwen1.5-4b at its published width, ``layers`` deep. The training
+    holds compute in fp32: in bf16 the one-device step's products over a
+    batch of 2 and a rank's over its 1 take other cuBLAS algorithms
+    (on the H100 at 4 layers: loss 1.7e-5, parameters 6.4e-3 apart)."""
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get_config(LM_QWEN), n_layers=layers, compute_dtype=dtype)
+
+
+def lm_mesh_opt():
+    """Phase 3i's AdamW (warmup-cosine, decay 0.01, clip 1.0), eps=1e-3 as
+    in phase 3i's holds (at 1e-8 a first step is ±lr on the last bit of a
+    near-zero gradient)."""
+    from repro_torch import optim
+    return optim.adamw(optim.linear_warmup_cosine(LM_TRAIN_PEAK_LR, LM_TRAIN_WARMUP_STEPS, 1000),
+                       weight_decay=LM_TRAIN_WD, eps=1e-3)
+
+
+def lm_mesh_batches(cfg, dev) -> list:
+    return [lm_train_batch(cfg, LM_MESH_BATCH, LM_MESH_SEQ, SEED + i, dev)
+            for i in range(LM_MESH_STEPS)]
+
+
+def timed_steps(step, state, batches, dev) -> tuple:
+    """Run ``step`` over ``batches``, each between two CUDA events; returns
+    (state, losses, step ms, the last metrics)."""
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in batches]
+    losses, m = [], {}
+    for b, (start, end) in zip(batches, events):
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        losses.append(m["loss"])
+    sync(dev)
+    return state, [float(x) for x in losses], [s.elapsed_time(e) for s, e in events], m
+
+
+def save_leaves(named: dict, where: pathlib.Path) -> dict:
+    """Each tensor as ``where/<name>.npy``; returns name → its largest magnitude."""
+    where.mkdir(parents=True, exist_ok=True)
+    scale = {}
+    for name, t in named.items():
+        arr = t.detach().float().cpu().numpy()
+        np.save(where / f"{name}.npy", arr)
+        scale[name] = float(np.abs(arr).max())
+    return scale
+
+
+def block_of(arr: np.ndarray, dt, lead: int = 0) -> np.ndarray:
+    """This rank's block of a whole array, as DTensor ``dt`` lays it out
+    (its first ``lead`` dims, which ``arr`` lacks, skipped)."""
+    from torch.distributed.tensor import Shard
+    mesh = dt.device_mesh
+    idx = [slice(0, n) for n in arr.shape]
+    for i, p in enumerate(dt.placements):
+        if isinstance(p, Shard) and p.dim >= lead:
+            d = p.dim - lead
+            cur, n = idx[d], mesh.size(i)
+            size = (cur.stop - cur.start) // n
+            start = cur.start + mesh.get_local_rank(mesh.mesh_dim_names[i]) * size
+            idx[d] = slice(start, start + size)
+    return np.asarray(arr[tuple(idx)])
+
+
+def lm_mesh_reference(dev, tmp: pathlib.Path) -> dict:
+    """The one-device runs every mesh path is held against, on the card
+    while it holds nothing else: the ``allreduce`` step (fp32 and bf16)
+    and the one-device gossip step (L=2) at LM_MESH_LAYERS, 3 steps each,
+    their parameters saved
+    under ``tmp``; prefill and greedy decode at LM_MESH_DECODE_LAYERS."""
+    from repro_torch.core import gossip
+    from repro_torch.launch import serve, train
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import named_leaves
+    out = {}
+    cfg = lm_mesh_cfg(LM_MESH_LAYERS)
+    batches = lm_mesh_batches(cfg, dev)
+    for key, dtype in (("allreduce", "float32"), ("allreduce_bf16", "bfloat16")):
+        step, init = train.make_train_step(lm_mesh_cfg(LM_MESH_LAYERS, dtype), lm_mesh_opt(),
+                                           device=dev)
+        state = init(SEED)
+        state, losses, ms, _ = timed_steps(step, state, batches, dev)
+        out[key] = {"losses": losses, "step_ms": ms,
+                    "scale": save_leaves(dict(state.params.named_parameters()), tmp / key)}
+        del state, step
+        torch.cuda.empty_cache()
+    gcfg = gossip.GossipConfig(learner_axis="data", walk_length=LM_GOSSIP_WALK)
+    step, init = train.make_train_step(cfg, lm_mesh_opt(), sync="gossip", gossip=gcfg,
+                                       n_learners=2, device=dev)
+    state = init(SEED)
+    rows = []
+    for b in batches:
+        state, m = step(state, b)
+        rows.append((float(m["loss"]), float(m["consensus_err"])))
+    out["gossip"] = {"losses": [r[0] for r in rows], "consensus": [r[1] for r in rows],
+                     "scale": save_leaves({p.replace("/", "."): x for p, x in
+                                           named_leaves(state.params)}, tmp / "gossip")}
+    del state, step
+    torch.cuda.empty_cache()
+    dcfg = lm_mesh_cfg(LM_MESH_DECODE_LAYERS, "bfloat16")
+    model = transformer.init_params(dcfg, SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, dcfg.vocab_size, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    logits, pc = serve.make_prefill_step(dcfg, device=dev)(model, {"tokens": tokens})
+    cache = serve.cache_from_prefill(dcfg, pc, LM_PROMPT + LM_MESH_DECODE_STEPS, device=dev)
+    del pc
+    decode = serve.make_decode_step(dcfg, device=dev)
+    ids, steps = [logits.argmax(-1)], [logits.float().cpu()]
+    for i in range(LM_MESH_DECODE_STEPS):
+        logits, cache = decode(model, cache, ids[-1], LM_PROMPT + i)
+        ids.append(logits.argmax(-1))
+        steps.append(logits.float().cpu())
+    out["decode"] = {"tokens": tokens.cpu(), "ids": [x.cpu() for x in ids], "logits": steps}
+    del model, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_train(mesh, ref: dict, tmp: pathlib.Path, dev, key: str) -> dict:
+    """One rank's mesh step (``key``: ``allreduce``, ``allreduce_bf16`` or
+    ``gossip`` at L = the data axis) from the seed's model: 3 steps, the
+    first two between CUDA events, the third with every collective timed
+    (the collectives' wall share); then every local shard held against
+    the saved one-device parameters of the run ``key`` names."""
+    from repro_torch.core import gossip
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim.optimizers import named_leaves
+    from repro_torch.sharding import rules, spmd
+    from repro_torch.sharding.dmf import ExchangeClock
+    sync_kind = key.split("_")[0]
+    cfg = lm_mesh_cfg(LM_MESH_LAYERS, "bfloat16" if key.endswith("bf16") else "float32")
+    gcfg = gossip.GossipConfig(learner_axis="data", walk_length=LM_GOSSIP_WALK)
+    step, init = train.make_train_step(cfg, lm_mesh_opt(), sync=sync_kind, gossip=gcfg,
+                                       device=dev, mesh=mesh)
+    state = init(model=transformer.init_params(cfg, SEED, device=dev))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batches = lm_mesh_batches(cfg, dev)
+    state, losses, ms, m = timed_steps(step, state, batches[:-1], dev)
+    clock = ExchangeClock()      # the last step with every collective timed
+    t0 = time.perf_counter()
+    with spmd.timed(clock):
+        state, m = step(state, batches[-1])
+        losses.append(float(m["loss"]))
+    sync(dev)
+    clocked_s = time.perf_counter() - t0
+    want = ref[key]
+    out = {"losses": losses, "step_ms": ms,
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, want["losses"]))}
+    worst = 0.0
+    if sync_kind == "allreduce":
+        leaves = [(n, x, None) for n, x in state.params.named_parameters()]
+    else:
+        out["consensus"] = float(m["consensus_err"])
+        out["consensus_rel"] = abs(out["consensus"] - want["consensus"][-1]) / want["consensus"][-1]
+        seen: dict = {}
+        leaves = []
+        for path, x in named_leaves(state.params):
+            k = seen.get(path, 0)
+            seen[path] = k + 1
+            leaves.append((path.replace("/", "."), x, k if path.startswith("blocks/") else None))
+    me = mesh.get_local_rank("data")
+    for name, dt, period in leaves:
+        arr = np.load(tmp / key / f"{name}.npy", mmap_mode="r")
+        if sync_kind == "gossip":
+            arr = arr[me] if period is None else arr[me][period]
+            local, block = dt.to_local()[0], block_of(arr, dt, lead=1)
+        else:
+            local, block = dt.to_local(), block_of(arr, dt)
+        diff = float(np.abs(local.detach().float().cpu().numpy() - block).max())
+        worst = max(worst, diff / max(want["scale"][name], 1e-30))
+    out["param_rel"] = worst
+    # parameters and both moments as stored on this rank, beside the specs' count
+    shapes = transformer.param_shapes(cfg, lead=(2,) if sync_kind == "gossip" else ())
+    analytic = 3 * rules.local_bytes(step.pspecs, shapes, mesh)
+    out["state_gb_measured"] = (train.state_bytes(state) - 4 * state.opt_state.step.numel()) / 1e9
+    out["state_gb_analytic"] = analytic / 1e9
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["collectives_share"] = clock.seconds / clocked_s
+    out["collectives"] = clock.calls
+    out["clocked_step_s"] = clocked_s
+    return out
+
+
+def one_device_norm(grads, mesh, axes, stacked: bool = False) -> torch.Tensor:
+    """`launch.train._logical_norm` as the one-device gossip step sums it:
+    each gradient gathered whole over ``axes`` (this rank's learner's),
+    its periods stacked, the squares summed a leaf at a time in its
+    order. Patched in for phase 3j's ``one_device_norm`` probe only."""
+    from repro_torch.launch import train
+    from repro_torch.sharding import spmd
+    terms = []
+    with torch.no_grad():
+        for _, leaf in train._path_groups(grads):
+            full = [spmd.gather(g, tuple(spmd.REPLICATE if a in axes else spmd.KEEP
+                                         for a in mesh.mesh_dim_names))[0]
+                    for g in (leaf if isinstance(leaf, list) else [leaf])]
+            x = (torch.stack(full) if isinstance(leaf, list) else full[0]).contiguous()
+            terms.append(torch.sum(torch.square(x.float())))
+    return torch.sqrt(sum(terms))
+
+
+def lm_mesh_moe(mesh, dev, weight_stationary: bool) -> dict:
+    """deepseek-v2-lite-16b's MoE layer at its published width (64 routed
+    experts, top-6, moe_d_ff 1,408, 2 shared) from the seed on every rank:
+    `moe_ffn_sharded` (its routed weights stored as `rules` resolves them,
+    the serving layout when weight-stationary) against `moe_ffn_local` on
+    the same card, B divisible and B=1; fp32."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    from repro_torch.sharding import rules, spmd
+    cfg = dataclasses.replace(registry.get_config(LM_MESH_MOE), compute_dtype="float32")
+    layer = moe.MoE(cfg, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    over = rules.SERVE_WS_OVERRIDES if weight_stationary else None
+    p = types.SimpleNamespace(**{n: t.detach() for n, t in layer.named_parameters()})
+    specs = moe.moe_specs(cfg)
+    for n in ("wi", "wg", "wo"):
+        ps = rules.resolve_spec(specs[n], tuple(getattr(layer, n).shape), mesh, overrides=over)
+        setattr(p, n, spmd.distribute(getattr(layer, n), mesh, rules.placements(ps, mesh)))
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for B in (LM_MESH_MOE_BATCH, 1):
+        x = torch.randn((B, LM_MESH_MOE_SEQ, cfg.d_model), generator=gen, device=dev)
+        batch = tuple(a for a in mesh.mesh_dim_names if a != "model")
+        split = B % spmd.axis_size(mesh, batch) == 0
+        place = tuple(Shard(0) if split and a in batch else Replicate() for a in mesh.mesh_dim_names)
+        xd = DTensor.from_local(spmd.local_block(x, mesh, batch) if split else x, mesh, place,
+                                run_check=False)
+        with torch.no_grad():
+            want, want_aux = moe.moe_ffn_local(layer, x, cfg, torch.float32)
+            y, aux = moe.moe_ffn_sharded(p, xd, cfg, torch.float32, mesh,
+                                        weight_stationary=weight_stationary)
+            full = spmd.gather(y, tuple(spmd.REPLICATE for _ in y.placements))
+        out[f"B{B}"] = {"rel": float((full - want).abs().max() / want.abs().max()),
+                        "aux_rel": abs(float(aux) - float(want_aux)) / abs(float(want_aux))}
+    return out
+
+
+def lm_mesh_decode(mesh, ref: dict, dev) -> dict:
+    """qwen1.5-4b at LM_MESH_DECODE_LAYERS, bf16: the prefill of 4 × 4,096
+    tokens and greedy decode steps, the cache's positions over ``model``
+    as `cache_specs` lays them out, teacher-forced with the one-device
+    decode's ids; each step's ids and logits against the one-device run."""
+    from repro_torch.launch import serve, specs
+    from repro_torch.models import transformer
+    from repro_torch.models.config import InputShape
+    from repro_torch.sharding import spmd
+    cfg = lm_mesh_cfg(LM_MESH_DECODE_LAYERS, "bfloat16")
+    total = LM_PROMPT + LM_MESH_DECODE_STEPS
+    model = serve.shard_for_serving(transformer.init_params(cfg, SEED, device=dev), mesh)
+    torch.cuda.empty_cache()
+    _, cps = specs.cache_specs(cfg, InputShape("decode", total, LM_BATCH, "decode"), mesh)
+    want = ref["decode"]
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, pc = serve.make_prefill_step(cfg, device=dev, mesh=mesh)(
+        model, {"tokens": want["tokens"].to(dev)})
+    cache = serve.cache_from_prefill(cfg, pc, total, device=dev, mesh=mesh, cache_pspecs=cps)
+    sync(dev)
+    prefill_s = time.perf_counter() - t0
+    del pc
+    decode = serve.make_decode_step(cfg, device=dev, mesh=mesh, cache_pspecs=cps)
+    rels, differ, mismatched, ms = [], 0, 0, []
+    for i in range(LM_MESH_DECODE_STEPS + 1):
+        if i:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = decode(model, cache, want["ids"][i - 1].to(dev), LM_PROMPT + i - 1)
+            end.record()
+            sync(dev)
+            ms.append(start.elapsed_time(end))
+        got = spmd.gather(logits, (spmd.REPLICATE,) * mesh.ndim).float().cpu()
+        w = want["logits"][i]
+        dev_abs = (got - w).abs().amax(-1)
+        rels.append(float(dev_abs.max() / w.abs().max()))
+        # the id the mesh picks may differ only where its one-device logit lies within
+        # twice the row's deviation of the one-device maximum: no deviation can flip more
+        picked = got.argmax(-1)
+        gap = w.amax(-1) - w.gather(-1, picked[..., None])[..., 0]
+        wrong = picked != want["ids"][i]
+        differ += int(wrong.sum())
+        mismatched += int((wrong & (gap > 2 * dev_abs)).sum())
+    kv = cps["0"]["k"]
+    return {"layers": cfg.n_layers, "prefill_s": prefill_s, "decode_ms": ms,
+            "logits_rel": max(rels), "ids_mismatched": mismatched,
+            "ids_differ_within_deviation": differ,
+            "kv_spec": str(tuple(kv)), "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def zeroed_launches() -> None:
+    from repro_torch.kernels import ops
+    for kern in ops.KERNELS:
+        kern.launches = 0
+
+
+def launch_counts() -> dict:
+    """This process's launch count of each of the port's kernels."""
+    from repro_torch.kernels import ops
+    return {kern.__name__: int(kern.launches) for kern in ops.KERNELS}
+
+
+def lm_mesh_rank(rank: int, jobs: list, ref: dict, tmp: str) -> dict:
+    """One rank of a phase-3j group: each job on its own mesh of this
+    world; every rank's results, with its kernel launches (its counts
+    set to 0 first), gathered to rank 0."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.sharding import spmd
+    zeroed_launches()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = {}
+    for name, kind, sizes in jobs:
+        spmd.release_staging()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mesh = mesh_lib.device_mesh(mesh_lib.MeshShape(("data", "model"), sizes), "cuda")
+        t0 = time.perf_counter()
+        if kind in ("allreduce", "allreduce_bf16", "gossip"):
+            out[name] = lm_mesh_train(mesh, ref, pathlib.Path(tmp), dev, kind)
+        elif kind == "gossip_one_device_norm":
+            from repro_torch.launch import train
+            own, train._logical_norm = train._logical_norm, one_device_norm
+            try:
+                out[name] = lm_mesh_train(mesh, ref, pathlib.Path(tmp), dev, "gossip")
+            finally:
+                train._logical_norm = own
+        elif kind in ("moe_ep", "moe_ws"):
+            out[name] = lm_mesh_moe(mesh, dev, kind == "moe_ws")
+        else:
+            out[name] = lm_mesh_decode(mesh, ref, dev)
+        out[name]["s"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return {"ranks": every}
+
+
+def lm_mesh_nccl_rank(rank: int) -> dict:
+    """A one-rank nccl group at full depth: the ``allreduce`` mesh step on
+    a 1×1 mesh, held against the one-device step run first in the same
+    process (3 steps; parameters compared on the host); its kernel
+    launches counted from 0."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.sharding import spmd
+    from repro_torch.sharding.dmf import ExchangeClock
+    zeroed_launches()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    from repro_torch.configs import registry
+    cfg = lm_mesh_cfg(registry.get_config(LM_QWEN).n_layers, "bfloat16")
+    batches = lm_mesh_batches(cfg, dev)
+    step, init = train.make_train_step(cfg, lm_mesh_opt(), device=dev)
+    state = init(SEED)
+    state, ref_losses, ref_ms, _ = timed_steps(step, state, batches, dev)
+    ref = {n: p.detach().cpu() for n, p in state.params.named_parameters()}
+    del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = mesh_lib.device_mesh(mesh_lib.MeshShape(("data", "model"), (1, 1)), "cuda")
+    step, init = train.make_train_step(cfg, lm_mesh_opt(), device=dev, mesh=mesh)
+    state = init(model=transformer.init_params(cfg, SEED, device=dev))
+    state, losses, ms, _ = timed_steps(step, state, batches, dev)
+    rel, equal = 0.0, True
+    for n, p in state.params.named_parameters():
+        got = p.to_local().detach().cpu()
+        rel = max(rel, float((got - ref[n]).abs().max() / ref[n].abs().max().clamp_min(1e-30)))
+        equal &= bool(torch.equal(got, ref[n]))
+    out = {"layers": cfg.n_layers, "losses": losses, "ref_losses": ref_losses, "step_ms": ms,
+           "ref_step_ms": ref_ms,
+           "loss_rel": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+           "param_rel": rel, "bit_for_bit": equal,
+           "state_gb_measured": train.state_bytes(state) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    clock = ExchangeClock()
+    sync(dev)
+    t0 = time.perf_counter()
+    with spmd.timed(clock):
+        step(state, batches[0])
+    sync(dev)
+    out["collectives_share"] = clock.seconds / (time.perf_counter() - t0)
+    out["launches"] = launch_counts()
+    return out
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def pstats(ms: list) -> dict:
+    return {"p50_s": float(np.percentile(ms, 50)) / 1e3, "p99_s": float(np.percentile(ms, 99)) / 1e3}
+
+
+def drive_lm_mesh(dev) -> dict:
+    """Phase 3j: the LM stack's mesh half on the card; see the module
+    docstring, j."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.mesh import spawn_ranks
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="lm_mesh_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        ref = lm_mesh_reference(dev, tmp)
+        out = {"reference_s": time.perf_counter() - t0,
+               "reference": {"allreduce_losses": ref["allreduce"]["losses"],
+                             "allreduce_step": pstats(ref["allreduce"]["step_ms"]),
+                             "gossip_losses": ref["gossip"]["losses"],
+                             "gossip_consensus": ref["gossip"]["consensus"]}}
+        torch.cuda.empty_cache()
+        failed, ranks = [], {}
+        for world, jobs in LM_MESH_GROUPS:
+            t0 = time.perf_counter()
+            got = spawn_ranks(lm_mesh_rank, world, backend="gloo", device="cuda",
+                              timeout_s=LM_MESH_TIMEOUT_S, args=(jobs, ref, str(tmp)))
+            for r in got["ranks"]:
+                add_launches(ranks, r.pop("launches"))
+            for name, _, _ in jobs:
+                out[name] = mesh_summary(name, [r[name] for r in got["ranks"]], failed)
+            out[f"gloo{world}_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        one = spawn_ranks(lm_mesh_nccl_rank, 1, backend="nccl", device="cuda",
+                          timeout_s=LM_MESH_TIMEOUT_S)
+        add_launches(ranks, one.pop("launches"))
+        out["rank_launches"] = ranks
+        one["step"] = pstats(one.pop("step_ms"))
+        one["ref_step"] = pstats(one.pop("ref_step_ms"))
+        out["allreduce_1x1_nccl"] = one
+        out["nccl1_s"] = time.perf_counter() - t0
+        if not (one["loss_rel"] <= LM_MESH_LOSS_REL and one["param_rel"] <= LM_MESH_PARAM_REL):
+            failed.append("allreduce_1x1_nccl")
+        out["failed_holds"] = failed
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["reduced"] = {
+        "train": (f"qwen1.5-4b at published width, {LM_MESH_LAYERS} of 40 layers: time (gloo "
+                  f"ranks share the card and every collective goes through the host, ~16 s a "
+                  f"step at 4 layers); fp32 compute for the tight holds, bf16 held once on "
+                  f"(2,1) (its products differ with the batch split); {LM_MESH_STEPS} steps "
+                  f"of {LM_MESH_BATCH} x {LM_MESH_SEQ} tokens"),
+        "gossip": f"the same, L=2 learners, walk length {LM_GOSSIP_WALK}",
+        "decode": (f"{LM_MESH_DECODE_LAYERS} of 40 layers; {LM_MESH_DECODE_STEPS} greedy steps "
+                   f"of 64 (every step re-gathers the weights through the host under gloo)"),
+        "moe": (f"{LM_MESH_MOE}'s MoE layer at published width, fp32, {LM_MESH_MOE_BATCH} x "
+                f"{LM_MESH_MOE_SEQ} tokens and 1 x {LM_MESH_MOE_SEQ}"),
+        "nccl_1x1": "none: 40 of 40 layers"}
+    return out
+
+
+def mesh_summary(name: str, per_rank: list, failed: list) -> dict:
+    """One job's line: rank 0's times and results, every rank's GB and the
+    worst deviation over the ranks; a hold missed goes on ``failed``."""
+    first = per_rank[0]
+    out = {"s": first["s"]}
+    if "losses" in first:
+        out |= {"losses": first["losses"], "step": pstats(first["step_ms"]),
+                "loss_rel": max(r["loss_rel"] for r in per_rank),
+                "param_rel": max(r["param_rel"] for r in per_rank),
+                "state_gb_measured_by_rank": [r["state_gb_measured"] for r in per_rank],
+                "state_gb_analytic_by_rank": [r["state_gb_analytic"] for r in per_rank],
+                "peak_gb_by_rank": [r["peak_gb"] for r in per_rank],
+                "collectives_share_by_rank": [r["collectives_share"] for r in per_rank],
+                "collectives_a_step": first["collectives"],
+                "clocked_step_s": first["clocked_step_s"]}
+        loss_tol, param_tol = LM_MESH_TOLS.get(name, (LM_MESH_LOSS_REL, LM_MESH_PARAM_REL))
+        out["tolerance"] = {"loss": loss_tol, "param": param_tol}
+        ok = out["loss_rel"] <= loss_tol and out["param_rel"] <= param_tol
+        if "consensus" in first:
+            out["consensus"] = first["consensus"]
+            out["consensus_rel"] = max(r["consensus_rel"] for r in per_rank)
+            ok &= out["consensus_rel"] <= LM_MESH_GOSSIP_REL
+        ok &= out["state_gb_measured_by_rank"] == out["state_gb_analytic_by_rank"]
+    elif "B1" in first:
+        out |= {k: first[k] for k in first if k.startswith("B")}
+        worst = max(max(r[k]["rel"] for k in r if k.startswith("B")) for r in per_rank)
+        out["worst_rel"] = worst
+        ok = worst <= LM_MESH_MOE_REL
+    else:
+        out |= {k: first[k] for k in ("layers", "prefill_s", "logits_rel", "ids_mismatched",
+                                      "ids_differ_within_deviation", "kv_spec")}
+        out["decode"] = pstats(first["decode_ms"])
+        out["peak_gb_by_rank"] = [r["peak_gb"] for r in per_rank]
+        ok = first["ids_mismatched"] == 0 and first["logits_rel"] <= LM_MESH_DECODE_REL
+    if not ok:
+        failed.append(name)
+    return out
+
+
+def lm_mesh_phase() -> int:
+    """``--mesh-phase``: phase 3j with every launch count set to 0 just
+    before it, in this process and in each rank it spawns, and read just
+    after: this process's (the one-device runs) and every rank's (the
+    mesh paths) summed (the mesh half launches none of the port's
+    kernels); prints its ``lm_mesh`` line."""
+    from repro_torch import device as device_lib
+    dev = device_lib.resolve("cuda")
+    t0 = time.perf_counter()
+    zeroed_launches()
+    out = drive_lm_mesh(dev)
+    launches = launch_counts()
+    add_launches(launches, out.pop("rank_launches"))
+    out["launches"] = launches
+    out["kernel_launches"] = sum(launches.values())
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 3j LM mesh: {out['s']} s")
+    log("lm_mesh", json.dumps(out))
+    assert out["kernel_launches"] == 0, "phase 3j launched one of the port's kernels"
+    assert not out["failed_holds"], f"phase 3j: holds missed: {out['failed_holds']}"
+    return 0
+
+
+def lm_mesh_in_child() -> None:
+    """Phase 3j in a child process of its own, after 3h/3i's and before
+    3a-3g, while the card holds nothing else; its lines are relayed and
+    its failure fails the script."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-phase"],
+                         capture_output=True, text=True, timeout=LM_MESH_TIMEOUT_S + 300)
+    for line in res.stdout.splitlines():
+        log(line)
+    assert res.returncode == 0, f"phase 3j failed:\n{res.stderr[-6000:]}"
+
+
 def lm_phases() -> int:
     """``--lm-phases``: phases 3h and 3i, each with every launch count set
     to 0 just before it and read just after (none of the port's kernels
@@ -4356,6 +4953,7 @@ def main(argv=None) -> int:
     ap.add_argument("--e2e-turns", type=pathlib.Path, metavar="DIR")
     ap.add_argument("--e2e-probe", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--lm-phases", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-phase", action="store_true", help="only phase 3j")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
     parent = args.parent.resolve() if args.parent else None
     if not torch.cuda.is_available():
@@ -4374,6 +4972,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if args.lm_phases:
         return lm_phases()
+    if args.mesh_phase:
+        return lm_mesh_phase()
     from repro_torch import device as device_lib
     from repro_torch.data import synthetic_poi
     from repro_torch.kernels import build, ops
@@ -4394,8 +4994,9 @@ def main(argv=None) -> int:
     errs = check_kernels(dev, J)
     log(f"phase 2 kernels vs plain: {json.dumps(errs)} ({time.perf_counter() - t0} s)")
 
-    # phases 3h and 3i first, in a process of their own (`lm_phases`)
+    # phases 3h and 3i first, in a process of their own (`lm_phases`), then 3j
     lm_phases_in_child()
+    lm_mesh_in_child()
 
     t0 = time.perf_counter()
     ds = synthetic_poi.foursquare_like(reduced=False, seed=SEED)

@@ -1,7 +1,22 @@
-"""Local learner groups: `spawn_ranks` starts one process per rank and
-joins them into a `torch.distributed` process group — the port's
-counterpart of `src/repro/launch/mesh.py:14` `ensure_host_platform_devices`,
-with which the reference provisions the devices of its ``learners`` mesh.
+"""Meshes and local learner groups — port of `src/repro/launch/mesh.py`:
+the production and test meshes with `batch_axes` and `n_batch_shards`
+(:44-66), and `spawn_ranks`, the port's device provisioner, its
+counterpart of `ensure_host_platform_devices` (:14). The reference's
+`shard_map` compatibility shim (:28) is JAX idiom with no counterpart: a
+rank runs its own shard's program over `torch.distributed`.
+
+A mesh has the reference's axis names, ``("data", "model")`` or ``("pod",
+"data", "model")``. The abstract mesh is separate from the live one:
+`make_production_mesh` and `make_test_mesh` return a frozen `MeshShape`
+(axis names, name → size), which is all spec resolution needs
+(`sharding/rules.py`, `launch/specs.py`); `device_mesh` binds one to
+`init_device_mesh` on a live process group of exactly that many ranks.
+
+    shape = make_test_mesh(2, 2)                 # MeshShape, no process group
+    mesh = device_mesh(shape, "cuda")            # inside a 4-rank group
+
+`spawn_ranks` starts one process per rank and joins them into a
+`torch.distributed` process group:
 
     from repro_torch.launch.mesh import spawn_ranks
     first = spawn_ranks(train_one_rank, 2, backend="gloo", device="cpu", args=(cfg,))
@@ -20,7 +35,9 @@ so that no two ranks compile into the same directory at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -35,6 +52,60 @@ import torch.distributed as dist
 from repro_torch import device as device_lib
 
 BACKENDS = ("gloo", "nccl")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """An abstract mesh: axis names in mesh order and their sizes."""
+    axis_names: tuple[str, ...]
+    sizes: tuple[int, ...]
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """16x16 = 256 devices; (2,16,16) = 512 across 2 pods."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_test_mesh(n_data: int = 2, n_model: int = 4, multi_pod: bool = False) -> MeshShape:
+    """Small mesh for CI-scale sharding tests."""
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, n_data, n_model))
+    return MeshShape(("data", "model"), (n_data, n_model))
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    return tuple(a for a in names if a != "model")
+
+
+def n_batch_shards(mesh) -> int:
+    shape = mesh.shape if isinstance(mesh.shape, dict) else dict(zip(mesh.mesh_dim_names,
+                                                                      mesh.shape))
+    return math.prod(shape[a] for a in batch_axes(mesh))
+
+
+def device_mesh(shape: MeshShape, device="cuda"):
+    """``shape`` as a live `DeviceMesh` on the current process group, whose
+    world size must equal ``shape.size``; ``device`` cuda or cpu (raises
+    for cuda without a card)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if not dist.is_initialized():
+        raise RuntimeError("device_mesh needs an initialised process group")
+    if dist.get_world_size() != shape.size:
+        raise ValueError(f"a {shape.sizes} mesh needs {shape.size} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    dev = device_lib.resolve(device)
+    return init_device_mesh(dev.type, shape.sizes, mesh_dim_names=shape.axis_names)
 
 
 def _rank_device(device: str, rank: int) -> None:

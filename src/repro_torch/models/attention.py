@@ -4,7 +4,12 @@ decode — port of `src/repro/models/attention.py` (all of it):
 `_dense_attend` (:150), `decode_attend` (:166-192), GQA (`init_gqa`,
 `gqa_qkv`, `gqa_out`, :195-245), MLA (`init_mla`, `mla_compress`,
 `mla_queries`, `mla_attend_full`, the absorbed `mla_decode`, :248-350) and
-gated cross-attention (`init_cross_attn`, `cross_attend`, :353-368).
+gated cross-attention (`init_cross_attn`, `cross_attend`, :353-368),
+with the logical-axis specs each ``init_*`` returns (`gqa_specs`,
+`mla_specs`, `cross_specs`). The sequence-sharded decode
+(`decode_attend_partial`, `mla_decode_partial`, `merge_partials`) splits
+`decode_attend` and `mla_decode` at their softmax, for a cache whose
+positions lie over several ranks (`launch/serve.py` on a mesh).
 
 The reference computes attention in `jnp` einsums with an online softmax
 (no Pallas kernel); the port mirrors that schedule in plain PyTorch: the
@@ -158,20 +163,52 @@ def decode_attend(
     cache_v: torch.Tensor,    # (B, S, KV, vd)
     length: int,              # valid prefix length (== pos of new token + 1)
     softmax_scale: float | None = None,
+    *,
+    offset: int = 0,          # position of the cache's first entry
+    merge=None,               # the sequence-sharded softmax's merge over ranks
 ) -> torch.Tensor:
     """One-token attention against a KV cache; entries at ``length`` and
-    beyond are masked to ``NEG_INF`` (they contribute exp(NEG_INF) = 0)."""
+    beyond are masked to ``NEG_INF`` (they contribute exp(NEG_INF) = 0).
+
+    With ``merge`` the cache is one rank's slice of the positions, from
+    ``offset``: the rank's partial softmax (its max, sum and weighted
+    values, `softmax_partial`) goes to ``merge`` (`merge_partials` over
+    the ranks holding the other slices), which returns the output."""
     B, S, KV, hd = cache_k.shape
     H = q.shape[1]
     G = H // KV
     scale = softmax_scale or 1.0 / math.sqrt(hd)
     qf = (q * scale).reshape(B, KV, G, hd).float()
     s = torch.einsum("bkgh,bskh->bkgs", qf, cache_k.float())
-    mask = torch.arange(S, device=q.device) < length
+    mask = offset + torch.arange(S, device=q.device) < length
     s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgs,bskv->bkgv", p, cache_v.float())
+    if merge is None:
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bkgs,bskv->bkgv", p, cache_v.float())
+    else:
+        m, l, p = softmax_partial(s)
+        out = merge(m, l, torch.einsum("bkgs,bskv->bkgv", p, cache_v.float()))
     return out.reshape(B, H, -1).to(q.dtype)
+
+
+def softmax_partial(s: torch.Tensor):
+    """A slice's share of a softmax over the last dim: (its max m, its sum
+    l of exp(s - m), the weights exp(s - m))."""
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(dim=-1), p
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The log-sum-exp merge of the slices' partial softmaxes over the mesh
+    ``axes``: M = max of m; acc and l rescaled by exp(m - M), summed;
+    acc / l. A slice with no valid entry has m = NEG_INF and weighs 0."""
+    from repro_torch.sharding import spmd
+    M = spmd.all_reduce(m, mesh, axes, op="max")
+    c = torch.exp(m - M)
+    num = spmd.all_reduce(acc * c[..., None], mesh, axes)
+    den = spmd.all_reduce(l * c, mesh, axes)
+    return num / den[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +230,15 @@ class GQAAttention(nn.Module):
         if cfg.qkv_bias:
             z = lambda *shape: nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device))
             self.bq, self.bk, self.bv = z(H, hd), z(KV, hd), z(KV, hd)
+
+
+def gqa_specs(cfg: ModelConfig) -> dict:
+    """The logical axes `init_gqa` returns beside its parameters (:207-221)."""
+    specs = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed")}
+    if cfg.qkv_bias:
+        specs |= {"bq": ("heads", None), "bk": ("kv_heads", None), "bv": ("kv_heads", None)}
+    return specs
 
 
 def gqa_qkv(params: GQAAttention, x, positions, cfg: ModelConfig, dtype):
@@ -244,6 +290,19 @@ class MLAAttention(nn.Module):
             self.q_norm = layers.init_rms_norm(cfg.q_lora_rank, device)
 
 
+def mla_specs(cfg: ModelConfig) -> dict:
+    """The logical axes `init_mla` returns (:268-285): with q-LoRA the
+    queries' first dim is the LoRA rank, not sharded."""
+    specs = {"wq": ("embed", "heads", None), "wq_rope": ("embed", "heads", None),
+             "w_dkv": ("embed", None), "w_kr": ("embed", None), "kv_norm": (None,),
+             "w_uk": (None, "heads", None), "w_uv": (None, "heads", None),
+             "wo": ("heads", None, "embed")}
+    if cfg.q_lora_rank:
+        specs |= {"w_dq": ("embed", None), "q_norm": (None,),
+                  "wq": (None, "heads", None), "wq_rope": (None, "heads", None)}
+    return specs
+
+
 def mla_compress(params: MLAAttention, x, positions, cfg: ModelConfig, dtype):
     """x -> (c_kv normed, k_rope): exactly what the MLA cache stores."""
     c_kv = torch.einsum("bsd,dr->bsr", x, params.w_dkv.to(dtype))
@@ -282,10 +341,11 @@ def mla_attend_full(params: MLAAttention, x, positions, cfg: ModelConfig, dtype,
 
 
 def mla_decode(params: MLAAttention, x, cache_ckv, cache_kr, length: int, positions,
-               cfg: ModelConfig, dtype):
+               cfg: ModelConfig, dtype, *, offset: int = 0, merge=None):
     """Absorbed-form single-token MLA decode against the latent cache:
     q_abs[h] = q[h] @ W_uk[h]^T; scores q_abs·c_kv + q_rope·k_rope, scaled by
-    1/sqrt(head_dim + rope_head_dim) (:338); output (p·c_kv) @ W_uv."""
+    1/sqrt(head_dim + rope_head_dim) (:338); output (p·c_kv) @ W_uv.
+    ``offset`` and ``merge``: a slice of the positions, as in `decode_attend`."""
     q, q_r = mla_queries(params, x, positions, cfg, dtype)   # (B,1,H,*)
     q, q_r = q[:, 0], q_r[:, 0]                              # (B,H,*)
     q_abs = torch.einsum("bhk,rhk->bhr", q, params.w_uk.to(dtype))
@@ -294,9 +354,14 @@ def mla_decode(params: MLAAttention, x, cache_ckv, cache_kr, length: int, positi
     s = s + torch.einsum("bhk,bsk->bhs", q_r.float(), cache_kr.float())
     s = s * scale
     S = cache_ckv.shape[1]
-    mask = torch.arange(S, device=x.device) < length
-    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", p, cache_ckv.float()).to(dtype)
+    mask = offset + torch.arange(S, device=x.device) < length
+    s = torch.where(mask, s, NEG_INF)
+    if merge is None:
+        p = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhs,bsr->bhr", p, cache_ckv.float()).to(dtype)
+    else:
+        m, l, p = softmax_partial(s)
+        o_lat = merge(m, l, torch.einsum("bhs,bsr->bhr", p, cache_ckv.float())).to(dtype)
     o = torch.einsum("bhr,rhv->bhv", o_lat, params.w_uv.to(dtype))
     return torch.einsum("bhv,hvd->bd", o, params.wo.to(dtype))[:, None, :]
 
@@ -311,6 +376,11 @@ class CrossAttention(GQAAttention):
     def __init__(self, cfg: ModelConfig, *, generator=None, device=None):
         super().__init__(cfg, generator=generator, device=device)
         self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
+
+
+def cross_specs(cfg: ModelConfig) -> dict:
+    """`init_cross_attn`'s logical axes (:353-357): GQA's and the scalar gate's ``()``."""
+    return gqa_specs(cfg) | {"gate": ()}
 
 
 def cross_attend(params: CrossAttention, x, media: torch.Tensor, cfg: ModelConfig, dtype):

@@ -1,7 +1,8 @@
 """Common layers: RMSNorm, RoPE, dense (SwiGLU) MLP, embeddings — port of
 `src/repro/models/layers.py:14-78` (`rms_norm`, `init_rms_norm`,
 `rope_freqs`, `apply_rope`, `init_mlp`/`mlp`, `init_embedding`,
-`init_lm_head`) and `chunked_cross_entropy` (:80-114).
+`init_lm_head`, with the logical-axis specs they return) and
+`chunked_cross_entropy` (:80-114).
 
 Parameters keep the reference's layouts (MLP weights ``(d, F)`` and
 ``(F, d)``, the embedding ``(vocab, d)``, the head ``(d, vocab)``) and are
@@ -28,6 +29,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
 
 def init_rms_norm(d: int, device=None) -> nn.Parameter:
     return nn.Parameter(torch.ones((d,), dtype=torch.float32, device=device))
+
+
+RMS_NORM_SPEC = ("embed_nodiv",)      # `init_rms_norm`'s logical axes (:21-22)
 
 
 # --- RoPE -------------------------------------------------------------------
@@ -79,6 +83,9 @@ class MLP(nn.Module):
         self.wo = normal((d_ff, d_model), s, generator, device)
 
 
+MLP_SPECS = {"wi": ("embed", "ff"), "wg": ("embed", "ff"), "wo": ("ff", "embed")}   # :52-56
+
+
 def mlp(params: MLP, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     h = torch.einsum("...d,df->...f", x, params.wi.to(dtype))
     g = torch.einsum("...d,df->...f", x, params.wg.to(dtype))
@@ -93,6 +100,10 @@ def init_embedding(vocab: int, d_model: int, *, generator=None, device=None) -> 
 
 def init_lm_head(d_model: int, vocab: int, *, generator=None, device=None) -> nn.Parameter:
     return normal((d_model, vocab), 0.02, generator, device)
+
+
+EMBEDDING_SPEC = ("vocab", "embed_nodiv")     # `init_embedding`'s logical axes (:67-70)
+LM_HEAD_SPEC = ("embed_nodiv", "vocab")       # `init_lm_head`'s (:73-77)
 
 
 def _chunk_ce(hc: torch.Tensor, lm_head: torch.Tensor, lc: torch.Tensor):
@@ -111,6 +122,7 @@ def chunked_cross_entropy(
     chunk: int = 1024,
     *,
     remat: bool = False,
+    n_labels: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Mean CE, computing logits chunk-by-chunk over the sequence so the
     (B, S, V) logits tensor is never materialized (memory-roofline relevant
@@ -122,7 +134,12 @@ def chunked_cross_entropy(
     freed after the forward and recomputed in the backward, so the
     backward never holds more than one chunk's (B, chunk, V) logits either
     (at vocab 151,936 one sequence of 4,096 tokens is 2.5 GB of fp32
-    logits)."""
+    logits).
+
+    ``n_labels``: the count of labels >= 0 to divide the sum by, in place
+    of these labels' own: a rank's share of a batch split over ranks
+    divides by the whole batch's count, so that the ranks' shares sum to
+    its mean however the ignored labels fall."""
     B, S, D = h.shape
     chunk = min(chunk, S)
     n = S // chunk
@@ -142,4 +159,4 @@ def chunked_cross_entropy(
     if rem:
         l, m = one(h[:, n * chunk:], labels[:, n * chunk:])
         tot, cnt = tot + l, cnt + m
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot / torch.clamp(cnt if n_labels is None else n_labels, min=1.0)

@@ -1,8 +1,8 @@
 """Mixture-of-Experts FFN (DeepSeek-V2 / Jamba style: shared + routed
-top-k) — port of `src/repro/models/moe.py:29-145` (`init_moe`, `_route`,
-`_grouped_expert_ffn`, `moe_capacity`, `_shared_ffn`, `moe_ffn_local`).
-`moe_ffn_sharded` (:147-240) needs a mesh and belongs to the sharding
-slice.
+top-k) — port of `src/repro/models/moe.py` (all of it: `init_moe` with
+its logical-axis specs, `_route`, `_grouped_expert_ffn`, `moe_capacity`,
+`_shared_ffn`, `moe_ffn_local`, and the expert-parallel `moe_ffn_sharded`,
+:147-240).
 
 Routes are grouped with a capacity-bounded stable sort and one
 capacity-sized window per expert (static shapes; overflow drops, standard
@@ -20,6 +20,14 @@ The reference scans the experts one at a time; the port gathers every
 expert's window at once and runs the experts as one batched product, then
 adds the outputs back in the same expert-major order through
 `core/scatter.py::scatter_add_rows_` (deterministic on both devices).
+
+`moe_ffn_sharded` is one rank's share of the reference's `shard_map`
+body: experts split on ``model`` (E/n_model a rank), tokens split on the
+batch axes, no token exchange; the partial outputs are summed over
+``model`` and the router's aux averaged over the batch axes (the
+collectives of `sharding/spmd.py`, with their backward). Its windows are
+`moe_ffn_local`'s (stable sort, clamped windows) on the rank's experts,
+with the capacity of the rank's tokens, as in the reference.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.sharding import spmd
 
 from repro_torch.core.scatter import scatter_add_rows_
 from repro_torch.models import layers
@@ -53,6 +63,16 @@ class MoE(nn.Module):
             self.shared_wi = layers.normal((d, Fs), s, generator, device)
             self.shared_wg = layers.normal((d, Fs), s, generator, device)
             self.shared_wo = layers.normal((Fs, d), so, generator, device)
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    """The logical axes `init_moe` returns (:40-56)."""
+    specs = {"router": ("embed_nodiv", None), "wi": ("experts", "embed", "expert_ff"),
+             "wg": ("experts", "embed", "expert_ff"), "wo": ("experts", "expert_ff", "embed")}
+    if cfg.n_shared_experts:
+        specs |= {"shared_wi": ("embed", "ff"), "shared_wg": ("embed", "ff"),
+                  "shared_wo": ("ff", "embed")}
+    return specs
 
 
 def top_k_lowest_ties(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -149,3 +169,102 @@ def moe_ffn_local(params: MoE, x: torch.Tensor, cfg: ModelConfig, dtype):
     if cfg.n_shared_experts:
         y = y + _shared_ffn(params, x2d, dtype)
     return y.reshape(B, S, d), aux
+
+
+def _local_experts(w, f_dim: int, mesh, x_axes: tuple, ws_axes: tuple) -> torch.Tensor:
+    """This rank's block of a routed weight (E, d, F) or (E, F, d): its
+    E/n_model experts and, with ``ws_axes``, its slice of F over them.
+    ``w`` is a DTensor (gathered over what it shards beyond that block,
+    differentiably onto its stored shard) or a plain full tensor."""
+    names = spmd.axis_names(mesh)
+    if not hasattr(w, "placements"):
+        w = spmd.local_block(w, mesh, ("model",), dim=0)
+        return spmd.local_block(w, mesh, ws_axes, dim=f_dim) if ws_axes else w
+    dims = spmd.shard_dims(w)
+    on_model = dims[names.index("model")] == 0
+    in_place = bool(ws_axes) and all(dims[names.index(a)] == f_dim for a in ws_axes)
+    modes = []
+    for a, d in zip(names, dims):
+        if a == "model":
+            modes.append(spmd.KEEP if on_model else spmd.PARTIAL)
+        elif in_place and a in ws_axes:
+            modes.append(spmd.KEEP)
+        else:
+            modes.append(spmd.PARTIAL if a in x_axes or a in ws_axes else spmd.REPLICATE)
+    out = spmd.gather(w, tuple(modes))
+    if not on_model:
+        out = spmd.local_block(out, mesh, ("model",), dim=0)
+    if ws_axes and not in_place:
+        out = spmd.local_block(out, mesh, ws_axes, dim=f_dim)
+    return out
+
+
+def moe_layout(cfg: ModelConfig, B: int, mesh, weight_stationary: bool = False
+               ) -> tuple[tuple, tuple]:
+    """(x_axes, ws_axes) of `moe_ffn_sharded` at global batch ``B``: the
+    batch axes the tokens are split on (none when B does not divide), and
+    the axes expert_ff is split on (the batch axes when weight-stationary
+    and moe_d_ff divides, else none: plain expert parallelism)."""
+    batch = tuple(a for a in spmd.axis_names(mesh) if a != "model")
+    x_axes = batch if B % spmd.axis_size(mesh, batch) == 0 else ()
+    ws_axes = batch if weight_stationary else ()
+    if ws_axes and cfg.moe_d_ff % spmd.axis_size(mesh, ws_axes) != 0:
+        ws_axes = ()     # divisibility fallback: plain EP
+    return x_axes, ws_axes
+
+
+def moe_ffn_sharded(params, x, cfg: ModelConfig, dtype, mesh, weight_stationary: bool = False):
+    """Expert-parallel path on a `DeviceMesh`: experts split on ``model``,
+    tokens split on the batch axes, no token exchange. Output summed over
+    ``model``; aux averaged over the batch axes.
+
+    ``x`` is a DTensor (B, S, d) on ``mesh``: Shard(0) over the batch axes
+    when B divides their size, else replicated (as `launch/specs.py` lays
+    a batch out); the output has its placements. ``params`` holds the
+    router and the shared experts as plain tensors and the routed
+    ``wi``/``wg``/``wo`` as DTensors (or plain full tensors).
+
+    ``weight_stationary=True`` (decode-time): expert weights additionally
+    split over the batch axes on their hidden (F) dim and left where they
+    are stored; the tokens are all-gathered over the batch axes instead,
+    the partial outputs summed over the whole mesh and this shard's batch
+    slice kept."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    B, S, d = x.shape
+    E = cfg.n_routed_experts
+    names = spmd.axis_names(mesh)
+    n_model = spmd.axis_size(mesh, ("model",))
+    assert E % n_model == 0, (E, n_model)
+    E_loc = E // n_model
+    x_axes, ws_axes = moe_layout(cfg, B, mesh, weight_stationary)
+    want = tuple(Shard(0) if a in x_axes else Replicate() for a in names)
+    if tuple(x.placements) != want:
+        raise ValueError(f"x is laid out {x.placements}; moe_ffn_sharded wants {want}")
+    xl = x.to_local()
+    Bl = xl.shape[0]
+    split = ("model", *ws_axes)                 # what the experts' work is split over
+    gathered = ws_axes and x_axes
+    xg = spmd.gather_fwd(xl, mesh, x_axes) if gathered else xl
+    xg = spmd.sum_bwd(xg, mesh, tuple(a for a in split if not (gathered and a in x_axes)))
+    x2d = xg.reshape(-1, d)
+    w, idx, aux = _route(params, x2d, cfg)
+    # every rank of ``split`` routes the same tokens: its aux gradient is one share of n
+    aux = spmd.grad_scale(aux, 1.0 / spmd.axis_size(mesh, split))
+    cap = moe_capacity(cfg, x2d.shape[0])
+    first = spmd.coordinate(mesh, ("model",)) * E_loc
+    wi = _local_experts(params.wi, 2, mesh, x_axes, ws_axes)
+    wg = _local_experts(params.wg, 2, mesh, x_axes, ws_axes)
+    wo = _local_experts(params.wo, 1, mesh, x_axes, ws_axes)
+    y = _grouped_expert_ffn(wi, wg, wo, x2d, w, idx, first, cap, dtype)
+    if gathered:
+        y = spmd.scatter_fwd(y.reshape(-1, S, d), mesh, x_axes)
+        y = spmd.sum_fwd(y, mesh, tuple(a for a in split if a not in x_axes))
+    else:
+        y = spmd.sum_fwd(y, mesh, split)
+    if x_axes:
+        aux = spmd.mean_over(aux, mesh, x_axes)
+    y = y.reshape(Bl, S, d)
+    if cfg.n_shared_experts:
+        # shared experts: outside the expert-parallel region, on this rank's tokens
+        y = y + _shared_ffn(params, xl, dtype)
+    return DTensor.from_local(y, mesh, want, run_check=False), aux

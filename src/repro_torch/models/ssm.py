@@ -1,6 +1,7 @@
 """Mamba2 — SSD (state-space duality) block [arXiv:2405.21060] — port of
 `src/repro/models/ssm.py` (all of it: `SSMCache`, `conv_dim`,
-`init_mamba`, `_split_proj`, `_segsum`, `ssd_chunked`, `mamba_forward`,
+`init_mamba` with its logical-axis specs (`MAMBA_SPECS`), `_split_proj`,
+`_segsum`, `ssd_chunked`, `mamba_forward`,
 `mamba_decode`, `init_ssm_cache`).
 
 Prefill uses the chunked SSD algorithm (quadratic within a chunk, linear
@@ -59,6 +60,13 @@ class Mamba(nn.Module):
         self.dt_bias = nn.Parameter(dt_bias.to(device))
         self.norm = layers.init_rms_norm(di, device)
         self.out_proj = layers.normal((di, d), so, generator, device)
+
+
+MAMBA_SPECS = {   # the logical axes `init_mamba` returns (:49-58)
+    "in_proj": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"), "conv_b": ("ssm_inner",),
+    "A_log": ("ssm_heads",), "D": ("ssm_heads",), "dt_bias": ("ssm_heads",),
+    "norm": ("ssm_inner",), "out_proj": ("ssm_inner", "embed"),
+}
 
 
 def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):

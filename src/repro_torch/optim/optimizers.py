@@ -14,6 +14,10 @@ and, for the same optimiser, its arithmetic applied in place:
 
     state = opt.update_(grads, state, params)   # == update + apply_updates
 
+On a mesh the trees are one rank's shards and ``grad_norm`` is the norm of
+the whole (logical) gradient, which AdamW's clipping then uses
+(`launch/train.py`); elementwise, the rest is the same on a shard.
+
 The reference's train steps donate their state (`launch/train.py:81,
 :150`), so XLA writes the new parameters and moments over the old ones.
 `update_` is the port's counterpart: leaf after leaf, it writes the new
@@ -59,7 +63,7 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable     # (params) -> state
     update: Callable   # (grads, state, params) -> (updates, new_state)
-    update_: Callable  # (grads, state, params) -> state; params and state written in place
+    update_: Callable  # (grads, state, params, grad_norm=None) -> state; written in place
 
 
 # ---------------------------------------------------------------------------
@@ -125,7 +129,7 @@ def sgd(lr) -> Optimizer:
         return upd, OptState(step, ())
 
     @torch.no_grad()
-    def update_(grads, state, params):
+    def update_(grads, state, params, grad_norm=None):
         state.step.add_(1)
         lr_t = _lr_at(lr, state.step)
         for p, g in zip(leaves(params), leaves(grads)):
@@ -152,7 +156,7 @@ def momentum(lr, beta: float = 0.9, nesterov: bool = False) -> Optimizer:
         return upd, OptState(step, m)
 
     @torch.no_grad()
-    def update_(grads, state, params):
+    def update_(grads, state, params, grad_norm=None):
         state.step.add_(1)
         lr_t = _lr_at(lr, state.step)
         for p, mo, g in zip(leaves(params), leaves(state.inner), leaves(grads)):
@@ -188,11 +192,13 @@ def adamw(
         return OptState(_step0(params), AdamState(mu=tree_map(zeros, params),
                                                   nu=tree_map(zeros, params)))
 
-    def _clip_scale(grads):
-        """min(1, clip / (‖g‖ + 1e-9)) over the whole tree, or None."""
+    def _clip_scale(grads, gnorm=None):
+        """min(1, clip / (‖g‖ + 1e-9)) over the whole tree, or None;
+        ``gnorm`` given when the tree is one rank's shards of it."""
         if grad_clip_norm is None:
             return None
-        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(grads)))
+        if gnorm is None:
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves(grads)))
         return torch.clamp(grad_clip_norm / (gnorm + 1e-9), max=1.0)
 
     def _schedule(step):
@@ -226,10 +232,10 @@ def adamw(
         return unflatten_like(params, upds), OptState(step, AdamState(mu, nu))
 
     @torch.no_grad()
-    def update_(grads, state, params):
+    def update_(grads, state, params, grad_norm=None):
         state.step.add_(1)
         lr_t, bc1, bc2 = _schedule(state.step)
-        scale = _clip_scale(grads)
+        scale = _clip_scale(grads, grad_norm)
         for p, g, m, v, wd in zip(leaves(params), leaves(grads), leaves(state.inner.mu),
                                   leaves(state.inner.nu), _decays(params)):
             g = g.float()

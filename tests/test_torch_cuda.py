@@ -1487,3 +1487,67 @@ def test_lm_gossip_on_the_card_converges(dev):
         losses.append(float(m["loss"]))
     assert losses[-1] < losses[0] - 0.3, (losses[0], losses[-1])
     assert float(m["consensus_err"]) < 0.5
+
+
+def test_lm_mesh_steps_on_a_one_rank_nccl_mesh(dev):
+    """The mesh half on the card: the ``allreduce`` mesh step on a 1×1 nccl
+    mesh against the one-device step (3 steps: losses within 1e-6
+    relative, parameters within 1e-5 of each leaf's largest magnitude),
+    and `moe_ffn_sharded` at D=1 against `moe_ffn_local` (1e-5)."""
+    import pathlib
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch import mesh
+    out = mesh.spawn_ranks(ranks.card_case, 1, backend="nccl", device="cuda", timeout_s=300)
+    for loss, want in out["allreduce_1x1"]["losses"]:
+        assert abs(loss - want) <= 1e-6 * abs(want), out
+    assert out["allreduce_1x1"]["param_rel"] <= 1e-5, out
+    assert out["moe_d1"]["rel"] <= 1e-5 and out["moe_d1"]["aux_rel"] <= 1e-6, out
+
+
+MESH_MOE_CFG = dict(name="t", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
+                    d_ff=0, vocab_size=64, n_routed_experts=8, n_shared_experts=1, moe_top_k=2,
+                    moe_d_ff=32, compute_dtype="float32")
+
+
+def test_lm_mesh_steps_over_nccl_on_four_cards(dev):
+    """The mesh half over NCCL, one rank a card on four cards
+    (`_torch_mesh_ranks.four_card_case`, the CPU's 4-rank holds with real
+    NCCL traffic; fp32, TF32 off): the ``allreduce`` step on (2, 2) plain,
+    with `DP_OVERRIDES` and with ignored labels on one batch shard, and
+    MoE experts parallel on (1, 4), against the one-device step (losses
+    within 1e-6 relative, parameters within 1e-5 of each leaf's largest
+    magnitude, each rank's state bytes the analytic count); gossip at L=4
+    on (4, 1) and L=2 on (2, 2) against the one-device gossip step
+    (losses, consensus and parameters within 1e-6); `moe_ffn_sharded`
+    expert parallel on (1, 4) and weight-stationary on (2, 2) against
+    `moe_ffn_local` (1e-5, aux 1e-6); prefill and decode on a
+    sequence-sharded cache (GQA, MLA, a sliding-window ring, Jamba's
+    hybrid): logits and cache within 1e-5, greedy ids equal. Skips with
+    fewer than four cards."""
+    import pathlib
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards: one nccl rank a card")
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
+    import _torch_mesh_ranks as ranks
+    from repro_torch.launch import mesh
+    out = mesh.spawn_ranks(ranks.four_card_case, 4, backend="nccl", device="cuda",
+                           timeout_s=600, args=(MESH_MOE_CFG,))
+    for case in ("allreduce_2x2", "allreduce_dp_2x2", "allreduce_masked_2x2",
+                 "allreduce_moe_1x4"):
+        for loss, want in out[case]["losses"]:
+            assert abs(loss - want) <= 1e-6 * abs(want), (case, out[case])
+        assert out[case]["param_rel"] <= 1e-5, (case, out[case])
+        assert out[case]["state_bytes"] == out[case]["analytic_bytes"], (case, out[case])
+    for case in ("gossip_4x1", "gossip_2x2"):
+        for loss, want, cons, want_cons in out[case]["rows"]:
+            assert abs(loss - want) <= 1e-6 * abs(want), (case, out[case])
+            assert abs(cons - want_cons) <= 1e-6 * abs(want_cons) + 1e-12, (case, out[case])
+        assert out[case]["param_rel"] <= 1e-6, (case, out[case])
+    for case, r in out["moe"].items():
+        assert r["rel"] <= 1e-5 and r["aux_rel"] <= 1e-6, (case, r)
+    for arch, m, B in ranks.SERVE_CASES:
+        r = out[f"serve_{arch}_{m}_B{B}"]
+        assert r["same_ids"] and r["logits_rel"] <= 1e-5 and r["cache_rel"] <= 1e-5, (arch, r)

@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_repro():
         "       'repro_torch.data.lm_pipeline', 'repro_torch.optim',\n"
         "       'repro_torch.optim.optimizers', 'repro_torch.optim.schedules',\n"
         "       'repro_torch.core.gossip', 'repro_torch.launch.train',\n"
-        "       'repro_torch.examples.train_lm', 'repro_torch.examples.decentralized_lm'}\n"
+        "       'repro_torch.examples.train_lm', 'repro_torch.examples.decentralized_lm',\n"
+        "       'repro_torch.sharding.rules', 'repro_torch.sharding.spmd',\n"
+        "       'repro_torch.launch.specs', 'repro_torch.launch.dryrun'}\n"
         "assert new <= set(names), new - set(names)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                       'ml_dtypes')\n"
@@ -83,7 +85,7 @@ def test_source_scan_finds_no_reference_imports():
 
 
 @pytest.mark.parametrize("helper", ["_torch_sharded_ranks.py",
-                                    "_torch_sharded_serving_ranks.py"])
+                                    "_torch_sharded_serving_ranks.py", "_torch_mesh_ranks.py"])
 def test_rank_helpers_import_no_reference(helper):
     """The modules the spawned ranks import start without JAX."""
     roots = _imported_roots(pathlib.Path(__file__).resolve().parent / helper)
@@ -305,3 +307,22 @@ def test_lm_training_entry_points_default_to_cuda_and_raise_without_a_card(monke
     with pytest.raises(ValueError, match="the step"):    # a model of another config
         train.make_train_step(dataclasses.replace(cfg, name="other"), opt, device="cpu")[0](
             state, batch)
+
+
+def test_mesh_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
+    """The mesh half's makers resolve their device as every entry point does."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import serve, train
+    from repro_torch.models import config as mc
+    from repro_torch import optim
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = mc.reduced(registry.get_config("qwen1.5-4b"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.make_train_step(cfg, optim.adamw(1e-3), mesh=object())
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.make_prefill_step(cfg, mesh=object())
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.make_decode_step(cfg, mesh=object(), cache_pspecs={})
+    with pytest.raises(RuntimeError, match="initialised process group"):
+        mesh_lib.device_mesh(mesh_lib.make_test_mesh(1, 1))

@@ -329,3 +329,24 @@ def test_gossip_training_converges_small_lm():
     cons = float(m["consensus_err"])
     assert losses[-1] < losses[0] - 0.3, (losses[0], losses[-1])
     assert cons < 0.5, cons
+
+
+def test_gossip_step_with_remat_equals_without():
+    """Each learner's gradient is taken inside its `functional_call`, so a
+    remat period's recompute in the backward sees the learner's own
+    parameters: remat on equals remat off, bit for bit, over 2 steps."""
+    cfg = mc.reduced(registry.get_config("qwen1.5-4b"))
+    data = SyntheticLM(LMDataConfig(vocab_size=cfg.vocab_size, seq_len=16, batch_size=4))
+    runs = []
+    for remat in (False, True):
+        step, init = train.make_train_step(dataclasses.replace(cfg, remat=remat),
+                                           optim.adamw(3e-3), sync="gossip",
+                                           gossip=gossip.GossipConfig(), n_learners=2,
+                                           device="cpu")
+        state = init(0)
+        for i in range(2):
+            state, m = step(state, data.batch(i))
+        runs.append((m["loss"], tree_lib.tree_paths(state.params)))
+    (loss_a, a), (loss_b, b) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
