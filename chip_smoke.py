@@ -2185,6 +2185,34 @@ def kernel_time_by_name(doc: dict, top: int = 6) -> list:
     return [{"name": n[:96], "count": c, "total_us": us} for n, (c, us) in rows]
 
 
+def device_busy(doc: dict) -> dict:
+    """The device's busy share over a profiled window, from a profiler
+    Chrome trace: the benchmark's busy union (`portbench.devtrace.Trace`)
+    over the span of all the trace's complete events, and the device
+    events by kind. Raises `ValueError` on a trace with no device event,
+    which would otherwise read as an idle device."""
+    from portbench.devtrace import DEVICE_CATS, Trace
+    tr = Trace(doc)
+    if not tr.device:
+        raise ValueError("the trace holds no CUDA kernel, memcpy or memset event")
+    evs = [e for e in doc["traceEvents"] if e.get("ph") == "X" and "dur" in e]
+    t0 = min(float(e["ts"]) for e in evs)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in evs)
+    busy, window = tr.busy(t0, t1), t1 - t0
+    n = {c: sum(d[3] == c for d in tr.device) for c in DEVICE_CATS}
+    return {"n_kernel": n["kernel"], "n_memcpy": n["gpu_memcpy"], "n_memset": n["gpu_memset"],
+            "busy_ms": busy / 1e3, "window_ms": window / 1e3, "busy_share": busy / window,
+            "idle_share": 1.0 - busy / window}
+
+
+def span_counts(tracer) -> dict:
+    """Recorded spans by name: how many of each."""
+    out: dict[str, int] = {}
+    for ev in tracer.events():
+        out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return dict(sorted(out.items()))
+
+
 def drive_scheduling(ds, nbr, index, cfg, state, dev, detail: bool = False) -> dict:
     """Phase 3f, the scheduler: capacity from back-to-back full
     microbatches, the grid (scheduler and lockstep at each load, one on/off
@@ -2238,20 +2266,19 @@ def drive_scheduling(ds, nbr, index, cfg, state, dev, detail: bool = False) -> d
         with tracer.torch_profiler(ROOT / "build" / "profile", device=dev) as prof:
             rep_p = scheduled(eng, mid_reqs)
         assert prof is not None
-        spans = tracer.span_stats()
+        spans = span_counts(tracer)
     finally:
         trace_lib.set_tracer(saved)
     doc = json.loads(tracer.profiler_traces[-1].read_text())
-    busy = trace_lib.device_busy(doc)
+    busy = device_busy(doc)
     n_disp = sum(rep_p.n_dispatches_per_shard)
     assert busy["n_kernel"] >= n_disp, (busy, n_disp)
-    assert spans["scheduler.dispatch"]["count"] == n_disp == spans["engine.serve_microbatch"][
-        "count"], spans
+    assert spans["scheduler.dispatch"] == n_disp == spans["engine.serve_microbatch"], spans
     per_dispatch_ms = busy["busy_ms"] / n_disp
     out["profiled_1x"] = {
         "device_busy": busy, "dispatches": n_disp, "trace": str(tracer.profiler_traces[-1]),
         "kernels_by_device_time": kernel_time_by_name(doc),
-        "run": sched_row(rep_p), "span_stats": spans,
+        "run": sched_row(rep_p), "span_counts": spans,
         # the same device work a dispatch over the host seconds of the 1x
         # run without the profiler (and without tracing)
         "device_ms_per_dispatch": per_dispatch_ms,
@@ -2278,14 +2305,14 @@ def tracing_detail(eng, reqs, n_users: int) -> dict:
             row["dispatch_ms_median"] = 1e3 * float(np.median(eng.stats.dispatch_seconds[n0:]))
             turns[turn].append({k: row[k] for k in ("goodput_rps", "slo_attainment", "p50_ms",
                                                     "p99_ms", "dispatch_ms_median")})
-        spans = tracer.span_stats()
+        spans = span_counts(tracer)
     finally:
         trace_lib.set_tracer(saved)
     return {"tracing_cost_1x_in_turns": {
                 "runs": turns,
                 "median": {t: {k: float(np.median([r[k] for r in rows])) for k in rows[0]}
                            for t, rows in turns.items()}},
-            "span_stats_tracing_only": spans, "span_cost": span_cost(eng, n_users)}
+            "span_counts_tracing_only": spans, "span_cost": span_cost(eng, n_users)}
 
 
 def span_cost(eng, n_users: int) -> dict:
@@ -2336,7 +2363,7 @@ def profiled_fit(c, kw, ds, nbr, dev, tele: bool) -> dict:
     doc = json.loads(path.read_text())
     ops_ = [e for e in prof.key_averages() if e.key.startswith("aten::")]
     top = sorted(ops_, key=lambda e: -e.self_cpu_time_total)[:6]
-    out = {"device_busy": trace_lib.device_busy(doc),
+    out = {"device_busy": device_busy(doc),
            "kernels_by_device_time": kernel_time_by_name(doc, 4),
            "host_aten_calls": sum(e.count for e in ops_),
            "host_aten_self_ms": sum(e.self_cpu_time_total for e in ops_) / 1e3,
@@ -2864,11 +2891,10 @@ def lm_decode_vs_forward(model, prompt: int, steps: int, dev, gen, last_only: bo
 
 def lm_profile(fn) -> dict:
     """One call of ``fn`` under `torch.profiler` (CPU and CUDA activity):
-    the device's busy share over the window (`obs.trace.device_busy`) and
+    the device's busy share over the window (`device_busy`) and
     the kernels with the most device time."""
     import tempfile
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.obs import trace as obs_trace
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -2877,7 +2903,7 @@ def lm_profile(fn) -> dict:
         path = pathlib.Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
         doc = json.loads(path.read_text())
-    return {"device_busy": obs_trace.device_busy(doc), "kernels": kernel_time_by_name(doc, top=8)}
+    return {"device_busy": device_busy(doc), "kernels": kernel_time_by_name(doc, top=8)}
 
 
 def lm_qwen(dev) -> dict:

@@ -1,0 +1,8 @@
+"""Host milliseconds a dispatch in `serve_microbatch`'s ``engine.upload``
+phase (the ids' upload to the card): the span's traced wall time less
+the device-busy time inside it, over the dispatches."""
+from portbench.metrics._engine_phase import host_ms_per_dispatch
+
+
+def read(ctx, peaks):
+    return host_ms_per_dispatch(ctx, "engine.upload")

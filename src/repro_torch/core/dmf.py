@@ -516,20 +516,24 @@ def train_epoch(state: DMFState, prop, train: np.ndarray, cfg: DMFConfig,
                                                accountant=accountant, device=device, tele=tele)
     dev = _require_state_on(state, device, "train_epoch")
     nbr = _as_neighbor_table(prop, dev)
-    ui, vj, r, conf = sample_epoch(train, cfg, rng)
-    B = cfg.batch_size
-    nb = len(ui) // B
-    n = nb * B
-    _, dp_seed = epoch_dp_inputs(cfg, rng, n)
-    if accountant is not None:
-        accountant.observe_epoch(ui[:n].reshape(nb, B))
-    ui_d, vj_d = (torch.as_tensor(x[:n].reshape(nb, B), dtype=torch.int64, device=dev)
-                  for x in (ui, vj))
-    r_d, conf_d = (torch.as_tensor(x[:n].reshape(nb, B), device=dev) for x in (r, conf))
-    out = _epoch_scan(state.U, state.P, state.Q, nbr.idx, nbr.wgt,
-                      ui_d, vj_d, r_d, conf_d, dp_seed, cfg, tele=tele)
+    with trace_lib.span("dmf.sample"):
+        ui, vj, r, conf = sample_epoch(train, cfg, rng)
+        B = cfg.batch_size
+        nb = len(ui) // B
+        n = nb * B
+        _, dp_seed = epoch_dp_inputs(cfg, rng, n)
+        if accountant is not None:
+            accountant.observe_epoch(ui[:n].reshape(nb, B))
+    with trace_lib.span("dmf.upload"):
+        ui_d, vj_d = (torch.as_tensor(x[:n].reshape(nb, B), dtype=torch.int64, device=dev)
+                      for x in (ui, vj))
+        r_d, conf_d = (torch.as_tensor(x[:n].reshape(nb, B), device=dev) for x in (r, conf))
+    with trace_lib.span("dmf.rounds"):
+        out = _epoch_scan(state.U, state.P, state.Q, nbr.idx, nbr.wgt,
+                          ui_d, vj_d, r_d, conf_d, dp_seed, cfg, tele=tele)
     losses, tsum = out if tele else (out, None)
-    total, tstats = _read_epoch(losses, tsum)
+    with trace_lib.span("dmf.read"):
+        total, tstats = _read_epoch(losses, tsum)
     if tele:
         return state, total / max(n, 1), tstats
     return state, total / max(n, 1)
@@ -849,7 +853,10 @@ def fit(
     reductions summed on the card and read once an epoch with the losses:
     factor trajectories are bit for bit those of a run without it. Each
     epoch runs inside a ``fit.epoch`` span of the global tracer
-    (`obs.trace.configure_tracing`).
+    (`obs.trace.configure_tracing`, or any torch profiler recording);
+    `train_epoch`'s phases are spans inside it: ``dmf.sample`` (the
+    sample, the DP seed, the accountant), ``dmf.upload``, ``dmf.rounds``
+    (`_epoch_scan`) and ``dmf.read`` (`_read_epoch`).
 
     Learner sharding (``cfg.n_shards > 1``, `sharding/dmf.py`): this
     process is one rank of an initialised `torch.distributed` group of

@@ -2,15 +2,27 @@
 `src/repro/obs/trace.py` (`Tracer`, the shared null context, `get_tracer`,
 `set_tracer`, `configure_tracing`, `span`), with the accelerator bridges
 in PyTorch: `Tracer.torch_profiler` (the reference's `jax_profiler`,
-:156-166) and `device_memory_snapshot` (:169-187), plus `device_busy`,
-which reads a profiler trace's device intervals.
+:156-166) and `device_memory_snapshot` (:169-187).
 
-A `Tracer` records host wall-clock spans (monotonic `perf_counter_ns`,
-thread-safe, nesting tracked per thread) and exports them as the Chrome
-trace-event JSON that Perfetto and ``chrome://tracing`` load. The
-module-level tracer is disabled by default: `span()` then returns a shared
-null context manager (no allocation, no clock read), so instrumented paths
-cost nothing until `configure_tracing(True)` (the ``--trace-out`` flag).
+A `Tracer` records host spans (thread-safe, nesting tracked per thread)
+and exports them as the Chrome trace-event JSON that Perfetto and
+``chrome://tracing`` load. A span is stamped with the monotonic
+`perf_counter_ns`, mapped onto the wall-clock epoch by one offset taken
+when the tracer starts: that is the clock of `torch.profiler`'s traces,
+and the export writes ``baseTimeNanoseconds`` as the profiler's does
+(an event's absolute time is that base plus its ``ts`` in µs), so the
+two files line up.
+
+A tracer records while it is enabled (`configure_tracing(True)`, the
+``--trace-out`` flag) or while a torch profiler is recording in the
+process. Otherwise the module-level `span()` returns a shared null
+context manager (no allocation, no clock read), so instrumented paths
+cost one attribute read more than none. While a profiler records, each
+span also opens what `torch.profiler.record_function` of its name opens,
+and so lands in the profiler's trace as a ``user_annotation`` on the
+profiler's own clock, nested with the operations it launched. The
+profiler keeps no arguments of such an annotation: a span's counts are in
+the tracer's own events.
 
 Spans time the host. A span around an asynchronous launch closes before
 the kernel ends unless the block ends in a host copy of the result, as the
@@ -19,7 +31,6 @@ engine's dispatch spans do; the device's own timeline is the profiler's.
 from __future__ import annotations
 
 import contextlib
-import functools
 import json
 import os
 import pathlib
@@ -27,6 +38,12 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler   # `_is_profiler_enabled`: a profiler records
+
+# what `torch.profiler.record_function` opens and closes (a user annotation),
+# called without its Python wrapper: a fifth of the cost between two spans
+_annotation_enter = torch._C._autograd._record_function_with_args_enter
+_annotation_exit = torch._C._autograd._record_function_with_args_exit
 
 
 class _NullContext:
@@ -43,24 +60,57 @@ class _NullContext:
 _NULL = _NullContext()
 
 
-class _Span:
-    __slots__ = ("name", "t0_ns", "args", "depth", "parent")
+def _epoch_offset_ns() -> int:
+    """Wall-clock epoch ns less `perf_counter_ns`, from the tightest of a
+    few paired reads."""
+    best = None
+    for _ in range(8):
+        a = time.perf_counter_ns()
+        wall = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, wall - (a + b) // 2)
+    return best[1]
 
-    def __init__(self, name, t0_ns, args, depth, parent):
+
+class _Span:
+    """One recording span, its own context manager: entered, it yields
+    itself, and a caller may add to ``args`` until it exits. Under a
+    profiler it opens the profiler's user annotation first and closes it
+    last, so that its own bookkeeping lies inside the annotation."""
+    __slots__ = ("tracer", "name", "args", "depth", "parent", "t0_ns", "_rf", "_stack")
+
+    def __init__(self, tracer: "Tracer", name: str, args: dict):
+        self.tracer = tracer
         self.name = name
-        self.t0_ns = t0_ns
         self.args = args
-        self.depth = depth
-        self.parent = parent
+
+    def __enter__(self):
+        self._rf = _annotation_enter(self.name) if _profiler._is_profiler_enabled else None
+        self.t0_ns = time.perf_counter_ns()
+        stack = self._stack = self.tracer._stack()
+        self.depth = len(stack)
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        self._stack.pop()
+        # one list append: atomic, so threads need no lock to record
+        self.tracer._events.append((self.name, self.t0_ns, time.perf_counter_ns(),
+                                    threading.get_ident(), self.depth, self.parent, self.args))
+        if self._rf is not None:
+            _annotation_exit(self._rf)
+        return False
 
 
 class Tracer:
     def __init__(self, enabled: bool = False):
         self.enabled = enabled
-        self._events: list[dict] = []   # completed chrome "X" events
-        self._lock = threading.Lock()
+        self._events: list[tuple] = []   # completed spans, as `_Span.__exit__` records them
         self._tls = threading.local()
         self._t0_ns = time.perf_counter_ns()   # trace-relative origin
+        self.base_time_ns = self._t0_ns + _epoch_offset_ns()   # its wall-clock epoch ns
         self.profiler_traces: list[pathlib.Path] = []   # written by torch_profiler
 
     # -- recording ---------------------------------------------------------
@@ -70,92 +120,43 @@ class Tracer:
             st = self._tls.stack = []
         return st
 
-    @contextlib.contextmanager
     def span(self, name: str, **args):
-        """Time a block. Nesting is tracked per thread: the exported
-        event carries its depth and parent span name in ``args``."""
-        if not self.enabled:
-            yield None
-            return
-        stack = self._stack()
-        parent = stack[-1].name if stack else None
-        sp = _Span(name, time.perf_counter_ns(), args, len(stack), parent)
-        stack.append(sp)
-        try:
-            yield sp
-        finally:
-            stack.pop()
-            t1 = time.perf_counter_ns()
-            ev_args = {"depth": sp.depth}
-            if sp.parent is not None:
-                ev_args["parent"] = sp.parent
-            ev_args.update(sp.args)
-            ev = {
-                "name": name,
-                "ph": "X",
-                "ts": (sp.t0_ns - self._t0_ns) / 1e3,    # µs
-                "dur": (t1 - sp.t0_ns) / 1e3,            # µs
-                "pid": os.getpid(),
-                "tid": threading.get_ident(),
-                "args": ev_args,
-            }
-            with self._lock:
-                self._events.append(ev)
-
-    def traced(self, name: str | None = None):
-        """Decorator form of `span` (the span name defaults to the
-        function's qualified name)."""
-        def deco(fn):
-            label = name or fn.__qualname__
-
-            @functools.wraps(fn)
-            def wrapper(*a, **kw):
-                with self.span(label):
-                    return fn(*a, **kw)
-            return wrapper
-        return deco
-
-    def instant(self, name: str, **args) -> None:
-        """Zero-duration marker event (chrome ``ph: "i"``)."""
-        if not self.enabled:
-            return
-        ev = {"name": name, "ph": "i", "s": "p",
-              "ts": (time.perf_counter_ns() - self._t0_ns) / 1e3,
-              "pid": os.getpid(), "tid": threading.get_ident(), "args": dict(args)}
-        with self._lock:
-            self._events.append(ev)
+        """Time a block while enabled or a torch profiler records (the
+        shared null context otherwise). Nesting is tracked per thread: the
+        exported event carries its depth and parent span name in ``args``."""
+        if not (self.enabled or _profiler._is_profiler_enabled):
+            return _NULL
+        return _Span(self, name, args)
 
     # -- export ------------------------------------------------------------
     def events(self) -> list[dict]:
-        with self._lock:
-            return list(self._events)
+        """Completed spans as Chrome ``X`` events, in completion order:
+        ``ts`` and ``dur`` in µs, ``ts`` from `base_time_ns`."""
+        raw = list(self._events)
+        pid, t0 = os.getpid(), self._t0_ns
+        out = []
+        for name, a, b, tid, depth, parent, args in raw:
+            ev_args = {"depth": depth}
+            if parent is not None:
+                ev_args["parent"] = parent
+            ev_args.update(args)
+            out.append({"name": name, "ph": "X", "ts": (a - t0) / 1e3, "dur": (b - a) / 1e3,
+                        "pid": pid, "tid": tid, "args": ev_args})
+        return out
 
     def clear(self) -> None:
-        with self._lock:
-            self._events.clear()
+        self._events.clear()
 
     def chrome_trace(self) -> dict:
         """The Chrome trace-event document Perfetto loads as is."""
-        return {"traceEvents": self.events(), "displayTimeUnit": "ms"}
+        return {"traceEvents": self.events(), "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": self.base_time_ns}
 
     def export_chrome_trace(self, path) -> dict:
         doc = self.chrome_trace()
         with open(path, "w") as f:
             json.dump(doc, f)
         return doc
-
-    def span_stats(self) -> dict[str, dict]:
-        """Per-span-name aggregates over the recorded complete events:
-        ``{name: {count, total_s, mean_s, max_s}}``."""
-        agg: dict[str, list[float]] = {}
-        for ev in self.events():
-            if ev.get("ph") == "X":
-                agg.setdefault(ev["name"], []).append(ev["dur"] / 1e6)
-        return {
-            name: {"count": len(d), "total_s": sum(d), "mean_s": sum(d) / len(d),
-                   "max_s": max(d)}
-            for name, d in sorted(agg.items())
-        }
 
     # -- accelerator bridges ----------------------------------------------
     @contextlib.contextmanager
@@ -179,39 +180,6 @@ class Tracer:
         path = logdir / f"torch_profiler_{os.getpid()}_{len(self.profiler_traces)}.json"
         prof.export_chrome_trace(str(path))
         self.profiler_traces.append(path)
-
-
-DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def device_busy(trace) -> dict:
-    """The device's busy share over a profiled window, from a profiler
-    Chrome trace (a path or the loaded document): the union of the CUDA
-    kernel, memcpy and memset intervals over the span of all the trace's
-    complete events. Raises `ValueError` on a trace with no device event,
-    which would otherwise read as an idle device."""
-    doc = trace if isinstance(trace, dict) else json.loads(pathlib.Path(trace).read_text())
-    evs = [e for e in doc.get("traceEvents", ()) if e.get("ph") == "X" and "dur" in e]
-    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                 for e in evs if e.get("cat") in DEVICE_CATEGORIES)
-    if not dev:
-        raise ValueError("the trace holds no CUDA kernel, memcpy or memset event")
-    t0 = min(float(e["ts"]) for e in evs)
-    t1 = max(float(e["ts"]) + float(e["dur"]) for e in evs)
-    busy, (s, e) = 0.0, dev[0]
-    for a, b in dev[1:]:
-        if a > e:
-            busy += e - s
-            s, e = a, b
-        else:
-            e = max(e, b)
-    busy += e - s
-    counts = {c: sum(ev.get("cat") == c for ev in evs) for c in DEVICE_CATEGORIES}
-    window = t1 - t0
-    return {"n_kernel": counts["kernel"], "n_memcpy": counts["gpu_memcpy"],
-            "n_memset": counts["gpu_memset"], "busy_ms": busy / 1e3, "window_ms": window / 1e3,
-            "busy_share": busy / window if window > 0 else 1.0,
-            "idle_share": 1.0 - busy / window if window > 0 else 0.0}
 
 
 def device_memory_snapshot() -> list[dict]:
@@ -247,7 +215,8 @@ def configure_tracing(enabled: bool = True) -> Tracer:
 
 def span(name: str, **args):
     """Span on the global tracer: a shared null context (no allocation)
-    while tracing is disabled, so call sites on hot paths stay free."""
-    if not _GLOBAL.enabled:
+    unless it is enabled or a torch profiler records, so call sites on hot
+    paths stay free."""
+    if not (_GLOBAL.enabled or _profiler._is_profiler_enabled):
         return _NULL
-    return _GLOBAL.span(name, **args)
+    return _Span(_GLOBAL, name, args)

@@ -6,7 +6,9 @@ and `ServingEngine` (`recommend`, `serve_stream`, `serve_microbatch`,
 :322-341, `_sharded_dispatches` :343-374, `_serve_sharded` :376-386,
 `serve_stream(ordered=)` :388-433), with the reference's trace spans
 ``engine.dispatch``, ``engine.serve_microbatch``, ``engine.serve_wave``
-and ``engine.ingest``.
+and ``engine.ingest``, and the phases of a `serve_microbatch` dispatch
+inside its span (``engine.prepare``, ``.upload``, ``.launch``,
+``.readback``, ``.finish``; sharded ``.serve_home``).
 
 Request path:
 
@@ -93,8 +95,9 @@ class EngineStats:
     n_events: int = 0
     n_fallbacks: int = 0
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
-    # per-request arrival→completion: a request riding the w-th dispatch of
-    # a drain pays for every dispatch before it
+    # per-request arrival→completion of `serve_stream` / `recommend`: a
+    # request riding the w-th dispatch of a drain pays for every dispatch
+    # before it (`serve_microbatch` has its dispatch's seconds alone)
     request_seconds: list[float] = dataclasses.field(default_factory=list)
 
     def reset(self) -> None:
@@ -436,7 +439,8 @@ class ServingEngine:
         """Serve ≤ `microbatch` requests in one dispatch over the raw factor
         state. Returns ``(vals (n, k), idx (n, k), service_seconds)``, with
         the per-request fallback flags before the seconds if
-        ``return_flags``.
+        ``return_flags``. The service seconds (the ids' upload to the slates
+        on the host) go to ``stats.dispatch_seconds``.
 
         Sharded, it is a collective that every rank calls with the same
         ids, all users of one shard (``user // _rows`` once clamped to the
@@ -444,36 +448,58 @@ class ServingEngine:
         from its own rows, bit for bit what one device gives, and
         broadcasts the slates and its wall seconds, so every rank returns
         the same. The broadcast's own wall time goes to
-        ``broadcast_seconds``, not to the service seconds."""
-        user_ids = np.asarray(user_ids)
-        n, R, k = len(user_ids), self.cfg.microbatch, self.cfg.k
-        assert n <= R, f"serve_microbatch takes ≤ microbatch ids ({n} > {R})"
-        if n == 0:
+        ``broadcast_seconds``, not to the service seconds.
+
+        Traced, a dispatch is one ``engine.serve_microbatch`` span from
+        entry to return, its args the engine's ``dispatch`` number,
+        ``rows`` launched (padding included), ``n_real`` and
+        ``n_fallback``; inside it, in order, ``engine.prepare`` (the
+        fallback mask, the padded ids), on one device ``engine.upload``,
+        ``engine.launch`` (``U[uids]``, the kernel's wrapper and launch)
+        and ``engine.readback`` (the two copies back, which wait for the
+        kernel), sharded ``engine.serve_home``, then ``engine.finish`` (the
+        stats, the fallback overwrite). A call with no ids dispatches
+        nothing and records no span."""
+        R, k = self.cfg.microbatch, self.cfg.k
+        if len(user_ids) == 0:
             out = (np.empty((0, k), np.float32), np.empty((0, k), np.int32))
             return out + ((np.empty(0, bool),) if return_flags else ()) + (0.0,)
-        flags = self._fallback_mask(user_ids) if self.cfg.fallback else np.zeros(n, bool)
-        if self.group is None:
-            buf = np.zeros(R, np.int64)
-            buf[:n] = np.where(flags, 0, user_ids)
-            buf[n:] = buf[0]       # pad with a real user id (results dropped)
-            t0 = time.perf_counter()
-            with trace_lib.span("engine.serve_microbatch", n_real=n):
-                vals, idx = _dispatch_rows(
-                    self.state.U, self.state.P, self.state.Q, self.seen, self._bucket_items,
-                    self._user_bucket, torch.as_tensor(buf, device=self.device), k,
-                    self.cfg.prune)
-                vals, idx = vals.cpu().numpy()[:n], idx.cpu().numpy()[:n]  # waits for the card
-            dt = time.perf_counter() - t0
-        else:
-            vals, idx, dt = self._serve_home(user_ids, flags)
-        self.stats.dispatch_seconds.append(dt)
-        self.stats.request_seconds.extend([dt] * n)
-        self.stats.n_dispatches += 1
-        self.stats.n_requests += n
-        if flags.any():
-            vals[flags] = self._pop_vals
-            idx[flags] = self._pop_items
-            self.stats.n_fallbacks += int(flags.sum())
+        d = self.stats.n_dispatches
+        with trace_lib.span("engine.serve_microbatch", dispatch=d, rows=R) as sp:
+            with trace_lib.span("engine.prepare", dispatch=d):
+                user_ids = np.asarray(user_ids)
+                n = len(user_ids)
+                assert n <= R, f"serve_microbatch takes ≤ microbatch ids ({n} > {R})"
+                flags = (self._fallback_mask(user_ids) if self.cfg.fallback
+                         else np.zeros(n, bool))
+                n_fallback = int(np.count_nonzero(flags))
+                if self.group is None:
+                    buf = np.zeros(R, np.int64)
+                    buf[:n] = np.where(flags, 0, user_ids)
+                    buf[n:] = buf[0]       # pad with a real user id (results dropped)
+                if sp is not None:
+                    sp.args.update(n_real=n, n_fallback=n_fallback)
+            if self.group is None:
+                with trace_lib.span("engine.upload", dispatch=d):
+                    t0 = time.perf_counter()
+                    uids = torch.as_tensor(buf, device=self.device)
+                with trace_lib.span("engine.launch", dispatch=d):
+                    vals, idx = _dispatch_rows(
+                        self.state.U, self.state.P, self.state.Q, self.seen,
+                        self._bucket_items, self._user_bucket, uids, k, self.cfg.prune)
+                with trace_lib.span("engine.readback", dispatch=d):
+                    vals, idx = vals.cpu().numpy()[:n], idx.cpu().numpy()[:n]  # waits
+                    dt = time.perf_counter() - t0
+            else:
+                vals, idx, dt = self._serve_home(user_ids, flags)
+            with trace_lib.span("engine.finish", dispatch=d):
+                self.stats.dispatch_seconds.append(dt)
+                self.stats.n_dispatches += 1
+                self.stats.n_requests += n
+                if n_fallback:
+                    vals[flags] = self._pop_vals
+                    idx[flags] = self._pop_items
+                    self.stats.n_fallbacks += n_fallback
         if return_flags:
             return vals, idx, flags, dt
         return vals, idx, dt
@@ -494,7 +520,7 @@ class ServingEngine:
         buf[n:] = buf[0]           # pad with a real row (results dropped)
         if ((buf < 0) | (buf >= self._rows)).any():
             raise ValueError(f"serve_microbatch: a user id outside [0, {self._n_users})")
-        with trace_lib.span("engine.serve_microbatch", n_real=n, shard=shard):
+        with trace_lib.span("engine.serve_home", n_real=n, shard=shard):
             if g.rank == shard:
                 t0 = time.perf_counter()
                 vals, idx = self._serve_local(buf)

@@ -46,8 +46,9 @@ relative, factors 1e-5 absolute), and `robust_combine` on the card agrees
 with the CPU (median bit for bit, trim within 1e-6 relative). Observability
 and scheduling on the card: a DP `fit` with telemetry gives the bits of
 the same fit without it, the scheduler's slates equal a direct `recommend`
-bit for bit, and a profiled scheduler run's trace holds a kernel event for
-every dispatch. The LM training half on the card (none of the port's
+bit for bit, a profiled scheduler run launches a kernel for every
+dispatch, and the tracer's export and the profiler's trace agree on every
+engine span's start within 0.1 ms. The LM training half on the card (none of the port's
 kernels launches): one AdamW ``allreduce`` step of each `ARCH_IDS` config
 at `reduced()` in fp32 agrees with the same step on the CPU (loss,
 gradients, updated parameters within 1e-4 × the CPU leaf's largest
@@ -56,6 +57,8 @@ remat on and off give the same loss and gradients bit for bit in bf16;
 the in-place AdamW equals the functional form bit for bit; the gossip
 step meets `test_gossip_training_converges_small_lm`'s assertions.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1253,8 +1256,39 @@ def test_profiled_scheduler_run_records_a_kernel_per_dispatch(dev, tmp_path):
         rep = Scheduler(eng).run(reqs)
     n_disp = sum(rep.n_dispatches_per_shard)
     assert ops.serve_topk_rows.launches - launches == n_disp
-    busy = trace_lib.device_busy(tracer.profiler_traces[-1])
-    assert busy["n_kernel"] >= n_disp and 0.0 < busy["busy_share"] <= 1.0
+
+
+def test_tracer_export_and_profiler_trace_agree_on_engine_spans(dev, tmp_path):
+    """Dispatches under `Tracer.torch_profiler` with the tracer enabled:
+    the tracer's own export and the profiler's trace hold the same
+    ``engine.*`` spans, each start within 0.1 ms on the shared absolute
+    clock (``baseTimeNanoseconds`` plus ``ts``). A pass span opens first,
+    as the benchmark's does: the profiler's first annotation of a session
+    pays its thread's set-up."""
+    from repro_torch.obs import trace as trace_lib
+    ds, engine = _scheduled_engine(dev)
+    eng = engine()
+    eng.serve_microbatch(np.arange(8))        # builds the kernels outside the window
+    saved = trace_lib.get_tracer()
+    tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+    try:
+        with tracer.torch_profiler(tmp_path, device=dev):
+            with trace_lib.span("pass"):
+                for i in range(6):
+                    eng.serve_microbatch(np.arange(i, i + 7))
+    finally:
+        trace_lib.set_tracer(saved)
+    ours = tracer.export_chrome_trace(tmp_path / "tracer.json")
+    theirs = json.loads(tracer.profiler_traces[-1].read_text())
+    gap_ns = ours["baseTimeNanoseconds"] - theirs["baseTimeNanoseconds"]
+    names = ("engine.serve_microbatch", "engine.prepare", "engine.upload", "engine.launch",
+             "engine.readback", "engine.finish")
+    for name in names:
+        o = sorted(e["ts"] for e in ours["traceEvents"] if e["name"] == name)
+        t = sorted(e["ts"] for e in theirs["traceEvents"]
+                   if e.get("cat") == "user_annotation" and e["name"] == name)
+        assert len(o) == len(t) == 6, name
+        assert max(abs(gap_ns + (a - b) * 1e3) for a, b in zip(o, t)) <= 1e5, name
 
 
 @pytest.mark.parametrize("backend,n_shards", [("nccl", 1), ("gloo", 2)])

@@ -15,7 +15,10 @@ order than XLA's, the training slice's bar). Registry snapshots of the
 same call sequence, the percentile definition and the publish bridges are
 equal exactly; both packages record the same span names and counts for
 the same `fit` / `serve_microbatch` / `recommend` / `ingest` / tiled
-dispatch calls.
+dispatch calls, beside the port's own phase spans. Spans record under a
+torch profiler as its user annotations, on its clock, and a served
+microbatch and a training epoch give each phase once, their results bit
+for bit those of a run unrecorded.
 
 Every test installs its own registry and tracer in both packages and
 restores the process-wide ones after (the suite runs in several workers,
@@ -44,6 +47,8 @@ COUNT_KEYS = ("epoch", "n_messages", "messages_per_shard", "screen_accept", "scr
 NORM_KEYS = ("u_update_norm", "q_update_norm", "p_msg_norm", "p_scatter_norm")
 DP = dict(dp_sigma=0.3, dp_clip=1.0, dp_seed=3)
 CONFIGS = ("plain", "dp", "churn_dp", "screen_trim", "gdmf", "ldmf")
+PHASES = ("engine.prepare", "engine.upload", "engine.launch", "engine.readback", "engine.finish")
+TRAIN_SPANS = ("dmf.sample", "dmf.upload", "dmf.rounds", "dmf.read")
 
 
 @pytest.fixture(scope="module")
@@ -254,29 +259,15 @@ class TestTrace:
         tr = trace_lib.Tracer(enabled=True)
         with tr.span("a"):
             pass
-        tr.instant("marker", section="x")
         p = tmp_path / "trace.json"
         tr.export_chrome_trace(p)
         doc = json.loads(p.read_text())
         assert doc["displayTimeUnit"] == "ms"
-        x = [e for e in doc["traceEvents"] if e["ph"] == "X"][0]
+        assert doc["baseTimeNanoseconds"] == tr.base_time_ns
+        (x,) = doc["traceEvents"]
+        assert x["ph"] == "X"
         for key in ("name", "ph", "ts", "dur", "pid", "tid", "args"):
             assert key in x
-        i = [e for e in doc["traceEvents"] if e["ph"] == "i"][0]
-        assert i["args"] == {"section": "x"}
-
-    def test_decorator_and_span_stats(self):
-        tr = trace_lib.Tracer(enabled=True)
-
-        @tr.traced("work")
-        def f(x):
-            return x + 1
-
-        assert f(1) == 2
-        assert f(2) == 3
-        st = tr.span_stats()["work"]
-        assert st["count"] == 2
-        assert st["total_s"] >= st["max_s"] >= st["mean_s"] > 0
 
     def test_disabled_records_nothing_and_is_null_context(self):
         saved = trace_lib.get_tracer()
@@ -285,7 +276,6 @@ class TestTrace:
             tr = trace_lib.Tracer(enabled=False)
             with tr.span("x"):
                 pass
-            tr.instant("y")
             assert tr.events() == []
             assert not trace_lib.get_tracer().enabled
             assert trace_lib.span("anything") is trace_lib._NULL
@@ -318,31 +308,187 @@ class TestTrace:
         assert path.parent == tmp_path / "on"
         doc = json.loads(path.read_text())
         assert any(e.get("ph") == "X" for e in doc["traceEvents"])
-        # a CPU-only trace has no device event: the busy share refuses it
-        with pytest.raises(ValueError, match="no CUDA"):
-            trace_lib.device_busy(path)
 
-    def test_device_busy_is_the_union_of_device_intervals(self):
-        def ev(cat, ts, dur):
-            return {"ph": "X", "cat": cat, "name": cat, "ts": ts, "dur": dur}
+    def test_span_off_without_a_profiler_is_the_shared_null_context(self, fresh):
+        (_, tracer), *_ = fresh
+        tracer.enabled = False
+        assert trace_lib.span("off", n=1) is trace_lib._NULL
+        assert tracer.span("off") is trace_lib._NULL
+        with trace_lib.span("off"):
+            pass
+        assert tracer.events() == []
 
-        doc = {"traceEvents": [
-            ev("cpu_op", 0.0, 100.0),                 # the window: 0 .. 100 µs
-            ev("kernel", 10.0, 10.0), ev("kernel", 15.0, 10.0),   # overlap: 10 .. 25
-            ev("gpu_memcpy", 40.0, 5.0), ev("gpu_memset", 45.0, 5.0),   # touching: 40 .. 50
-            ev("cuda_runtime", 60.0, 30.0),           # host side: not device time
-            {"ph": "i", "name": "marker", "ts": 200.0}]}
-        got = trace_lib.device_busy(doc)
-        assert (got["n_kernel"], got["n_memcpy"], got["n_memset"]) == (2, 1, 1)
-        assert got["busy_ms"] == pytest.approx(0.025)
-        assert got["window_ms"] == pytest.approx(0.1)
-        assert got["busy_share"] == pytest.approx(0.25)
-        assert got["idle_share"] == pytest.approx(0.75)
+    def test_global_tracer_records_args_under_a_profiler_and_nothing_without(self, fresh):
+        (_, tracer), *_ = fresh
+        tracer.enabled = False
+        with trace_lib.span("before", n=1):
+            pass
+        with torch.profiler.profile():
+            with trace_lib.span("outer", n=2) as sp:
+                with trace_lib.span("inner", k=3):
+                    pass
+                sp.args["late"] = 4
+        assert trace_lib.span("after") is trace_lib._NULL
+        with trace_lib.span("after", n=5):
+            pass
+        evs = {e["name"]: e["args"] for e in tracer.events()}
+        assert evs == {"inner": {"depth": 1, "parent": "outer", "k": 3},
+                       "outer": {"depth": 0, "n": 2, "late": 4}}
+
+    def test_span_under_a_profiler_is_a_user_annotation_nested_in_its_parent(self, fresh):
+        with torch.profiler.profile() as prof:
+            with trace_lib.span("outer"):
+                with trace_lib.span("inner"):
+                    torch.ones(8).sum()
+        doc = _profiler_doc(prof)
+        ann = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in doc["traceEvents"]
+               if e.get("cat") == "user_annotation"}
+        assert set(ann) == {"outer", "inner"}
+        (a, b), (c, d) = ann["outer"], ann["inner"]
+        assert a <= c <= d <= b
+        ops = [e for e in doc["traceEvents"] if e.get("cat") == "cpu_op"
+               and e["name"] == "aten::sum"]
+        assert ops and all(c <= e["ts"] <= e["ts"] + e["dur"] <= d for e in ops)
+
+    def test_span_starts_on_the_profilers_clock(self, fresh):
+        """Both files' absolute time (``baseTimeNanoseconds`` plus ``ts``)
+        put a span's start within 50 µs. The profiler's first annotation
+        of a session pays its thread's set-up inside the enter, so one
+        span opens first."""
+        (_, tracer), *_ = fresh
+        with torch.profiler.profile() as prof:
+            with trace_lib.span("warm"):
+                pass
+            for i in range(3):
+                with trace_lib.span("timed", i=i):
+                    torch.ones(8).sum()
+        doc = _profiler_doc(prof)
+        theirs = sorted(e["ts"] for e in doc["traceEvents"]
+                        if e.get("cat") == "user_annotation" and e["name"] == "timed")
+        ours = sorted(e["ts"] for e in tracer.events() if e["name"] == "timed")
+        assert len(theirs) == len(ours) == 3
+        base_gap_ns = tracer.base_time_ns - doc["baseTimeNanoseconds"]
+        for t, o in zip(theirs, ours):
+            assert abs(base_gap_ns + (o - t) * 1e3) <= 50e3, (base_gap_ns, o, t)
+
+    def test_spans_from_many_threads_are_all_recorded(self):
+        """Threads record into one tracer without a lock (a list append
+        each): every span lands, nested under its own thread's parent."""
+        import sys
+        import threading
+        tr = trace_lib.Tracer(enabled=True)
+        n_threads, n_spans = 16, 200
+
+        def work(t):
+            for i in range(n_spans):
+                with tr.span("outer", t=t):
+                    with tr.span("inner", t=t, i=i):
+                        pass
+        saved = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=work, args=(t,)) for t in range(n_threads)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=60)
+            assert not any(th.is_alive() for th in threads)
+        finally:
+            sys.setswitchinterval(saved)
+        evs = tr.events()
+        assert len(evs) == 2 * n_threads * n_spans
+        inner = [e for e in evs if e["name"] == "inner"]
+        assert all(e["args"]["depth"] == 1 and e["args"]["parent"] == "outer" for e in inner)
+        assert len({(e["args"]["t"], e["args"]["i"]) for e in inner}) == n_threads * n_spans
 
     def test_device_memory_snapshot_without_a_card(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         assert trace_lib.device_memory_snapshot() == [
             {"device": "cpu", "platform": "cpu", "memory_stats": {}}]
+
+
+def _profiler_doc(prof) -> dict:
+    """A finished profile's Chrome trace, through a temporary file."""
+    import os
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)
+    finally:
+        os.unlink(path)
+
+
+def _annotations(doc, names) -> dict:
+    """The trace's user annotations of ``names``: {name: [(start, end)]}."""
+    out = {name: [] for name in names}
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e["name"] in out:
+            out[e["name"]].append((e["ts"], e["ts"] + e["dur"]))
+    return out
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_serve_microbatch_phases_under_a_profiler(world, fresh, prune):
+    """One dispatch with cold users, an unknown id and padding: under a
+    profiler exactly one span of each phase, in order, disjoint and inside
+    `engine.serve_microbatch`, whose args count the batch; the slates bit
+    for bit those of the same call unrecorded."""
+    from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+    ds, nbr = world
+    (_, tracer), *_ = fresh
+    tracer.enabled = False
+    cfg = dmf.DMFConfig(**_common(ds, False))
+    state = dmf.init_state(cfg, np.random.default_rng(1), device="cpu")
+    train = ds.train[ds.train[:, 0] >= 3]             # users 0, 1, 2 are cold
+    eng = ServingEngine(state, index_from_dataset(ds),
+                        ServingConfig(microbatch=16, k=5, prune=prune), train=train, device="cpu")
+    ids = np.array([0, 5, 1, ds.n_users + 7, 9, 2, 40, 63, 11, 4])     # 10 of 16 rows
+    off = eng.serve_microbatch(ids, return_flags=True)
+    with torch.profiler.profile() as prof:
+        on = eng.serve_microbatch(ids, return_flags=True)
+    for a, b in zip(off[:3], on[:3]):
+        np.testing.assert_array_equal(a, b)
+    n_fallback = int(on[2].sum())
+    assert n_fallback >= 4                    # the three cold users and the unknown id
+    (parent,) = [e for e in tracer.events() if e["name"] == "engine.serve_microbatch"]
+    assert parent["args"] == {"depth": 0, "dispatch": 1, "rows": 16, "n_real": len(ids),
+                              "n_fallback": n_fallback}
+    ours = [e for e in tracer.events() if e["name"] in PHASES]
+    assert sorted(e["name"] for e in ours) == sorted(PHASES)
+    assert all(e["args"] == {"depth": 1, "parent": "engine.serve_microbatch", "dispatch": 1}
+               for e in ours)
+    ann = _annotations(_profiler_doc(prof), ("engine.serve_microbatch",) + PHASES)
+    assert all(len(v) == 1 for v in ann.values()), ann
+    (lo, hi), *phases = [ann[name][0] for name in ("engine.serve_microbatch",) + PHASES]
+    assert lo <= phases[0][0] and phases[-1][1] <= hi
+    assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))      # in order, disjoint
+
+
+def test_train_epoch_spans_under_a_profiler(world, fresh):
+    """`fit` under a profiler: each of `train_epoch`'s four spans once an
+    epoch, in order inside its `fit.epoch`; U, P, Q bit for bit a run
+    unrecorded."""
+    ds, nbr = world
+    (_, tracer), *_ = fresh
+    tracer.enabled = False
+    cfg, kw = _port_run(ds, "dp")
+    kw = dict(kw, epochs=2)
+    off = dmf.fit(cfg, ds.train, nbr, **kw)
+    assert tracer.events() == []
+    with torch.profiler.profile() as prof:
+        on = dmf.fit(cfg, ds.train, nbr, **kw)
+    for n in "UPQ":
+        assert torch.equal(getattr(on.state, n), getattr(off.state, n)), n
+    assert on.train_losses == off.train_losses
+    assert _span_counts(tracer) == {"fit.epoch": 2, **{name: 2 for name in TRAIN_SPANS}}
+    ann = _annotations(_profiler_doc(prof), ("fit.epoch",) + TRAIN_SPANS)
+    for t, (lo, hi) in enumerate(ann["fit.epoch"]):
+        spans = [ann[name][t] for name in TRAIN_SPANS]
+        assert lo <= spans[0][0] and spans[-1][1] <= hi
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
 
 
 # ---------------------------------------------------------------------------
@@ -407,13 +553,18 @@ class TestPublish:
 
 
 def _span_counts(tracer) -> dict:
-    return {name: s["count"] for name, s in tracer.span_stats().items()}
+    out: dict[str, int] = {}
+    for ev in tracer.events():
+        out[ev["name"]] = out.get(ev["name"], 0) + 1
+    return out
 
 
 def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
-    """The same calls through both packages record the same spans:
-    `fit.epoch` per epoch, `engine.dispatch` per `recommend` microbatch,
-    `engine.serve_microbatch`, `engine.ingest` and `tiled.dispatch`."""
+    """The same calls through both packages record the reference's spans
+    alike: `fit.epoch` per epoch, `engine.dispatch` per `recommend`
+    microbatch, `engine.serve_microbatch`, `engine.ingest` and
+    `tiled.dispatch`. The port adds its own inside them: `train_epoch`'s
+    four phases per epoch and `serve_microbatch`'s five."""
     from repro.serving import ServingConfig as RefServingConfig
     from repro.serving import ServingEngine as RefServingEngine
     from repro.serving import index_from_dataset as ref_index
@@ -442,11 +593,12 @@ def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
     ref_store.TiledServingEngine(
         ref_store.TiledFactorStore.from_state(ref_st, ref_index(ds), seen),
         RefServingConfig(microbatch=8, k=5)).recommend(ids)
-    got = _span_counts(tracer)
-    assert got == _span_counts(ref_tracer)
+    got, want = _span_counts(tracer), _span_counts(ref_tracer)
+    assert {name: c for name, c in got.items() if name in want} == want
     n_disp = -(-len(ids) // 8)
     assert got == {"fit.epoch": EPOCHS, "engine.dispatch": n_disp,
-                   "engine.serve_microbatch": 1, "engine.ingest": 1, "tiled.dispatch": n_disp}
+                   "engine.serve_microbatch": 1, "engine.ingest": 1, "tiled.dispatch": n_disp,
+                   **{name: EPOCHS for name in TRAIN_SPANS}, **{name: 1 for name in PHASES}}
     by_name = {e["name"]: e["args"] for e in tracer.events()}
     assert by_name["tiled.dispatch"]["mode"] == "fp32"
     assert by_name["engine.dispatch"]["prune"] is True
@@ -558,9 +710,10 @@ def test_telemetry_epoch_reads_the_device_once(world, monkeypatch):
 # ---------------------------------------------------------------------------
 def test_cli_writes_telemetry_trace_and_metrics(tmp_path, capsys):
     """``--telemetry-out/--trace-out/--metrics-out`` write one JSONL event
-    per epoch, a Chrome trace with a ``fit.epoch`` span per epoch and one
-    metrics line, and print the reference's three report lines; every
-    other line is what the run without the flags prints."""
+    per epoch, a Chrome trace with a ``fit.epoch`` span and `train_epoch`'s
+    four phase spans per epoch and one metrics line, and print the
+    reference's three report lines; every other line is what the run
+    without the flags prints."""
     from repro_torch.launch import dmf_train
     saved = obs_metrics.get_registry(), trace_lib.get_tracer()
     argv = ["--epochs", "3", "--dp-sigma", "1", "--dp-clip", "0.5", "--device", "cpu"]
@@ -589,7 +742,9 @@ def test_cli_writes_telemetry_trace_and_metrics(tmp_path, capsys):
     spans = [e for e in json.loads(paths["trace"].read_text())["traceEvents"]
              if e["name"] == "fit.epoch"]
     assert [e["args"]["epoch"] for e in spans] == [0, 1, 2]
-    assert new[1] == f"trace written to {paths['trace']} (3 events)"
+    names = [e["name"] for e in json.loads(paths["trace"].read_text())["traceEvents"]]
+    assert sorted(names) == sorted(["fit.epoch", *TRAIN_SPANS] * 3)
+    assert new[1] == f"trace written to {paths['trace']} (15 events)"
     (line,) = paths["metrics"].read_text().splitlines()
     snap = json.loads(line)
     assert snap["event"] == "dmf_train_final"
