@@ -22,6 +22,9 @@ Request path:
    ``prune=False`` instead has the dense kernel
    (`ops.recommend_topk_peruser`) read the requests' full rows of V and of
    the seen mask where they lie (``rows=uids``): no (R, J, K) gather.
+   `serve_microbatch` on one card replays that dispatch, over P and Q,
+   as a captured CUDA graph (`_DispatchPlan`): pinned ids in, one replay,
+   one pinned packet of slates back.
 3. **Online refresh** — `ingest` streams new check-ins through
    `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
    on, also the mechanism kernel `ops.dp_clip_noise`), then
@@ -94,6 +97,8 @@ class EngineStats:
     n_refreshes: int = 0
     n_events: int = 0
     n_fallbacks: int = 0
+    n_captures: int = 0      # `serve_microbatch`'s plan captured (one device, a card)
+    n_replays: int = 0       # `serve_microbatch` dispatches served by a replay
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
     # per-request arrival→completion of `serve_stream` / `recommend`: a
     # request riding the w-th dispatch of a drain pays for every dispatch
@@ -146,6 +151,83 @@ def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune
     if prune:
         return ops.serve_topk_rows(uids, U, P, seen, user_bucket, bucket_items, k, Q=Q)
     return ops.recommend_topk_peruser(U[uids], P, seen, k, Q=Q, rows=uids)
+
+
+class _DispatchPlan:
+    """`serve_microbatch`'s dispatch on one card, captured once as a CUDA
+    graph and replayed: the ids go in through a pinned host buffer and a
+    persistent device tensor, the graph holds what `_dispatch_rows`
+    enqueues (``U[uids]`` and kernel 2 through P and Q, or kernel 5) and
+    the slates' copies into one pinned packet (vals (R, k) f32, then idx
+    (R, k) i32), and one event marks the packet filled.
+
+    A graph reads its operands by address. So each launch compares the
+    data pointers and shapes of U, P, Q, seen and the candidate index with
+    those it captured, and captures again on any difference:
+    `ServingEngine.ingest` patches in place and keeps the graph, a
+    reassigned ``state`` or ``seen`` does not. R, k and the prune choice
+    come from the engine's frozen `ServingConfig`, once. The launch
+    counters of the kernel wrappers count one launch a replay and none for
+    the warm-up and the capture."""
+
+    def __init__(self, device: torch.device, R: int, k: int, prune: bool):
+        self.device, self.k, self.prune = device, k, prune
+        self.ids = torch.empty(R, dtype=torch.int64, pin_memory=True)
+        self.ids_np = self.ids.numpy()
+        self.ids_dev = torch.empty(R, dtype=torch.int64, device=device)
+        packet = torch.empty(8 * R * k, dtype=torch.uint8, pin_memory=True)
+        self.vals = packet[:4 * R * k].view(torch.float32).view(R, k)
+        self.idx = packet[4 * R * k:].view(torch.int32).view(R, k)
+        self.vals_np, self.idx_np = self.vals.numpy(), self.idx.numpy()
+        self.done = torch.cuda.Event()
+        self.graph = self.kernel = self.key = None
+
+    def upload(self) -> None:
+        """The ids of `ids_np` onto the card, on the current stream."""
+        self.ids_dev.copy_(self.ids, non_blocking=True)
+
+    def launch(self, eng: "ServingEngine") -> bool:
+        """Replay the dispatch on the engine's current operands, capturing
+        it first where they moved; returns whether it captured."""
+        st = eng.state
+        operands = (st.U, st.P, st.Q, eng.seen, eng._bucket_items, eng._user_bucket)
+        key = tuple((t.data_ptr(), t.shape) for t in operands)
+        captured = key != self.key
+        if captured:
+            self.graph = self.key = None        # the old graph's memory pool goes first
+            self._capture(operands)
+            self.key = key
+        self.graph.replay()
+        self.done.record(torch.cuda.current_stream(self.device))
+        self.kernel.launches += 1
+        return captured
+
+    def readback(self, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for the replay; fresh copies of the first ``n`` slates."""
+        self.done.synchronize()
+        return self.vals_np[:n].copy(), self.idx_np[:n].copy()
+
+    def _capture(self, operands) -> None:
+        kernel = ops.serve_topk_rows if self.prune else ops.recommend_topk_peruser
+        launches = kernel.launches
+
+        def enqueue():
+            vals, idx = _dispatch_rows(*operands, self.ids_dev, self.k, self.prune)
+            self.vals.copy_(vals, non_blocking=True)
+            self.idx.copy_(idx, non_blocking=True)
+        try:
+            with torch.cuda.device(self.device):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):   # warm-up: loads the library, sets attributes
+                    enqueue()
+                torch.cuda.current_stream().wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    enqueue()
+        finally:
+            kernel.launches = launches
+        self.graph, self.kernel = graph, kernel
 
 
 class ServingEngine:
@@ -208,9 +290,18 @@ class ServingEngine:
         self._user_bucket_np = np.asarray(index.user_bucket)
         self._bucket_empty = (np.asarray(index.bucket_items) < 0).all(axis=1)
         self._refresh_popularity()
+        # the row each known user is served on by `serve_microbatch` on one
+        # device: row 0 for a user whose slate the popularity slate replaces
+        # (as `recommend` clamps them: their reads hit one row again and
+        # again), the user's own row otherwise; `ingest` keeps it
+        users = np.arange(I)
+        self._serve_row = np.where(self._flags(users), 0, users)
         self._rows = I                 # rows a shard: user u lives on shard u // _rows
+        self._plan = None              # serve_microbatch's captured dispatch (one card)
         if group is None:
             self.V = self.state.P + self.state.Q      # served per-learner view
+            if self.device.type == "cuda":
+                self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k, cfg.prune)
         else:
             self._shard()
         # persistent stream: successive ingest() calls draw fresh negatives
@@ -235,6 +326,13 @@ class ServingEngine:
         if self.cfg.prune:
             flags = flags | self._bucket_empty[self._user_bucket_np[safe]]
         return flags
+
+    def _flags(self, user_ids: np.ndarray) -> np.ndarray:
+        """The requests that get the popularity slate: `_fallback_mask`
+        with ``cfg.fallback`` on, none with it off."""
+        if self.cfg.fallback:
+            return self._fallback_mask(user_ids)
+        return np.zeros(len(user_ids), bool)
 
     # ---------------------------------------------------------------- sharding
     def _shard(self) -> None:
@@ -439,8 +537,16 @@ class ServingEngine:
         """Serve ≤ `microbatch` requests in one dispatch over the raw factor
         state. Returns ``(vals (n, k), idx (n, k), service_seconds)``, with
         the per-request fallback flags before the seconds if
-        ``return_flags``. The service seconds (the ids' upload to the slates
-        on the host) go to ``stats.dispatch_seconds``.
+        ``return_flags``; the arrays are the caller's own. The service
+        seconds (the ids' upload to the slates on the host) go to
+        ``stats.dispatch_seconds``. An id outside [0, I) with
+        ``cfg.fallback`` off raises IndexError.
+
+        Unsharded on a card, the dispatch is a captured plan
+        (`_DispatchPlan`): one CUDA graph replay a call, captured on the
+        first call and again whenever the engine's operands moved
+        (``stats.n_captures``; ``stats.n_replays`` counts the replays).
+        On the CPU the same phases call the kernels' plain versions.
 
         Sharded, it is a collective that every rank calls with the same
         ids, all users of one shard (``user // _rows`` once clamped to the
@@ -452,53 +558,80 @@ class ServingEngine:
 
         Traced, a dispatch is one ``engine.serve_microbatch`` span from
         entry to return, its args the engine's ``dispatch`` number,
-        ``rows`` launched (padding included), ``n_real`` and
-        ``n_fallback``; inside it, in order, ``engine.prepare`` (the
-        fallback mask, the padded ids), on one device ``engine.upload``,
-        ``engine.launch`` (``U[uids]``, the kernel's wrapper and launch)
-        and ``engine.readback`` (the two copies back, which wait for the
-        kernel), sharded ``engine.serve_home``, then ``engine.finish`` (the
-        stats, the fallback overwrite). A call with no ids dispatches
-        nothing and records no span."""
+        ``rows`` launched (padding included), ``replay`` (1 where the plan
+        served it, else 0), ``n_real`` and ``n_fallback``. Inside it, in
+        order, on one device: ``engine.prepare`` (the ids clipped to
+        [0, I), mapped to their serving rows and padded with the first,
+        into the plan's pinned buffer),
+        ``engine.upload`` (one non-blocking copy to the card),
+        ``engine.launch`` (the replay and its event, or the kernel's
+        wrapper on the CPU), ``engine.readback`` (the fallback mask while
+        the kernel runs, the wait, the slates copied out of the pinned
+        packet) and ``engine.finish`` (the stats, the fallback overwrite);
+        sharded, ``engine.prepare`` (the fallback mask),
+        ``engine.serve_home`` and ``engine.finish``. Unknown ids are
+        clipped to [0, I); a known user whose slate the popularity slate
+        replaces is served on row 0 (``_serve_row``), so the mask
+        itself can wait until the kernel runs. A call with no ids
+        dispatches nothing and records no span."""
         R, k = self.cfg.microbatch, self.cfg.k
         if len(user_ids) == 0:
             out = (np.empty((0, k), np.float32), np.empty((0, k), np.int32))
             return out + ((np.empty(0, bool),) if return_flags else ()) + (0.0,)
         d = self.stats.n_dispatches
-        with trace_lib.span("engine.serve_microbatch", dispatch=d, rows=R) as sp:
+        plan = self._plan
+        with trace_lib.span("engine.serve_microbatch", dispatch=d, rows=R,
+                            replay=int(plan is not None)) as sp:
             with trace_lib.span("engine.prepare", dispatch=d):
                 user_ids = np.asarray(user_ids)
                 n = len(user_ids)
                 assert n <= R, f"serve_microbatch takes ≤ microbatch ids ({n} > {R})"
-                flags = (self._fallback_mask(user_ids) if self.cfg.fallback
-                         else np.zeros(n, bool))
-                n_fallback = int(np.count_nonzero(flags))
                 if self.group is None:
-                    buf = np.zeros(R, np.int64)
-                    buf[:n] = np.where(flags, 0, user_ids)
-                    buf[n:] = buf[0]       # pad with a real user id (results dropped)
-                if sp is not None:
-                    sp.args.update(n_real=n, n_fallback=n_fallback)
+                    buf = plan.ids_np if plan is not None else np.empty(R, np.int64)
+                    # clipped to [0, I), then each user's serving row
+                    np.take(self._serve_row, user_ids, mode="clip", out=buf[:n])
+                    buf[n:] = buf[0]       # pad with a real row (results dropped)
+                    if not self.cfg.fallback and (buf[:n] != user_ids).any():
+                        raise IndexError(f"serve_microbatch: a user id outside "
+                                         f"[0, {self._n_users})")
+                else:
+                    flags = self._flags(user_ids)
+                    fallen = np.flatnonzero(flags)
             if self.group is None:
                 with trace_lib.span("engine.upload", dispatch=d):
                     t0 = time.perf_counter()
-                    uids = torch.as_tensor(buf, device=self.device)
+                    if plan is not None:
+                        plan.upload()
+                    else:
+                        uids = torch.as_tensor(buf, device=self.device)
                 with trace_lib.span("engine.launch", dispatch=d):
-                    vals, idx = _dispatch_rows(
-                        self.state.U, self.state.P, self.state.Q, self.seen,
-                        self._bucket_items, self._user_bucket, uids, k, self.cfg.prune)
+                    if plan is not None:
+                        self.stats.n_captures += plan.launch(self)
+                        self.stats.n_replays += 1
+                    else:
+                        out = _dispatch_rows(
+                            self.state.U, self.state.P, self.state.Q, self.seen,
+                            self._bucket_items, self._user_bucket, uids, k, self.cfg.prune)
                 with trace_lib.span("engine.readback", dispatch=d):
-                    vals, idx = vals.cpu().numpy()[:n], idx.cpu().numpy()[:n]  # waits
+                    flags = self._flags(user_ids)            # while the kernel runs
+                    fallen = np.flatnonzero(flags)
+                    if plan is not None:
+                        vals, idx = plan.readback(n)
+                    else:
+                        vals, idx = (x.cpu().numpy()[:n] for x in out)
                     dt = time.perf_counter() - t0
             else:
                 vals, idx, dt = self._serve_home(user_ids, flags)
             with trace_lib.span("engine.finish", dispatch=d):
+                n_fallback = len(fallen)
+                if sp is not None:
+                    sp.args.update(n_real=n, n_fallback=n_fallback)
                 self.stats.dispatch_seconds.append(dt)
                 self.stats.n_dispatches += 1
                 self.stats.n_requests += n
-                if n_fallback:
-                    vals[flags] = self._pop_vals
-                    idx[flags] = self._pop_items
+                if n_fallback:      # by row numbers, found while the kernel ran
+                    vals[fallen] = self._pop_vals
+                    idx[fallen] = self._pop_items
                     self.stats.n_fallbacks += n_fallback
         if return_flags:
             return vals, idx, flags, dt
@@ -547,8 +680,7 @@ class ServingEngine:
         if len(user_ids) == 0:
             out = (np.empty((0, k), np.float32), np.empty((0, k), np.int32))
             return out + (np.empty(0, bool),) if return_flags else out
-        flags = (self._fallback_mask(user_ids) if self.cfg.fallback
-                 else np.zeros(len(user_ids), bool))
+        flags = self._flags(user_ids)
         safe_ids = np.where(flags, 0, user_ids)
         if self.group is not None:     # clamped first: an unknown id routes to no shard
             vals, idx = self._serve_sharded(safe_ids.astype(np.int64))
@@ -602,7 +734,9 @@ class ServingEngine:
             # a user with a first check-in stops being cold; popularity
             # tracks the stream
             np.add.at(self._item_counts, events[:, 1].astype(np.int64), 1)
-            self._cold[events[:, 0].astype(np.int64)] = False
+            u = events[:, 0].astype(np.int64)
+            self._cold[u] = False
+            self._serve_row[u] = np.where(self._flags(u), 0, u)
             self._refresh_popularity()
         self.stats.n_refreshes += 1
         self.stats.n_events += int(len(events))

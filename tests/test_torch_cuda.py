@@ -23,7 +23,10 @@ on the gathered windows and the pre-gathered slab form; the noise
 stream's words and draws equal those of the clip + noise kernel's path
 (the same device function) bit for bit from one row to beyond a wave;
 the tiled engine on the card agrees with the same store on the CPU (store tensors bit for bit, slates as
-above). The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
+above). `serve_microbatch`'s captured plan (a CUDA graph replay a
+dispatch) gives the slates of one direct kernel call bit for bit, counts
+one launch a dispatch, returns fresh arrays, keeps its graph across
+`ingest` and captures again on a reassigned state. The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
 and in every layout equals the call on the materialized rows bit for bit.
 The shared-V top-k (`recommend_topk`, kernel 4) is held like the
 other top-k kernels, and on one user with V = p^i + q^i equals the
@@ -651,6 +654,142 @@ def test_serving_engine_pruned_dispatches_launch_one_in_place_kernel(dev):
     np.testing.assert_array_equal(idx[keep], wi.cpu().numpy())
     np.testing.assert_array_equal(mv, vals[:64])
     np.testing.assert_array_equal(mi, idx[:64])
+
+
+PLAN_R = 64
+
+
+def _plan_engine(dev, prune):
+    """A one-card engine on the small world's fitted state (users 0, 1, 2
+    cold), ready to ingest, and its data set."""
+    from repro_torch.core import dmf
+    from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+    ds, nbr, cfg = _robust_world(dev)
+    state = dmf.fit(cfg, ds.train, nbr, epochs=2, device=dev).state
+    eng = ServingEngine(state, index_from_dataset(ds),
+                        ServingConfig(microbatch=PLAN_R, k=5, prune=prune),
+                        train=ds.train[ds.train[:, 0] >= 3], nbr=nbr, dmf_cfg=cfg, device=dev)
+    return ds, eng
+
+
+def _plan_ids(ds, n, seed=0):
+    """n ids with unknown (-1, >= I), cold and repeated ones."""
+    ids = np.random.default_rng(seed).integers(3, ds.n_users, n)
+    ids[:5] = [-1, ds.n_users, 0, 2, ds.n_users + 9]
+    ids[-3:] = ids[5]
+    return ids
+
+
+def _direct(eng, ids):
+    """One direct call of the engine's kernel on its current state, over
+    the ids clipped and padded as the engine pads them: (vals, idx) of the
+    first len(ids) rows."""
+    st, k = eng.state, eng.cfg.k
+    buf = np.clip(ids, 0, eng._n_users - 1)
+    rows = torch.as_tensor(np.concatenate([buf, np.full(PLAN_R - len(buf), buf[0])]),
+                           dtype=torch.int64, device=st.U.device)
+    if eng.cfg.prune:
+        out = ops.serve_topk_rows(rows, st.U, st.P, eng.seen, eng._user_bucket,
+                                  eng._bucket_items, k, Q=st.Q)
+    else:
+        out = ops.recommend_topk_peruser(st.U[rows], st.P, eng.seen, k, Q=st.Q, rows=rows)
+    return tuple(x.cpu().numpy()[:len(ids)] for x in out)
+
+
+def _hold_plan(eng, ids, got):
+    """The plan's slates against a direct call bit for bit, the flagged
+    rows the popularity slate."""
+    vals, idx, flags = got[:3]
+    dv, di = _direct(eng, ids)
+    np.testing.assert_array_equal(vals[~flags], dv[~flags])
+    np.testing.assert_array_equal(idx[~flags], di[~flags])
+    np.testing.assert_array_equal(idx[flags], np.broadcast_to(eng._pop_items, idx[flags].shape))
+    np.testing.assert_array_equal(vals[flags], np.broadcast_to(eng._pop_vals, vals[flags].shape))
+
+
+@pytest.mark.parametrize("n", [PLAN_R, 23], ids=["full", "ragged"])
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
+def test_dispatch_plan_slates_equal_a_direct_kernel_call(dev, prune, n):
+    """`serve_microbatch` on one card replays its captured plan: slates bit
+    for bit those of one direct call of kernel 2 (or 5) on the clipped ids,
+    with unknown, cold and repeated ids; one capture, one replay."""
+    ds, eng = _plan_engine(dev, prune)
+    ids = _plan_ids(ds, n)
+    got = eng.serve_microbatch(ids, return_flags=True)
+    assert got[2][:5].all() and got[0].shape == (n, 5)
+    _hold_plan(eng, ids, got)
+    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 1)
+
+
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
+def test_dispatch_plan_counts_one_launch_a_dispatch_and_returns_fresh_arrays(dev, prune):
+    """Each dispatch adds one launch to its kernel's counter (none for the
+    warm-up and the capture) and none to the other's; a second call leaves
+    the first call's arrays as they were."""
+    ds, eng = _plan_engine(dev, prune)
+    mine, other = ((ops.serve_topk_rows, ops.recommend_topk_peruser) if prune
+                   else (ops.recommend_topk_peruser, ops.serve_topk_rows))
+    before = (mine.launches, other.launches)
+    first = eng.serve_microbatch(_plan_ids(ds, PLAN_R, 1))
+    kept = [x.copy() for x in first[:2]]
+    assert (mine.launches, other.launches) == (before[0] + 1, before[1])
+    for d in range(2, 5):
+        second = eng.serve_microbatch(_plan_ids(ds, 17 + d, d))
+        assert (mine.launches, other.launches) == (before[0] + d, before[1])
+    for a, b, c in zip(first[:2], kept, second[:2]):
+        np.testing.assert_array_equal(a, b)
+        assert not np.shares_memory(a, c)
+    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 4, 4)
+
+
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
+def test_dispatch_plan_follows_ingest_in_place_and_recaptures_on_new_state(dev, prune):
+    """`ingest` patches U, P, Q and seen in place: the plan keeps its graph
+    and its slates follow the patched state. A reassigned ``state`` or
+    ``seen`` is captured again, and the slates follow it."""
+    from repro_torch.core import dmf
+    ds, eng = _plan_engine(dev, prune)
+    ids = _plan_ids(ds, PLAN_R, 2)
+    before = eng.serve_microbatch(ids, return_flags=True)
+    eng.ingest(ds.test[:32])
+    got = eng.serve_microbatch(ids, return_flags=True)
+    assert eng.stats.n_captures == 1
+    _hold_plan(eng, ids, got)
+    assert not np.array_equal(before[0], got[0])
+    st = eng.state
+    eng.state = dmf.DMFState(st.U * 2, st.P.clone(), st.Q.clone())
+    got = eng.serve_microbatch(ids, return_flags=True)
+    assert eng.stats.n_captures == 2
+    _hold_plan(eng, ids, got)
+    eng.seen = torch.ones_like(eng.seen)
+    got = eng.serve_microbatch(ids, return_flags=True)
+    assert eng.stats.n_captures == 3
+    assert (got[1][~got[2]] == -1).all()          # every item seen: nothing to serve
+    assert eng.stats.n_replays == 4
+
+
+@pytest.mark.parametrize("prune,pattern", [(False, r"\btopk_rows_kernel\b"),
+                                           (True, r"\bserve_topk_kernel\b")],
+                         ids=["dense", "pruned"])
+def test_dispatch_plan_replays_one_kernel_a_dispatch_under_a_profiler(dev, prune, pattern,
+                                                                       tmp_path):
+    """Under `torch.profiler` (the plan captured before it starts), the
+    trace holds the kernel once for each replayed dispatch."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    ds, eng = _plan_engine(dev, prune)
+    eng.serve_microbatch(_plan_ids(ds, PLAN_R))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for d in range(5):
+            eng.serve_microbatch(_plan_ids(ds, PLAN_R - d, d))
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    rx = re.compile(pattern)
+    kernels = [e for e in evs if e.get("cat") == "kernel" and rx.search(e.get("name", ""))]
+    assert len(kernels) == 5, [e.get("name") for e in evs if e.get("cat") == "kernel"]
+    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 6)
 
 
 @pytest.mark.parametrize("R,J,K,k", [(128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16),

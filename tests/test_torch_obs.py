@@ -454,8 +454,8 @@ def test_serve_microbatch_phases_under_a_profiler(world, fresh, prune):
     n_fallback = int(on[2].sum())
     assert n_fallback >= 4                    # the three cold users and the unknown id
     (parent,) = [e for e in tracer.events() if e["name"] == "engine.serve_microbatch"]
-    assert parent["args"] == {"depth": 0, "dispatch": 1, "rows": 16, "n_real": len(ids),
-                              "n_fallback": n_fallback}
+    assert parent["args"] == {"depth": 0, "dispatch": 1, "rows": 16, "replay": 0,
+                              "n_real": len(ids), "n_fallback": n_fallback}
     ours = [e for e in tracer.events() if e["name"] in PHASES]
     assert sorted(e["name"] for e in ours) == sorted(PHASES)
     assert all(e["args"] == {"depth": 1, "parent": "engine.serve_microbatch", "dispatch": 1}
@@ -465,6 +465,37 @@ def test_serve_microbatch_phases_under_a_profiler(world, fresh, prune):
     (lo, hi), *phases = [ann[name][0] for name in ("engine.serve_microbatch",) + PHASES]
     assert lo <= phases[0][0] and phases[-1][1] <= hi
     assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))      # in order, disjoint
+
+
+@pytest.mark.parametrize("prune", [False, True])
+def test_serve_microbatch_phases_each_dispatch_under_a_profiler(world, fresh, prune):
+    """Three dispatches in a row (a full one, a ragged one, one of unknown
+    ids alone): each holds every phase once, in order, inside its own
+    `engine.serve_microbatch`, whose ``replay`` is 0 on the CPU."""
+    from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+    ds, nbr = world
+    (_, tracer), *_ = fresh
+    tracer.enabled = False
+    cfg = dmf.DMFConfig(**_common(ds, False))
+    state = dmf.init_state(cfg, np.random.default_rng(2), device="cpu")
+    eng = ServingEngine(state, index_from_dataset(ds),
+                        ServingConfig(microbatch=8, k=5, prune=prune), train=ds.train,
+                        device="cpu")
+    batches = [np.arange(8), np.array([5, 5, 9]), np.array([-4, ds.n_users])]
+    with torch.profiler.profile() as prof:
+        for b in batches:
+            eng.serve_microbatch(b)
+    parents = [e for e in tracer.events() if e["name"] == "engine.serve_microbatch"]
+    assert [(e["args"]["dispatch"], e["args"]["replay"], e["args"]["n_real"])
+            for e in parents] == [(d, 0, len(b)) for d, b in enumerate(batches)]
+    assert parents[-1]["args"]["n_fallback"] == 2
+    assert (eng.stats.n_replays, eng.stats.n_captures) == (0, 0)
+    ann = _annotations(_profiler_doc(prof), ("engine.serve_microbatch",) + PHASES)
+    assert all(len(v) == len(batches) for v in ann.values()), ann
+    for d, (lo, hi) in enumerate(sorted(ann["engine.serve_microbatch"])):
+        phases = [sorted(ann[name])[d] for name in PHASES]
+        assert lo <= phases[0][0] and phases[-1][1] <= hi
+        assert all(a[1] <= b[0] for a, b in zip(phases, phases[1:]))
 
 
 def test_train_epoch_spans_under_a_profiler(world, fresh):

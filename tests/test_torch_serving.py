@@ -184,6 +184,85 @@ def test_serve_microbatch_matches_reference(world, states):
     np.testing.assert_array_equal(got[1], eng.recommend(ids)[1])
 
 
+@pytest.mark.parametrize("n", [MICROBATCH, 21], ids=["full", "ragged"])
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "dense"])
+def test_serve_microbatch_mask_behind_the_launch_matches_reference(world, states, prune, n):
+    """Unknown (-1, >= I), cold and repeated ids in one dispatch: the port
+    maps the ids to their serving rows before the launch and computes the
+    fallback mask after it, the reference masks first. Flags and
+    popularity slates equal, the other slates' ids the oracle's and values
+    the reference's; on the CPU the dispatch plan never engages."""
+    ref_state, state = states
+    ds = world["ds"]
+    train = ds.train[ds.train[:, 0] >= 3]             # users 0, 1, 2 are cold
+    ref_eng = RefServingEngine(
+        ref_state, world["ref_index"],
+        RefServingConfig(microbatch=MICROBATCH, k=10, prune=prune, interpret=True), train=train)
+    eng = ServingEngine(state, world["index"],
+                        ServingConfig(microbatch=MICROBATCH, k=10, prune=prune), train=train,
+                        device="cpu")
+    ids = np.random.default_rng(n).integers(3, ds.n_users, n)
+    ids[:6] = [-1, ds.n_users, 0, 2, ds.n_users + 40, 1]
+    ids[-3:] = ids[6]                                 # repeated
+    got = eng.serve_microbatch(ids, return_flags=True)
+    expect = ref_eng.serve_microbatch(ids, return_flags=True)
+    flags = got[2]
+    np.testing.assert_array_equal(flags, np.asarray(expect[2]))
+    assert flags[:6].all()
+    np.testing.assert_array_equal(got[1][flags], np.asarray(expect[1])[flags])
+    np.testing.assert_array_equal(got[1][~flags], _oracle_ids(ref_eng, ids, flags))
+    np.testing.assert_allclose(got[0], np.asarray(expect[0]), rtol=1e-6, atol=1e-6)
+    assert eng.stats.n_fallbacks == ref_eng.stats.n_fallbacks == int(flags.sum())
+    assert (eng.stats.n_replays, eng.stats.n_captures) == (0, 0)
+
+
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "dense"])
+def test_serve_microbatch_serves_a_user_warmed_by_ingest_on_its_own_row(world, states, prune):
+    """Users 0, 1, 2 start cold (served on row 0, overwritten); after an
+    ingest of check-ins of users 0 and 1 their serving rows are their own,
+    and their slates and flags equal the reference engine's after the same
+    ingest."""
+    ref_state, state = states
+    ds = world["ds"]
+    train = ds.train[ds.train[:, 0] >= 3]
+    ref_eng = RefServingEngine(
+        ref_state, world["ref_index"],
+        RefServingConfig(microbatch=MICROBATCH, k=10, prune=prune, interpret=True), train=train,
+        nbr=world["ref_nbr"], dmf_cfg=world["ref_cfg"])
+    eng = ServingEngine(state, world["index"],
+                        ServingConfig(microbatch=MICROBATCH, k=10, prune=prune), train=train,
+                        nbr=world["nbr"], dmf_cfg=world["cfg"], device="cpu")
+    ids = np.array([0, 1, 2, 7, 0])
+    assert eng.serve_microbatch(ids, return_flags=True)[2][:3].all()
+    assert eng._serve_row[:3].tolist() == [0, 0, 0]
+    events = np.concatenate([ds.test[:40], [[0, 3], [1, 4]]]).astype(ds.test.dtype)
+    eng.ingest(events, OnlineConfig(**OCFG))
+    ref_eng.ingest(events, RefOnlineConfig(**OCFG))
+    assert eng._serve_row[:3].tolist() == [0, 1, 0]
+    got = eng.serve_microbatch(ids, return_flags=True)
+    expect = ref_eng.serve_microbatch(ids, return_flags=True)
+    np.testing.assert_array_equal(got[2], np.asarray(expect[2]))
+    assert got[2].tolist() == [False, False, True, False, False]
+    np.testing.assert_array_equal(got[1][~got[2]], _oracle_ids(ref_eng, ids, got[2]))
+    np.testing.assert_allclose(got[0], np.asarray(expect[0]), rtol=1e-6, atol=1e-6)
+
+
+def test_serve_microbatch_refuses_unknown_ids_with_the_fallback_off(world, states):
+    """With the fallback off an id outside [0, I) raises before any
+    dispatch, rather than being served on its clipped row."""
+    _, state = states
+    ds = world["ds"]
+    eng = ServingEngine(state, world["index"],
+                        ServingConfig(microbatch=MICROBATCH, k=10, fallback=False),
+                        train=ds.train, device="cpu")
+    for bad in (-1, ds.n_users):
+        with pytest.raises(IndexError):
+            eng.serve_microbatch(np.array([3, bad]))
+    assert eng.stats.n_dispatches == 0
+    vals, idx, _ = eng.serve_microbatch(np.array([3, 4]))
+    np.testing.assert_array_equal(idx, eng.recommend([3, 4])[1])
+
+
 def test_online_refresh_and_test_loss_match_reference(world, states):
     ref_state, state = states
     ds = world["ds"]
