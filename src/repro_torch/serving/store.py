@@ -31,8 +31,8 @@ Quantization, exact to the reference's numpy and bf16 cast bit for bit:
 `shard_rows` slices the store along `sharding.dmf.shard_row_slices`, so
 requests route by ``user // rows_per_shard``; shard-local results equal
 the unsharded store's bit for bit. Each dispatch runs in the reference's
-``tiled.dispatch`` trace span (``mode=``), which ends at the slate's copy
-back.
+``tiled.dispatch`` trace span (``mode=``) with the port's five phase
+spans inside it (`TiledServingEngine.recommend`).
 """
 from __future__ import annotations
 
@@ -137,6 +137,21 @@ def int8_rows(rows: torch.Tensor):
     return codes, scale
 
 
+def _windows(synth: SyntheticFactors, index: CandidateIndex, chunk_rows: int,
+             dev: torch.device) -> torch.Tensor:
+    """Every user's (cap, K) f32 window of ``synth`` at its bucket's items
+    (padding columns read item 0), computed on ``dev`` chunk by chunk."""
+    I, cap, K = len(synth.s_user), index.cap, synth.B1.shape[1]
+    slab = torch.empty((I, cap, K), dtype=torch.float32, device=dev)
+    bucket_items = torch.as_tensor(index.bucket_items, device=dev)
+    user_bucket = torch.as_tensor(index.user_bucket, dtype=torch.int64, device=dev)
+    for s in range(0, I, chunk_rows):
+        e = min(s + chunk_rows, I)
+        slab[s:e] = synth.item_rows(torch.arange(s, e, device=dev),
+                                    bucket_items[user_bucket[s:e]], device=dev)
+    return slab
+
+
 @dataclasses.dataclass
 class TiledFactorStore:
     """Per-user candidate-window slabs on one device; see the module
@@ -219,17 +234,13 @@ class TiledFactorStore:
         dev = device_lib.resolve(device)
         rng = np.random.default_rng(seed)
         I, cap = len(synth.s_user), index.cap
-        J, K = synth.B1.shape
-        slab = torch.empty((I, cap, K), dtype=torch.float32, device=dev)
+        J = synth.B1.shape[0]
+        slab = _windows(synth, index, chunk_rows, dev)
         seen_w = np.zeros((I, cap), np.int8)
         counts = np.zeros(J, np.int64)
-        bucket_items = torch.as_tensor(index.bucket_items, device=dev)
-        user_bucket = torch.as_tensor(index.user_bucket, dtype=torch.int64, device=dev)
         for s in range(0, I, chunk_rows):
             e = min(s + chunk_rows, I)
             rows = np.arange(s, e)
-            slab[s:e] = synth.item_rows(torch.arange(s, e, device=dev),
-                                        bucket_items[user_bucket[s:e]], device=dev)
             size = index.bucket_size[index.user_bucket[rows]]
             if seen_per_user > 0:
                 # positions within each user's real bucket extent
@@ -244,6 +255,43 @@ class TiledFactorStore:
         return cls(U=torch.as_tensor(synth.U, device=dev), slab=slab,
                    seen=torch.as_tensor(seen_w, device=dev), index=index,
                    cold=np.zeros(I, bool), item_counts=counts)
+
+    @classmethod
+    def from_checkins(cls, synth: SyntheticFactors, index: CandidateIndex, checkins,
+                      chunk_rows: int = 131072, device="cuda") -> "TiledFactorStore":
+        """A deployment's store from its users' check-ins, on ``device``:
+        the windows from ``synth`` as `synthetic` computes them (padding
+        columns hold item 0's view), and the seen windows, ``item_counts``
+        and ``cold`` from ``checkins``, an (m, 2) array of (user, item)
+        pairs, repeats allowed. Each pair's item is matched against its
+        user's window on the device; a pair whose item lies outside the
+        window sets no seen bit. The fields equal `from_state`'s for the
+        dense seen mask of those pairs (``item_counts`` counts the
+        distinct pairs, ``cold`` marks users with none), and nothing of
+        shape (I, J) is built."""
+        dev = device_lib.resolve(device)
+        I, cap = len(synth.s_user), index.cap
+        J = synth.B1.shape[0]
+        pairs = np.asarray(checkins, dtype=np.int64).reshape(-1, 2)
+        if len(pairs) and (pairs.min() < 0 or pairs[:, 0].max() >= I
+                           or pairs[:, 1].max() >= J):
+            raise ValueError(f"from_checkins: a pair outside [0, {I}) x [0, {J})")
+        slab = _windows(synth, index, chunk_rows, dev)
+        bucket_items = torch.as_tensor(index.bucket_items, device=dev)
+        user_bucket = torch.as_tensor(index.user_bucket, dtype=torch.int64, device=dev)
+        seen_w = torch.zeros((I, cap), dtype=torch.int8, device=dev)
+        pairs_t = torch.as_tensor(pairs, device=dev)
+        for s in range(0, len(pairs), chunk_rows):
+            users, items = pairs_t[s:s + chunk_rows].unbind(1)
+            rows, cols = (bucket_items[user_bucket[users]] == items[:, None]).nonzero(
+                as_tuple=True)
+            seen_w[users[rows], cols] = 1
+        distinct = np.unique(pairs[:, 0] * J + pairs[:, 1])
+        cold = np.ones(I, bool)
+        cold[distinct // J] = False
+        return cls(U=torch.as_tensor(synth.U, device=dev), slab=slab, seen=seen_w,
+                   index=index, cold=cold,
+                   item_counts=np.bincount(distinct % J, minlength=J).astype(np.int64))
 
     # --------------------------------------------------------- quantization
     def quantize_int8(self, chunk_rows: int = 131072) -> None:
@@ -361,28 +409,33 @@ class TiledServingEngine:
         return (unknown | self.store.cold[safe]
                 | self._bucket_empty[self.store.index.user_bucket[safe]])
 
-    def _dispatch(self, uids: np.ndarray):
-        """One fixed-shape microbatch: upload the R ids, one kernel, one
-        copy of the slate back to the host. int8 and bf16 read the store in
-        place (`ops.serve_topk_tiled_quant`: no gathers); fp32 gathers the
-        windows off the device-resident store first."""
+    def _launch(self, ids: torch.Tensor):
+        """One fixed-shape microbatch on the card, the ids already there:
+        int8 and bf16 read the store in place (`ops.serve_topk_tiled_quant`:
+        no gathers); fp32 gathers the windows off the device-resident store
+        first. Returns the slates on the store's device."""
         st, k = self.store, self.cfg.k
-        with trace_lib.span("tiled.dispatch", mode=self.mode):
-            ids = torch.as_tensor(uids, device=st.device)
-            if self.mode == "fp32":
-                cand = self._bucket_items[self._user_bucket[ids]]
-                vals, idx = ops.serve_topk_window(st.U[ids], st.slab[ids], cand, st.seen[ids],
-                                                  k)
-            else:
-                Vq, scale = ((st.q_codes, st.q_scale) if self.mode == "int8"
-                             else (st.slab_bf16, None))
-                vals, idx = ops.serve_topk_tiled_quant(ids, st.U, Vq, scale, self._user_bucket,
-                                                       self._bucket_items, st.seen, k)
-            return vals.cpu().numpy(), idx.cpu().numpy()     # waits for the card
+        if self.mode == "fp32":
+            cand = self._bucket_items[self._user_bucket[ids]]
+            return ops.serve_topk_window(st.U[ids], st.slab[ids], cand, st.seen[ids], k)
+        Vq, scale = ((st.q_codes, st.q_scale) if self.mode == "int8"
+                     else (st.slab_bf16, None))
+        return ops.serve_topk_tiled_quant(ids, st.U, Vq, scale, self._user_bucket,
+                                          self._bucket_items, st.seen, k)
 
     def recommend(self, user_ids, return_flags: bool = False):
         """Serve a batch of user ids, results in input order — the contract
-        of `ServingEngine.recommend` (fallback slates flagged)."""
+        of `ServingEngine.recommend` (fallback slates flagged).
+
+        Each microbatch is one dispatch, in the reference's
+        ``tiled.dispatch`` span: its args are ``mode``, the engine's
+        ``dispatch`` number, ``rows`` launched (padding included),
+        ``n_real`` and ``n_fallback``. Inside it, in order:
+        ``tiled.prepare`` (the padded id buffer), ``tiled.upload`` (the ids
+        to the store's device), ``tiled.launch`` (the gathers for fp32, the
+        kernel's wrapper), ``tiled.readback`` (both slates to the host,
+        which waits for the card) and ``tiled.finish`` (the copy into the
+        call's outputs and the stats); each has the ``dispatch`` arg."""
         user_ids = np.asarray(user_ids)
         R, k = self.cfg.microbatch, self.cfg.k
         n = len(user_ids)
@@ -397,18 +450,29 @@ class TiledServingEngine:
         t_call = time.perf_counter()
         for s in range(0, n, R):
             e = min(s + R, n)
-            buf = np.empty(R, np.int64)
-            buf[: e - s] = safe_ids[s:e]
-            buf[e - s:] = buf[0]   # pad with a real id (results dropped)
-            t0 = time.perf_counter()
-            v, i = self._dispatch(buf)
-            t1 = time.perf_counter()
-            vals[s:e] = v[: e - s]
-            idx[s:e] = i[: e - s]
-            self.stats.dispatch_seconds.append(t1 - t0)
-            self.stats.request_seconds.extend([t1 - t_call] * (e - s))
-            self.stats.n_dispatches += 1
-            self.stats.n_requests += e - s
+            d = self.stats.n_dispatches
+            with trace_lib.span("tiled.dispatch", mode=self.mode, dispatch=d, rows=R) as sp:
+                with trace_lib.span("tiled.prepare", dispatch=d):
+                    buf = np.empty(R, np.int64)
+                    buf[: e - s] = safe_ids[s:e]
+                    buf[e - s:] = buf[0]   # pad with a real id (results dropped)
+                with trace_lib.span("tiled.upload", dispatch=d):
+                    t0 = time.perf_counter()
+                    ids = torch.as_tensor(buf, device=self.store.device)
+                with trace_lib.span("tiled.launch", dispatch=d):
+                    slates = self._launch(ids)
+                with trace_lib.span("tiled.readback", dispatch=d):
+                    v, i = (x.cpu().numpy() for x in slates)     # waits for the card
+                    t1 = time.perf_counter()
+                with trace_lib.span("tiled.finish", dispatch=d):
+                    vals[s:e] = v[: e - s]
+                    idx[s:e] = i[: e - s]
+                    self.stats.dispatch_seconds.append(t1 - t0)
+                    self.stats.request_seconds.extend([t1 - t_call] * (e - s))
+                    self.stats.n_dispatches += 1
+                    self.stats.n_requests += e - s
+                    if sp is not None:
+                        sp.args.update(n_real=e - s, n_fallback=int(flags[s:e].sum()))
         if flags.any():
             vals[flags] = self._pop_vals
             idx[flags] = self._pop_items

@@ -49,6 +49,8 @@ DP = dict(dp_sigma=0.3, dp_clip=1.0, dp_seed=3)
 CONFIGS = ("plain", "dp", "churn_dp", "screen_trim", "gdmf", "ldmf")
 PHASES = ("engine.prepare", "engine.upload", "engine.launch", "engine.readback", "engine.finish")
 TRAIN_SPANS = ("dmf.sample", "dmf.upload", "dmf.rounds", "dmf.read")
+TILED_PHASES = ("tiled.prepare", "tiled.upload", "tiled.launch", "tiled.readback",
+                "tiled.finish")
 
 
 @pytest.fixture(scope="module")
@@ -595,7 +597,8 @@ def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
     alike: `fit.epoch` per epoch, `engine.dispatch` per `recommend`
     microbatch, `engine.serve_microbatch`, `engine.ingest` and
     `tiled.dispatch`. The port adds its own inside them: `train_epoch`'s
-    four phases per epoch and `serve_microbatch`'s five."""
+    four phases per epoch, `serve_microbatch`'s five and the tiled
+    dispatch's five."""
     from repro.serving import ServingConfig as RefServingConfig
     from repro.serving import ServingEngine as RefServingEngine
     from repro.serving import index_from_dataset as ref_index
@@ -629,7 +632,8 @@ def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
     n_disp = -(-len(ids) // 8)
     assert got == {"fit.epoch": EPOCHS, "engine.dispatch": n_disp,
                    "engine.serve_microbatch": 1, "engine.ingest": 1, "tiled.dispatch": n_disp,
-                   **{name: EPOCHS for name in TRAIN_SPANS}, **{name: 1 for name in PHASES}}
+                   **{name: EPOCHS for name in TRAIN_SPANS}, **{name: 1 for name in PHASES},
+                   **{name: n_disp for name in TILED_PHASES}}
     by_name = {e["name"]: e["args"] for e in tracer.events()}
     assert by_name["tiled.dispatch"]["mode"] == "fp32"
     assert by_name["engine.dispatch"]["prune"] is True
