@@ -23,8 +23,9 @@ Request path:
    (`ops.recommend_topk_peruser`) read the requests' full rows of V and of
    the seen mask where they lie (``rows=uids``): no (R, J, K) gather.
    `serve_microbatch` on one card replays that dispatch, over P and Q,
-   as a captured CUDA graph (`_DispatchPlan`): pinned ids in, one replay,
-   one pinned packet of slates back.
+   as a captured CUDA graph (`_DispatchPlan`, which the tiled store's
+   engine shares): pinned ids in, one replay, one pinned packet of slates
+   back.
 3. **Online refresh** — `ingest` streams new check-ins through
    `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
    on, also the mechanism kernel `ops.dp_clip_noise`), then
@@ -97,8 +98,8 @@ class EngineStats:
     n_refreshes: int = 0
     n_events: int = 0
     n_fallbacks: int = 0
-    n_captures: int = 0      # `serve_microbatch`'s plan captured (one device, a card)
-    n_replays: int = 0       # `serve_microbatch` dispatches served by a replay
+    n_captures: int = 0      # the dispatch plan captured (one device, a card)
+    n_replays: int = 0       # dispatches served by the plan's replay
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
     # per-request arrival→completion of `serve_stream` / `recommend`: a
     # request riding the w-th dispatch of a drain pays for every dispatch
@@ -154,24 +155,27 @@ def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune
 
 
 class _DispatchPlan:
-    """`serve_microbatch`'s dispatch on one card, captured once as a CUDA
-    graph and replayed: the ids go in through a pinned host buffer and a
-    persistent device tensor, the graph holds what `_dispatch_rows`
-    enqueues (``U[uids]`` and kernel 2 through P and Q, or kernel 5) and
-    the slates' copies into one pinned packet (vals (R, k) f32, then idx
-    (R, k) i32), and one event marks the packet filled.
+    """One card's dispatch of R ids, captured once as a CUDA graph and
+    replayed: `ServingEngine.serve_microbatch`'s and
+    `TiledServingEngine.recommend`'s (`serving/store.py`). The ids go in
+    through a pinned host buffer and a persistent device tensor; the graph
+    holds what the caller's enqueue function puts on the stream for them
+    (``U[uids]`` and kernel 2 through P and Q, or kernel 5, for the serving
+    engine; kernel 6 in place, or the gathers and kernel 1, for the tiled
+    one) and the slates' copies into one pinned packet (vals (R, k) f32,
+    then idx (R, k) i32); one event marks the packet filled.
 
     A graph reads its operands by address. So each launch compares the
-    data pointers and shapes of U, P, Q, seen and the candidate index with
-    those it captured, and captures again on any difference:
-    `ServingEngine.ingest` patches in place and keeps the graph, a
-    reassigned ``state`` or ``seen`` does not. R, k and the prune choice
-    come from the engine's frozen `ServingConfig`, once. The launch
-    counters of the kernel wrappers count one launch a replay and none for
-    the warm-up and the capture."""
+    data pointers and shapes of the operands the caller hands it with
+    those it captured, and captures again on any difference: an in-place
+    patch (`ServingEngine.ingest`) keeps the graph, a reassigned tensor
+    does not. R and k come from the engine's frozen `ServingConfig`, once.
+    The caller also hands the kernel wrapper whose ``launches`` counter
+    the plan keeps: one launch a replay, none for the warm-up and the
+    capture."""
 
-    def __init__(self, device: torch.device, R: int, k: int, prune: bool):
-        self.device, self.k, self.prune = device, k, prune
+    def __init__(self, device: torch.device, R: int, k: int):
+        self.device = device
         self.ids = torch.empty(R, dtype=torch.int64, pin_memory=True)
         self.ids_np = self.ids.numpy()
         self.ids_dev = torch.empty(R, dtype=torch.int64, device=device)
@@ -180,39 +184,39 @@ class _DispatchPlan:
         self.idx = packet[4 * R * k:].view(torch.int32).view(R, k)
         self.vals_np, self.idx_np = self.vals.numpy(), self.idx.numpy()
         self.done = torch.cuda.Event()
-        self.graph = self.kernel = self.key = None
+        self.graph = self.key = None
 
     def upload(self) -> None:
         """The ids of `ids_np` onto the card, on the current stream."""
         self.ids_dev.copy_(self.ids, non_blocking=True)
 
-    def launch(self, eng: "ServingEngine") -> bool:
-        """Replay the dispatch on the engine's current operands, capturing
-        it first where they moved; returns whether it captured."""
-        st = eng.state
-        operands = (st.U, st.P, st.Q, eng.seen, eng._bucket_items, eng._user_bucket)
+    def launch(self, operands: tuple[torch.Tensor, ...], enqueue, kernel) -> bool:
+        """Replay the dispatch, capturing ``enqueue`` (the ids on the card
+        → (vals, idx) on the card) first where ``operands``, every tensor
+        it reads, moved; count one launch in ``kernel.launches``. Returns
+        whether it captured."""
         key = tuple((t.data_ptr(), t.shape) for t in operands)
         captured = key != self.key
         if captured:
             self.graph = self.key = None        # the old graph's memory pool goes first
-            self._capture(operands)
+            self.graph = self._capture(enqueue, kernel)
             self.key = key
         self.graph.replay()
         self.done.record(torch.cuda.current_stream(self.device))
-        self.kernel.launches += 1
+        kernel.launches += 1
         return captured
 
-    def readback(self, n: int) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for the replay; fresh copies of the first ``n`` slates."""
+    def wait(self) -> tuple[np.ndarray, np.ndarray]:
+        """Wait for the replay; the packet's slates (R, k), valid until the
+        next launch."""
         self.done.synchronize()
-        return self.vals_np[:n].copy(), self.idx_np[:n].copy()
+        return self.vals_np, self.idx_np
 
-    def _capture(self, operands) -> None:
-        kernel = ops.serve_topk_rows if self.prune else ops.recommend_topk_peruser
+    def _capture(self, enqueue, kernel) -> torch.cuda.CUDAGraph:
         launches = kernel.launches
 
-        def enqueue():
-            vals, idx = _dispatch_rows(*operands, self.ids_dev, self.k, self.prune)
+        def run():
+            vals, idx = enqueue(self.ids_dev)
             self.vals.copy_(vals, non_blocking=True)
             self.idx.copy_(idx, non_blocking=True)
         try:
@@ -220,14 +224,14 @@ class _DispatchPlan:
                 side = torch.cuda.Stream()
                 side.wait_stream(torch.cuda.current_stream())
                 with torch.cuda.stream(side):   # warm-up: loads the library, sets attributes
-                    enqueue()
+                    run()
                 torch.cuda.current_stream().wait_stream(side)
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
-                    enqueue()
+                    run()
         finally:
             kernel.launches = launches
-        self.graph, self.kernel = graph, kernel
+        return graph
 
 
 class ServingEngine:
@@ -301,7 +305,7 @@ class ServingEngine:
         if group is None:
             self.V = self.state.P + self.state.Q      # served per-learner view
             if self.device.type == "cuda":
-                self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k, cfg.prune)
+                self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k)
         else:
             self._shard()
         # persistent stream: successive ingest() calls draw fresh negatives
@@ -389,6 +393,16 @@ class ServingEngine:
         return _dispatch_dense(self._U_loc, self._V_loc, self._seen_loc, uids, self.cfg.k)
 
     # ------------------------------------------------------------------ serve
+    def _operands(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor an unsharded `serve_microbatch` dispatch reads."""
+        st = self.state
+        return st.U, st.P, st.Q, self.seen, self._bucket_items, self._user_bucket
+
+    def _launch(self, uids: torch.Tensor):
+        """An unsharded `serve_microbatch` dispatch over the raw factor
+        state (`_dispatch_rows`) for serving rows (R,) on the device."""
+        return _dispatch_rows(*self._operands(), uids, self.cfg.k, self.cfg.prune)
+
     def _microbatches(
         self, user_ids: Iterable[int], t_arrival: float | None = None
     ) -> Iterator[tuple[np.ndarray, int, np.ndarray]]:
@@ -606,17 +620,18 @@ class ServingEngine:
                         uids = torch.as_tensor(buf, device=self.device)
                 with trace_lib.span("engine.launch", dispatch=d):
                     if plan is not None:
-                        self.stats.n_captures += plan.launch(self)
+                        kernel = (ops.serve_topk_rows if self.cfg.prune
+                                  else ops.recommend_topk_peruser)
+                        self.stats.n_captures += plan.launch(self._operands(), self._launch,
+                                                             kernel)
                         self.stats.n_replays += 1
                     else:
-                        out = _dispatch_rows(
-                            self.state.U, self.state.P, self.state.Q, self.seen,
-                            self._bucket_items, self._user_bucket, uids, k, self.cfg.prune)
+                        out = self._launch(uids)
                 with trace_lib.span("engine.readback", dispatch=d):
                     flags = self._flags(user_ids)            # while the kernel runs
                     fallen = np.flatnonzero(flags)
                     if plan is not None:
-                        vals, idx = plan.readback(n)
+                        vals, idx = (x[:n].copy() for x in plan.wait())
                     else:
                         vals, idx = (x.cpu().numpy()[:n] for x in out)
                     dt = time.perf_counter() - t0

@@ -19,8 +19,10 @@ host numpy and gathers windows on the host, the port keeps every slab on
 the store's device (an H100's 80 GB holds all three precisions at once):
 a dispatch uploads R user ids and runs one kernel. int8 and bf16 read the
 store in place (`ops.serve_topk_tiled_quant`); fp32 gathers R windows on
-the device first (`ops.serve_topk_window`). The index, the cold flags and the item counts stay
-host numpy; so does the popularity fallback.
+the device first (`ops.serve_topk_window`). On a card the dispatch is a
+captured CUDA graph, replayed (`serving/engine.py` `_DispatchPlan`). The
+index, the cold flags and the item counts stay host numpy; so does the
+popularity fallback.
 
 Quantization, exact to the reference's numpy and bf16 cast bit for bit:
 
@@ -46,7 +48,7 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as trace_lib
 from repro_torch.serving.candidates import CandidateIndex
-from repro_torch.serving.engine import EngineStats, ServingConfig
+from repro_torch.serving.engine import EngineStats, ServingConfig, _DispatchPlan
 
 _BF16_EPS = 2.0 ** -8     # round-to-nearest relative error bound of bfloat16
 
@@ -400,6 +402,9 @@ class TiledServingEngine:
         self._pop_items = top[: cfg.k].astype(np.int32)
         peak = max(int(store.item_counts.max()), 1)
         self._pop_vals = (store.item_counts[self._pop_items] / peak).astype(np.float32)
+        # the dispatch captured and replayed (a store on a card)
+        self._plan = (_DispatchPlan(dev, cfg.microbatch, cfg.k) if dev.type == "cuda"
+                      else None)
 
     def _fallback_mask(self, user_ids: np.ndarray) -> np.ndarray:
         uids = np.asarray(user_ids)
@@ -409,11 +414,19 @@ class TiledServingEngine:
         return (unknown | self.store.cold[safe]
                 | self._bucket_empty[self.store.index.user_bucket[safe]])
 
+    def _operands(self) -> tuple[torch.Tensor, ...]:
+        """Every tensor `_launch` reads in the engine's mode."""
+        st = self.store
+        win = {"fp32": (st.slab,), "int8": (st.q_codes, st.q_scale),
+               "bf16": (st.slab_bf16,)}[self.mode]
+        return (st.U, *win, self._user_bucket, self._bucket_items, st.seen)
+
     def _launch(self, ids: torch.Tensor):
-        """One fixed-shape microbatch on the card, the ids already there:
-        int8 and bf16 read the store in place (`ops.serve_topk_tiled_quant`:
-        no gathers); fp32 gathers the windows off the device-resident store
-        first. Returns the slates on the store's device."""
+        """One fixed-shape microbatch on the store's device, the ids already
+        there: int8 and bf16 read the store in place
+        (`ops.serve_topk_tiled_quant`: no gathers); fp32 gathers the windows
+        off the device-resident store first (`ops.serve_topk_window`).
+        Returns the slates on the store's device."""
         st, k = self.store, self.cfg.k
         if self.mode == "fp32":
             cand = self._bucket_items[self._user_bucket[ids]]
@@ -425,17 +438,27 @@ class TiledServingEngine:
 
     def recommend(self, user_ids, return_flags: bool = False):
         """Serve a batch of user ids, results in input order — the contract
-        of `ServingEngine.recommend` (fallback slates flagged).
+        of `ServingEngine.recommend` (fallback slates flagged), in fresh
+        arrays each call.
+
+        On a card each microbatch is served from a captured plan
+        (`_DispatchPlan`): one CUDA graph replay of `_launch`, captured on
+        the first dispatch and again whenever an operand it reads moved
+        (``stats.n_captures``; ``stats.n_replays`` counts the replays). On
+        the CPU the same phases call the kernels' plain versions.
 
         Each microbatch is one dispatch, in the reference's
         ``tiled.dispatch`` span: its args are ``mode``, the engine's
         ``dispatch`` number, ``rows`` launched (padding included),
-        ``n_real`` and ``n_fallback``. Inside it, in order:
-        ``tiled.prepare`` (the padded id buffer), ``tiled.upload`` (the ids
-        to the store's device), ``tiled.launch`` (the gathers for fp32, the
-        kernel's wrapper), ``tiled.readback`` (both slates to the host,
-        which waits for the card) and ``tiled.finish`` (the copy into the
-        call's outputs and the stats); each has the ``dispatch`` arg."""
+        ``replay`` (1 where the plan served it, else 0), ``n_real`` and
+        ``n_fallback``. Inside it, in order: ``tiled.prepare`` (the ids,
+        padded with the first, into the plan's pinned buffer),
+        ``tiled.upload`` (one non-blocking copy to the card), ``tiled.launch``
+        (the operands' pointers checked, the replay and its event; on the
+        CPU the gathers for fp32 and the kernel's wrapper),
+        ``tiled.readback`` (the wait for the event; on the CPU the slates
+        as arrays) and ``tiled.finish`` (one copy of the packet's rows into
+        the call's outputs, the stats); each has the ``dispatch`` arg."""
         user_ids = np.asarray(user_ids)
         R, k = self.cfg.microbatch, self.cfg.k
         n = len(user_ids)
@@ -447,22 +470,36 @@ class TiledServingEngine:
         safe_ids = np.where(flags, 0, user_ids).astype(np.int64)
         vals = np.empty((n, k), np.float32)
         idx = np.empty((n, k), np.int32)
+        plan = self._plan
+        kernel = ops.serve_topk_window if self.mode == "fp32" else ops.serve_topk_tiled_quant
         t_call = time.perf_counter()
         for s in range(0, n, R):
             e = min(s + R, n)
             d = self.stats.n_dispatches
-            with trace_lib.span("tiled.dispatch", mode=self.mode, dispatch=d, rows=R) as sp:
+            with trace_lib.span("tiled.dispatch", mode=self.mode, dispatch=d, rows=R,
+                                replay=int(plan is not None)) as sp:
                 with trace_lib.span("tiled.prepare", dispatch=d):
-                    buf = np.empty(R, np.int64)
+                    buf = plan.ids_np if plan is not None else np.empty(R, np.int64)
                     buf[: e - s] = safe_ids[s:e]
                     buf[e - s:] = buf[0]   # pad with a real id (results dropped)
                 with trace_lib.span("tiled.upload", dispatch=d):
                     t0 = time.perf_counter()
-                    ids = torch.as_tensor(buf, device=self.store.device)
+                    if plan is not None:
+                        plan.upload()
+                    else:
+                        ids = torch.as_tensor(buf, device=self.store.device)
                 with trace_lib.span("tiled.launch", dispatch=d):
-                    slates = self._launch(ids)
+                    if plan is not None:
+                        self.stats.n_captures += plan.launch(self._operands(), self._launch,
+                                                             kernel)
+                        self.stats.n_replays += 1
+                    else:
+                        slates = self._launch(ids)
                 with trace_lib.span("tiled.readback", dispatch=d):
-                    v, i = (x.cpu().numpy() for x in slates)     # waits for the card
+                    if plan is not None:
+                        v, i = plan.wait()
+                    else:
+                        v, i = (x.numpy() for x in slates)
                     t1 = time.perf_counter()
                 with trace_lib.span("tiled.finish", dispatch=d):
                     vals[s:e] = v[: e - s]

@@ -26,7 +26,10 @@ the tiled engine on the card agrees with the same store on the CPU (store tensor
 above). `serve_microbatch`'s captured plan (a CUDA graph replay a
 dispatch) gives the slates of one direct kernel call bit for bit, counts
 one launch a dispatch, returns fresh arrays, keeps its graph across
-`ingest` and captures again on a reassigned state. The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
+`ingest` and captures again on a reassigned state; the tiled engine's plan
+(the same class) gives the wrapper's slates bit for bit in int8, bf16 and
+fp32, captures again only on a reassigned operand, counts one launch a
+replay and returns fresh arrays. The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
 and in every layout equals the call on the materialized rows bit for bit.
 The shared-V top-k (`recommend_topk`, kernel 4) is held like the
 other top-k kernels, and on one user with V = p^i + q^i equals the
@@ -789,6 +792,171 @@ def test_dispatch_plan_replays_one_kernel_a_dispatch_under_a_profiler(dev, prune
     rx = re.compile(pattern)
     kernels = [e for e in evs if e.get("cat") == "kernel" and rx.search(e.get("name", ""))]
     assert len(kernels) == 5, [e.get("name") for e in evs if e.get("cat") == "kernel"]
+    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 6)
+
+
+TILED_R = 64
+TILED_KERNELS = {"fp32": (ops.serve_topk_window, ops.serve_topk_tiled_quant),
+                 "int8": (ops.serve_topk_tiled_quant, ops.serve_topk_window),
+                 "bf16": (ops.serve_topk_tiled_quant, ops.serve_topk_window)}
+
+
+def _tiled_plan_engine(dev, mode):
+    """A tiled engine on the card over a small synthetic store (3,000
+    users, cells of 64), microbatch 64."""
+    from repro_torch.serving import (ServingConfig, SyntheticFactors, TiledFactorStore,
+                                     TiledServingEngine, build_hierarchical_index,
+                                     synthetic_world)
+    uc, ic, ucoord, icoord = synthetic_world(3000, 600, 6, seed=1)
+    hier = build_hierarchical_index(ic, uc, icoord, ucoord, cell_cap=64)
+    sf = SyntheticFactors.create(3000, 600, 8, seed=2)
+    store = TiledFactorStore.synthetic(sf, hier.flat, seen_per_user=2, seed=3, device=dev)
+    return TiledServingEngine(store, ServingConfig(microbatch=TILED_R, k=10), mode=mode)
+
+
+def _tiled_ids(n, seed=0):
+    """n ids with unknown (-1, >= I) and repeated ones."""
+    ids = np.random.default_rng(seed).integers(0, 3000, n)
+    ids[:3] = [-1, 3000, 3007]
+    ids[-3:] = ids[5]
+    return ids
+
+
+def _tiled_direct(eng, ids):
+    """The unplanned path: the kernel's wrapper called directly on each
+    microbatch of the clipped ids, padded as the engine pads them, and the
+    flagged rows overwritten with the popularity slate."""
+    st, R, k = eng.store, eng.cfg.microbatch, eng.cfg.k
+    flags = eng._fallback_mask(ids)
+    safe = np.where(flags, 0, ids).astype(np.int64)
+    vals, idx = [], []
+    for s in range(0, len(ids), R):
+        part = safe[s:s + R]
+        t = torch.as_tensor(np.concatenate([part, np.full(R - len(part), part[0])]),
+                            device=st.device)
+        if eng.mode == "fp32":
+            out = ops.serve_topk_window(st.U[t], st.slab[t], eng._bucket_items[eng._user_bucket[t]],
+                                        st.seen[t], k)
+        else:
+            Vq, sc = (st.q_codes, st.q_scale) if eng.mode == "int8" else (st.slab_bf16, None)
+            out = ops.serve_topk_tiled_quant(t, st.U, Vq, sc, eng._user_bucket,
+                                             eng._bucket_items, st.seen, k)
+        vals.append(out[0].cpu().numpy()[:len(part)])
+        idx.append(out[1].cpu().numpy()[:len(part)])
+    vals, idx = np.concatenate(vals), np.concatenate(idx)
+    vals[flags], idx[flags] = eng._pop_vals, eng._pop_items
+    return vals, idx, flags
+
+
+def _hold_tiled(eng, ids, got):
+    """The planned slates and flags against the unplanned path's, bit for
+    bit."""
+    for a, b in zip(got, _tiled_direct(eng, ids)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
+def test_tiled_plan_slates_equal_the_unplanned_wrapper_path(dev, mode):
+    """The tiled engine on a card serves each microbatch from its captured
+    plan: slates bit for bit those of the kernel's wrapper called on each
+    microbatch, with a last partial microbatch and unknown ids; one
+    capture, one replay a dispatch."""
+    eng = _tiled_plan_engine(dev, mode)
+    ids = _tiled_ids(300)
+    got = eng.recommend(ids, return_flags=True)
+    assert got[2][:3].all() and got[0].shape == (300, 10)
+    _hold_tiled(eng, ids, got)
+    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 5, 5)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
+def test_tiled_plan_recaptures_on_a_reassigned_operand_and_only_then(dev, mode):
+    """Calls over the same operands keep the graph; a window reassigned
+    (the codes quantized again, the bf16 copy made again, the fp32 slab
+    cloned) or a new ``seen`` tensor is captured again, and the slates
+    follow it."""
+    eng = _tiled_plan_engine(dev, mode)
+    st = eng.store
+    ids = _tiled_ids(200, 1)
+    for call in range(3):
+        _hold_tiled(eng, ids, eng.recommend(ids, return_flags=True))
+        assert eng.stats.n_captures == 1
+    if mode == "int8":
+        st.quantize_int8()
+    elif mode == "bf16":
+        st.quantize_bf16()
+    else:
+        st.slab = st.slab.clone()
+    _hold_tiled(eng, ids, eng.recommend(ids, return_flags=True))
+    assert eng.stats.n_captures == 2
+    st.seen = torch.ones_like(st.seen)
+    got = eng.recommend(ids, return_flags=True)
+    assert eng.stats.n_captures == 3
+    assert (got[1][~got[2]] == -1).all()          # every item seen: nothing to serve
+    _hold_tiled(eng, ids, got)
+    eng.recommend(ids)
+    assert (eng.stats.n_captures, eng.stats.n_replays) == (3, 6 * 4)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
+def test_tiled_plan_counts_one_launch_a_replay_and_none_for_the_capture(dev, mode):
+    """The mode's kernel counter rises by one a replayed dispatch, by none
+    for the warm-up and the capture, and the other kernel's not at all;
+    ``n_captures`` and ``n_replays`` count as the ``tiled.dispatch`` spans'
+    ``replay`` args say."""
+    from repro_torch.obs import trace as trace_lib
+    eng = _tiled_plan_engine(dev, mode)
+    mine, other = TILED_KERNELS[mode]
+    before = (mine.launches, other.launches)
+    saved = trace_lib.get_tracer()
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+        eng.recommend(_tiled_ids(300))          # the capture, then 5 replays
+        assert (mine.launches, other.launches) == (before[0] + 5, before[1])
+        eng.recommend(_tiled_ids(64, 2))
+        assert (mine.launches, other.launches) == (before[0] + 6, before[1])
+    finally:
+        trace_lib.set_tracer(saved)
+    disp = [e["args"] for e in tracer.events() if e["name"] == "tiled.dispatch"]
+    assert [a["replay"] for a in disp] == [1] * 6
+    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 6, 6)
+
+
+def test_tiled_plan_returns_fresh_arrays(dev):
+    """A second call leaves the first call's slates as they were: no
+    output aliases the plan's pinned packet or another call's output."""
+    eng = _tiled_plan_engine(dev, "int8")
+    first = eng.recommend(_tiled_ids(100, 3))
+    kept = [x.copy() for x in first]
+    second = eng.recommend(_tiled_ids(130, 4))
+    packet = (eng._plan.vals_np, eng._plan.idx_np)
+    for a, b, c, p in zip(first, kept, second, packet):
+        np.testing.assert_array_equal(a, b)
+        assert not np.shares_memory(a, c)
+        assert not np.shares_memory(a, p) and not np.shares_memory(c, p)
+
+
+def test_tiled_plan_replays_kernel_6_once_a_dispatch_under_a_profiler(dev, tmp_path):
+    """Under `torch.profiler` (the plan captured before it starts), the
+    trace holds kernel 6 on the int8 store once for each replayed
+    dispatch, by the name the benchmark's roofline reader finds, and the
+    five phase spans once a dispatch."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    eng = _tiled_plan_engine(dev, "int8")
+    eng.recommend(_tiled_ids(64))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.recommend(_tiled_ids(300, 5))
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    rx = re.compile(r"\bserve_topk_kernel\b.*\bTiledQuant<(signed char|int8_t)>")
+    kernels = [e for e in evs if e.get("cat") == "kernel" and rx.search(e.get("name", ""))]
+    assert len(kernels) == 5, [e.get("name") for e in evs if e.get("cat") == "kernel"]
+    for phase in ("dispatch", "prepare", "upload", "launch", "readback", "finish"):
+        assert sum(e.get("name") == f"tiled.{phase}" and e.get("cat") == "user_annotation"
+                   for e in evs) == 5, phase
     assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 6)
 
 

@@ -135,3 +135,57 @@ def test_checkin_store_serves_cold_users_the_popularity_slate(world):
         assert not seen[u, row].any() and len(set(row)) == 10
     empty = eng.recommend([], return_flags=True)
     assert [a.shape for a in empty] == [(0, 10), (0, 10), (0,)]
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8", "bf16"])
+def test_tiled_dispatch_on_the_cpu_is_no_replay(world, mode):
+    """No plan serves a dispatch off a store on the CPU: every
+    ``tiled.dispatch`` span of two calls carries ``replay`` 0 beside its
+    other args, the engine counts no capture and no replay, and the five
+    phases stay nested in order inside each dispatch, whose numbers run on
+    across the calls."""
+    index, synth, pairs = world
+    st = TiledFactorStore.from_checkins(synth, index, pairs, device="cpu")
+    eng = TiledServingEngine(st, ServingConfig(microbatch=MICROBATCH, k=10), mode=mode)
+    calls = [np.arange(I)[::-1], np.concatenate([np.arange(100), [I + 5]])]
+    saved = trace_lib.get_tracer()
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+        for ids in calls:
+            eng.recommend(ids)
+    finally:
+        trace_lib.set_tracer(saved)
+    evs = tracer.events()
+    disp = [e for e in evs if e["name"] == "tiled.dispatch"]
+    n_disp = sum(-(-len(ids) // MICROBATCH) for ids in calls)
+    assert len(disp) == n_disp == eng.stats.n_dispatches
+    assert [e["args"]["replay"] for e in disp] == [0] * n_disp
+    assert all({"mode", "dispatch", "rows", "replay", "n_real", "n_fallback"}
+               <= e["args"].keys() for e in disp)
+    assert (eng.stats.n_captures, eng.stats.n_replays) == (0, 0)
+    assert [e["args"]["dispatch"] for e in disp] == list(range(n_disp))
+    for d, outer in enumerate(disp):
+        inner = sorted((e for e in evs if e["name"] in PHASES and e["args"]["dispatch"] == d),
+                       key=lambda e: e["ts"])
+        assert [e["name"] for e in inner] == list(PHASES)
+        for a, b in zip(inner, inner[1:]):
+            assert a["ts"] + a["dur"] <= b["ts"]
+        assert outer["ts"] <= inner[0]["ts"]
+        assert inner[-1]["ts"] + inner[-1]["dur"] <= outer["ts"] + outer["dur"]
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8", "bf16"])
+def test_tiled_recommend_returns_fresh_arrays_each_call(world, mode):
+    """A second call, over other users and with a partial last microbatch,
+    leaves the first call's slates as they were: no output shares memory
+    with another call's or with the engine."""
+    index, synth, pairs = world
+    st = TiledFactorStore.from_checkins(synth, index, pairs, device="cpu")
+    eng = TiledServingEngine(st, ServingConfig(microbatch=MICROBATCH, k=10), mode=mode)
+    first = eng.recommend(np.arange(200))
+    kept = [x.copy() for x in first]
+    second = eng.recommend(np.arange(I - 1, 100, -1))
+    for a, b, c in zip(first, kept, second):
+        np.testing.assert_array_equal(a, b)
+        assert not np.shares_memory(a, c)
+    np.testing.assert_array_equal(second[1][-99:], first[1][101:][::-1])   # users 199..101
