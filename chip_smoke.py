@@ -1234,9 +1234,10 @@ def serve_staging_and_tiled(eng, index, pruned_ids, dev) -> dict:
                                      TiledServingEngine)
     uids = torch.as_tensor(pruned_ids[:N_SLAB], device=dev)
     cand = eng._bucket_items[eng._user_bucket[uids]]
-    vw, sw = gather_windows(eng.V[uids], eng.seen[uids], cand)
+    v_rows = eng.state.P[uids] + eng.state.Q[uids]
+    vw, sw = gather_windows(v_rows, eng.seen[uids], cand)
     u = eng.state.U[uids]
-    out = {"slab_vs_window": (ops.serve_topk(u, eng.V[uids], cand, eng.seen[uids], K_TOP),
+    out = {"slab_vs_window": (ops.serve_topk(u, v_rows, cand, eng.seen[uids], K_TOP),
                               ops.serve_topk_window(u, vw, cand, sw, K_TOP))}
     cfg = ServingConfig(microbatch=MICROBATCH, k=K_TOP)
     seen = eng.seen.cpu().numpy()
@@ -1265,7 +1266,8 @@ def served_windows(eng, ids) -> tuple:
     windows the pruned dispatch gathered before it read the state in
     place."""
     uids = torch.as_tensor(np.asarray(ids, np.int64), device=eng.device)
-    return gathered_rows(uids, eng.state.U, eng.V, eng.seen, eng._user_bucket, eng._bucket_items)
+    return gathered_rows(uids, eng.state.U, eng.state.P, eng.seen, eng._user_bucket,
+                         eng._bucket_items, Q=eng.state.Q)
 
 
 def check_slates(run, dev) -> dict[str, float]:
@@ -1284,8 +1286,8 @@ def check_slates(run, dev) -> dict[str, float]:
         got = (vals[keep], idx[keep])
         st = eng.state
         if kind == "pruned":
-            window = gathered_rows(uids, st.U, eng.V, eng.seen, eng._user_bucket,
-                                   eng._bucket_items)
+            window = gathered_rows(uids, st.U, st.P, eng.seen, eng._user_bucket,
+                                   eng._bucket_items, Q=st.Q)
             errs[kind] = hold_window("served pruned slates", got, *window, K_TOP)
             # every served request (fallbacks excluded): kernel 5 in place
             # served kernel 1's slate on the gathered windows, bit for bit
@@ -1296,8 +1298,8 @@ def check_slates(run, dev) -> dict[str, float]:
                       tuple(x.cpu() for x in want))
             errs["pruned_requests_bitwise"] = len(live)
         else:
-            errs[kind] = hold_dense("served dense slates", got, st.U[uids], eng.V[uids],
-                                    eng.seen[uids], K_TOP)
+            errs[kind] = hold_dense("served dense slates", got, st.U[uids],
+                                    st.P[uids] + st.Q[uids], eng.seen[uids], K_TOP)
     return errs
 
 
@@ -4043,18 +4045,19 @@ def main_shapes(run, tl, bl, tr) -> dict:
     u0 = int(bl["per_request"][0][0])
     dp = tr["dp_on"]["fit"].state
     u = eng.state.U[uids]
-    return {"serving": (u, eng.V[rows, safe], cand, eng.seen[rows, safe]),
+    V = eng.state.P + eng.state.Q        # the served view: P and Q's bits, added once
+    return {"serving": (u, V[rows, safe], cand, eng.seen[rows, safe]),
             "tiled": (st.U[ids], st.slab[ids], mcand, st.seen[ids]),
             "MF": (mf.U, mf.V, mask),
             "per_request": (dmf_st.U[u0][None], (dmf_st.P[u0] + dmf_st.Q[u0]).contiguous(),
                             mask[u0][None]),
-            "dense": (u, eng.V[uids], eng.seen[uids]), "serving_uids": uids,
+            "dense": (u, V[uids], eng.seen[uids]), "serving_uids": uids,
             "evaluate": (dp.U, dp.P + dp.Q, mask),
             "evaluate_pq": (dp.U, dp.P, mask, dp.Q),
             "chunk": tuple(x[EVAL_CHUNK:2 * EVAL_CHUNK] for x in (dp.U, dp.P, mask, dp.Q)),
-            "slab": (u, eng.V[uids], cand, eng.seen[uids]),
+            "slab": (u, V[uids], cand, eng.seen[uids]),
             "rows": {form: ((uids, eng.state.U, V, eng.seen, eng._user_bucket, eng._bucket_items), Q)
-                     for form, V, Q in (("V", eng.V, None),
+                     for form, V, Q in (("V", V, None),
                                         ("P+Q", eng.state.P, eng.state.Q))},
             "grads": [(sx, hp) for sx, hp, _ in bl["grads"]],
             "tiled_store": tiled_store_args(st, ids)}
@@ -4080,6 +4083,7 @@ def serving_specs(run, shapes) -> list[dict]:
     st, dev = eng.state, eng.device
     u = shapes["dense"][0]
     uids = shapes["serving_uids"]
+    V = shapes["rows"]["V"][0][2]        # the whole served view P + Q
     # one refresh batch of the main path: test check-ins + their negatives
     ui, vj, r, conf = dmf.sample_with_negatives(
         run["test_events"], eng.index.n_items, 3, np.random.default_rng(SEED + 1))
@@ -4092,11 +4096,11 @@ def serving_specs(run, shapes) -> list[dict]:
     return [
         window_spec(*shapes["serving"], "serving microbatch"),
         dense_spec(*shapes["dense"], "serving microbatch, gathered V rows"),
-        dict(dense_spec(u, eng.V, eng.seen, "serving microbatch, V rows in place",
+        dict(dense_spec(u, V, eng.seen, "serving microbatch, V rows in place",
                         rows=uids), variant="serving_rows"),
         dict(dense_spec(*shapes["dense"], "serving microbatch, today's sequence: the "
                         "gathers of U, V, seen rows, then the kernel",
-                        call=lambda: ops.recommend_topk_peruser(st.U[uids], eng.V[uids],
+                        call=lambda: ops.recommend_topk_peruser(st.U[uids], V[uids],
                                                                 eng.seen[uids], K_TOP)),
              variant="serving_caller_sequence"),
         dict(name="dmf_fused_step", src="dmf_update.cu",

@@ -1,14 +1,15 @@
 """ServingEngine — microbatched, geo-pruned, online-updatable POI serving.
 Port of `src/repro/serving/engine.py`: `ServingConfig`, `EngineStats`
-(with `publish`), `_dispatch_pruned`, `_dispatch_dense`, `_dispatch_rows`
-and `ServingEngine` (`recommend`, `serve_stream`, `serve_microbatch`,
-`ingest`, the popularity fallback; learner-sharded serving, `serve_wave`
-:322-341, `_sharded_dispatches` :343-374, `_serve_sharded` :376-386,
-`serve_stream(ordered=)` :388-433), with the reference's trace spans
-``engine.dispatch``, ``engine.serve_microbatch``, ``engine.serve_wave``
-and ``engine.ingest``, and the phases of a `serve_microbatch` dispatch
-inside its span (``engine.prepare``, ``.upload``, ``.launch``,
-``.readback``, ``.finish``; sharded ``.serve_home``).
+(with `publish`), `_dispatch_rows` (the reference's two dispatch helpers
+in one) and `ServingEngine` (`recommend`, `serve_stream`,
+`serve_microbatch`, `ingest`, the popularity fallback; learner-sharded
+serving, `serve_wave` :322-341, `_sharded_dispatches` :343-374,
+`_serve_sharded` :376-386, `serve_stream(ordered=)` :388-433), with the
+reference's trace spans ``engine.dispatch``, ``engine.serve_microbatch``,
+``engine.serve_wave`` and ``engine.ingest``, and the phases of a
+`serve_microbatch` dispatch inside its span (``engine.prepare``,
+``.upload``, ``.launch``, ``.readback``, ``.finish``; sharded
+``.serve_home``).
 
 Request path:
 
@@ -17,19 +18,20 @@ Request path:
    repeated real id, its results dropped).
 2. **Dispatch** — the ids' upload and one launch of the serve kernel
    (`ops.serve_topk_rows`), which reads each request's user row, its
-   home-city candidate ids, their seen bits and their rows of the
-   device-resident V = P + Q view in place: no (R, cap, K) gather.
+   home-city candidate ids, their seen bits and their rows of P and Q in
+   place, adding p + q in registers: no (R, cap, K) gather.
    ``prune=False`` instead has the dense kernel
-   (`ops.recommend_topk_peruser`) read the requests' full rows of V and of
+   (`ops.recommend_topk_peruser`) read the requests' full rows of P, Q and
    the seen mask where they lie (``rows=uids``): no (R, J, K) gather.
-   `serve_microbatch` on one card replays that dispatch, over P and Q,
-   as a captured CUDA graph (`_DispatchPlan`, which the tiled store's
-   engine shares): pinned ids in, one replay, one pinned packet of slates
-   back.
+   On one device every microbatch, `serve_microbatch`'s and
+   `serve_stream`'s (so `recommend`'s), goes through one dispatch plan
+   (`_DispatchPlan`, which the tiled store's engine shares): on a card a
+   captured CUDA graph, pinned ids in, one replay, one pinned packet of
+   slates back; on the CPU the kernels' plain versions, called directly.
 3. **Online refresh** — `ingest` streams new check-ins through
    `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
-   on, also the mechanism kernel `ops.dp_clip_noise`), then
-   patches the touched rows of V and the new check-ins' seen bits.
+   on, also the mechanism kernel `ops.dp_clip_noise`), which updates U, P
+   and Q in place, then sets the new check-ins' seen bits.
 
 Learner-sharded serving (``n_shards = D > 1``): the reference runs one
 SPMD program over a ``learners`` mesh; here a shard is one rank of a
@@ -41,18 +43,17 @@ synchronisations). Every rank is built from the same host inputs and
 routes with the same host numpy (user u lives on rank ``u // rows``,
 ``rows = ceil(I / D)``). Each rank keeps the unsharded U, P, Q and seen,
 which `ingest` and `serve_microbatch` read, and its own zero-padded rows
-of U, V = P + Q, seen and the users' buckets, which it serves: the
-sharded V replaces the full one. A wave (`serve_wave`) is one kernel
-launch on each rank's own rows, one `all_gather` each of the values and
-ids and one `all_reduce` (MAX) of the ranks' wall seconds, since a
-lockstep wave ends with its slowest shard; only results and agreed times
-cross ranks. `ingest` runs the same refresh on every rank's replicated
-state from the same generator, so the states stay equal bit for bit, and
-patches the rank's own rows; nothing crosses ranks. `serve_microbatch`,
-the scheduler's per-shard dispatch, is a collective at D ranks: the
-requests' home rank serves them from its own rows and broadcasts the
-slates and its measured seconds in one reused packet, so every rank's
-virtual clock moves by the same numbers.
+of U, V = P + Q, seen and the users' buckets, which it serves. A wave
+(`serve_wave`) is one kernel launch on each rank's own rows, one
+`all_gather` each of the values and ids and one `all_reduce` (MAX) of the
+ranks' wall seconds, since a lockstep wave ends with its slowest shard;
+only results and agreed times cross ranks. `ingest` runs the same refresh
+on every rank's replicated state from the same generator, so the states
+stay equal bit for bit, and patches the rank's own rows; nothing crosses
+ranks. `serve_microbatch`, the scheduler's per-shard dispatch, is a
+collective at D ranks: the requests' home rank serves them from its own
+rows and broadcasts the slates and its measured seconds in one reused
+packet, so every rank's virtual clock moves by the same numbers.
 """
 from __future__ import annotations
 
@@ -99,7 +100,6 @@ class EngineStats:
     n_events: int = 0
     n_fallbacks: int = 0
     n_captures: int = 0      # the dispatch plan captured (one device, a card)
-    n_replays: int = 0       # dispatches served by the plan's replay
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
     # per-request arrival→completion of `serve_stream` / `recommend`: a
     # request riding the w-th dispatch of a drain pays for every dispatch
@@ -132,69 +132,90 @@ class EngineStats:
             h.observe_many(getattr(self, nm))
 
 
-def _dispatch_pruned(U, V, seen, bucket_items, user_bucket, uids, k: int):
-    """One geo-pruned microbatch: the serve kernel reads the requests' user
-    rows, candidate ids, seen bits and candidate rows of V in place."""
-    return ops.serve_topk_rows(uids, U, V, seen, user_bucket, bucket_items, k)
+def _popularity(item_counts: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """The popularity slate: the top-k items by check-in count (stable:
+    ties to the lower id) and their values, count / max count (a [0, 1]
+    pseudo-score, deliberately not on the factor-score scale)."""
+    items = np.argsort(-item_counts, kind="stable")[:k].astype(np.int32)
+    peak = max(int(item_counts.max()), 1)
+    return items, (item_counts[items] / peak).astype(np.float32)
 
 
-def _dispatch_dense(U, V, seen, uids, k: int):
-    """Dense microbatch: full-J top-k over the requests' item rows and seen
-    rows, which the kernel reads in place (rows ``uids`` of V and seen)."""
-    return ops.recommend_topk_peruser(U[uids], V, seen, k, rows=uids)
+def _overwrite(vals: np.ndarray, idx: np.ndarray, fallen, items, values) -> None:
+    """Rows ``fallen`` (a mask or row numbers) of the slates (vals, idx)
+    become the popularity slate (``items``, ``values``)."""
+    vals[fallen] = values
+    idx[fallen] = items
 
 
 def _dispatch_rows(U, P, Q, seen, bucket_items, user_bucket, uids, k: int, prune: bool):
-    """Microbatch over the raw factor state, forming v = p + q of the
-    requested rows on the fly: both kernels read the P, Q and seen rows in
-    place and add in registers (the pruned one rounds each sum as the
-    gather-then-add did, so it equals serving V)."""
+    """One microbatch over the requests' rows where they lie: kernel 5
+    (pruned) reads each request's user row, candidate ids, seen bits and
+    candidate item rows in place, kernel 2 (dense) their full item and
+    seen rows. The item rows are P's where ``Q`` is None (P then holds V =
+    P + Q), else p + q formed in registers with one fp32 add, the bits of
+    serving V (the pruned kernel rounds each sum as the gather-then-add
+    did)."""
     if prune:
         return ops.serve_topk_rows(uids, U, P, seen, user_bucket, bucket_items, k, Q=Q)
     return ops.recommend_topk_peruser(U[uids], P, seen, k, Q=Q, rows=uids)
 
 
 class _DispatchPlan:
-    """One card's dispatch of R ids, captured once as a CUDA graph and
-    replayed: `ServingEngine.serve_microbatch`'s and
-    `TiledServingEngine.recommend`'s (`serving/store.py`). The ids go in
-    through a pinned host buffer and a persistent device tensor; the graph
-    holds what the caller's enqueue function puts on the stream for them
-    (``U[uids]`` and kernel 2 through P and Q, or kernel 5, for the serving
-    engine; kernel 6 in place, or the gathers and kernel 1, for the tiled
-    one) and the slates' copies into one pinned packet (vals (R, k) f32,
-    then idx (R, k) i32); one event marks the packet filled.
+    """One device's dispatch of R ids, the path of every one-device
+    microbatch (`ServingEngine.serve_microbatch`'s and `serve_stream`'s,
+    `TiledServingEngine.recommend`'s in `serving/store.py`): the caller
+    writes the ids into `ids_np`, then calls `upload`, `launch` and `wait`.
 
-    A graph reads its operands by address. So each launch compares the
-    data pointers and shapes of the operands the caller hands it with
-    those it captured, and captures again on any difference: an in-place
-    patch (`ServingEngine.ingest`) keeps the graph, a reassigned tensor
-    does not. R and k come from the engine's frozen `ServingConfig`, once.
-    The caller also hands the kernel wrapper whose ``launches`` counter
-    the plan keeps: one launch a replay, none for the warm-up and the
-    capture."""
+    On a card (``replay``) the dispatch is captured once as a CUDA graph
+    and replayed. The ids go in through a pinned host buffer and a
+    persistent device tensor; the graph holds what the caller's enqueue
+    function puts on the stream for them (``U[uids]`` and kernel 2 through
+    P and Q, or kernel 5, for the serving engine; kernel 6 in place, or
+    the gathers and kernel 1, for the tiled one) and the slates' copies
+    into one pinned packet (vals (R, k) f32, then idx (R, k) i32); one
+    event marks the packet filled. A graph reads its operands by address,
+    so each launch compares the data pointers and shapes of the operands
+    the caller hands it with those it captured, and captures again on any
+    difference: an in-place patch (`ServingEngine.ingest`) keeps the
+    graph, a reassigned tensor does not. The caller also hands the kernel
+    wrapper whose ``launches`` counter the plan keeps: one launch a
+    replay, none for the warm-up and the capture.
+
+    On the CPU the same members do the plain thing: `ids_np` is the
+    memory of `ids_dev`, `upload` does nothing, `launch` calls the enqueue
+    function (the kernels' plain versions, which count no launch) and
+    `wait` returns its slates. R and k come from the engine's frozen
+    `ServingConfig`, once."""
 
     def __init__(self, device: torch.device, R: int, k: int):
         self.device = device
-        self.ids = torch.empty(R, dtype=torch.int64, pin_memory=True)
+        self.replay = device.type == "cuda"
+        self.ids = torch.empty(R, dtype=torch.int64, pin_memory=self.replay)
         self.ids_np = self.ids.numpy()
-        self.ids_dev = torch.empty(R, dtype=torch.int64, device=device)
-        packet = torch.empty(8 * R * k, dtype=torch.uint8, pin_memory=True)
-        self.vals = packet[:4 * R * k].view(torch.float32).view(R, k)
-        self.idx = packet[4 * R * k:].view(torch.int32).view(R, k)
-        self.vals_np, self.idx_np = self.vals.numpy(), self.idx.numpy()
-        self.done = torch.cuda.Event()
+        self.ids_dev = self.ids
         self.graph = self.key = None
+        if self.replay:
+            self.ids_dev = torch.empty(R, dtype=torch.int64, device=device)
+            packet = torch.empty(8 * R * k, dtype=torch.uint8, pin_memory=True)
+            self.vals = packet[:4 * R * k].view(torch.float32).view(R, k)
+            self.idx = packet[4 * R * k:].view(torch.int32).view(R, k)
+            self.vals_np, self.idx_np = self.vals.numpy(), self.idx.numpy()
+            self.done = torch.cuda.Event()
 
     def upload(self) -> None:
         """The ids of `ids_np` onto the card, on the current stream."""
-        self.ids_dev.copy_(self.ids, non_blocking=True)
+        if self.replay:
+            self.ids_dev.copy_(self.ids, non_blocking=True)
 
     def launch(self, operands: tuple[torch.Tensor, ...], enqueue, kernel) -> bool:
-        """Replay the dispatch, capturing ``enqueue`` (the ids on the card
-        → (vals, idx) on the card) first where ``operands``, every tensor
-        it reads, moved; count one launch in ``kernel.launches``. Returns
-        whether it captured."""
+        """Run ``enqueue`` (`ids_dev` → (vals, idx) on the device). On a
+        card: replay it, capturing it first where ``operands``, every
+        tensor it reads, moved; count one launch in ``kernel.launches``.
+        Returns whether it captured."""
+        if not self.replay:
+            self.slates = enqueue(self.ids_dev)
+            return False
         key = tuple((t.data_ptr(), t.shape) for t in operands)
         captured = key != self.key
         if captured:
@@ -207,8 +228,10 @@ class _DispatchPlan:
         return captured
 
     def wait(self) -> tuple[np.ndarray, np.ndarray]:
-        """Wait for the replay; the packet's slates (R, k), valid until the
-        next launch."""
+        """Wait for the launch; its slates (R, k) on the host, on a card
+        the packet's, valid until the next launch."""
+        if not self.replay:
+            return tuple(x.numpy() for x in self.slates)
         self.done.synchronize()
         return self.vals_np, self.idx_np
 
@@ -293,7 +316,7 @@ class ServingEngine:
         self._item_counts = seen_np.sum(axis=0).astype(np.int64)
         self._user_bucket_np = np.asarray(index.user_bucket)
         self._bucket_empty = (np.asarray(index.bucket_items) < 0).all(axis=1)
-        self._refresh_popularity()
+        self._pop_items, self._pop_vals = _popularity(self._item_counts, cfg.k)
         # the row each known user is served on by `serve_microbatch` on one
         # device: row 0 for a user whose slate the popularity slate replaces
         # (as `recommend` clamps them: their reads hit one row again and
@@ -301,26 +324,15 @@ class ServingEngine:
         users = np.arange(I)
         self._serve_row = np.where(self._flags(users), 0, users)
         self._rows = I                 # rows a shard: user u lives on shard u // _rows
-        self._plan = None              # serve_microbatch's captured dispatch (one card)
-        if group is None:
-            self.V = self.state.P + self.state.Q      # served per-learner view
-            if self.device.type == "cuda":
-                self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k)
-        else:
+        self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k)   # one device's dispatch
+        self._kernel = ops.serve_topk_rows if cfg.prune else ops.recommend_topk_peruser
+        if group is not None:
             self._shard()
         # persistent stream: successive ingest() calls draw fresh negatives
         self._rng = np.random.default_rng(dmf_cfg.seed if dmf_cfg is not None else 0)
         self.stats = EngineStats()
 
     # -------------------------------------------------------------- fallback
-    def _refresh_popularity(self) -> None:
-        """Top-k items by check-in count, values = count / max count (a
-        [0, 1] pseudo-score, deliberately not on the factor-score scale)."""
-        top = np.argsort(-self._item_counts, kind="stable")
-        self._pop_items = top[: self.cfg.k].astype(np.int32)
-        peak = max(int(self._item_counts.max()), 1)
-        self._pop_vals = (self._item_counts[self._pop_items] / peak).astype(np.float32)
-
     def _fallback_mask(self, user_ids: np.ndarray) -> np.ndarray:
         """True where the factor path cannot give a meaningful slate."""
         uids = np.asarray(user_ids)
@@ -342,14 +354,13 @@ class ServingEngine:
     def _shard(self) -> None:
         """Serve row-sharded over ``self.group``: take this rank's
         zero-padded rows of U, V = P + Q, seen and the users' buckets (ref
-        :242-264); the sharded V replaces the full one."""
+        :242-264)."""
         group = self.group
         self._rows = sharded_dmf.rows_per_shard(self._n_users, group.size)
         self._row0 = group.rank * self._rows
 
         def mine(x):
             return sharded_dmf.group_rows(x, group, self._rows)
-        self.V = None
         self._U_loc = mine(self.state.U)
         self._V_loc = mine(self.state.P).add_(mine(self.state.Q))  # the bits of P + Q
         self._seen_loc = mine(self.seen)
@@ -387,20 +398,18 @@ class ServingEngine:
         (pruned) or kernel 2 on the rows where they lie (dense), for
         local row ids (R,)."""
         uids = torch.as_tensor(np.asarray(local_ids, np.int64), device=self.device)
-        if self.cfg.prune:
-            return _dispatch_pruned(self._U_loc, self._V_loc, self._seen_loc,
-                                    self._bucket_items, self._ub_loc, uids, self.cfg.k)
-        return _dispatch_dense(self._U_loc, self._V_loc, self._seen_loc, uids, self.cfg.k)
+        return _dispatch_rows(self._U_loc, self._V_loc, None, self._seen_loc, self._bucket_items,
+                              self._ub_loc, uids, self.cfg.k, self.cfg.prune)
 
     # ------------------------------------------------------------------ serve
     def _operands(self) -> tuple[torch.Tensor, ...]:
-        """Every tensor an unsharded `serve_microbatch` dispatch reads."""
+        """Every tensor an unsharded dispatch reads."""
         st = self.state
         return st.U, st.P, st.Q, self.seen, self._bucket_items, self._user_bucket
 
     def _launch(self, uids: torch.Tensor):
-        """An unsharded `serve_microbatch` dispatch over the raw factor
-        state (`_dispatch_rows`) for serving rows (R,) on the device."""
+        """An unsharded dispatch over the raw factor state
+        (`_dispatch_rows`) for serving rows (R,) on the device."""
         return _dispatch_rows(*self._operands(), uids, self.cfg.k, self.cfg.prune)
 
     def _microbatches(
@@ -524,28 +533,30 @@ class ServingEngine:
         `microbatch` requests a shard, in the shard queues' order;
         ``ordered=True`` reassembles the results by arrival and yields the
         longest arrival-contiguous prefix after each wave (the same waves,
-        results buffered). On one device the order is always arrival's."""
+        results buffered).
+
+        On one device the order is always arrival's, and each microbatch
+        goes through the engine's dispatch plan, as in `serve_microbatch`
+        (one capture serves both); the ids are served as given, unclipped:
+        `recommend` clamps flagged users to row 0 first."""
         if self.group is not None:
             yield from self._stream_sharded(user_ids, ordered)
             return
+        plan = self._plan
         for buf, n, arr in self._microbatches(user_ids, _t_arrival):
             t0 = time.perf_counter()
             with trace_lib.span("engine.dispatch", n_real=n, prune=self.cfg.prune):
-                uids = torch.as_tensor(buf, device=self.device)
-                if self.cfg.prune:
-                    vals, idx = _dispatch_pruned(
-                        self.state.U, self.V, self.seen, self._bucket_items,
-                        self._user_bucket, uids, self.cfg.k)
-                else:
-                    vals, idx = _dispatch_dense(self.state.U, self.V, self.seen, uids,
-                                                self.cfg.k)
-                vals, idx = vals.cpu().numpy(), idx.cpu().numpy()   # waits for the card
+                plan.ids_np[:] = buf
+                plan.upload()
+                self.stats.n_captures += plan.launch(self._operands(), self._launch,
+                                                     self._kernel)
+                vals, idx = (x[:n].copy() for x in plan.wait())
             t1 = time.perf_counter()
             self.stats.dispatch_seconds.append(t1 - t0)
             self.stats.n_dispatches += 1
             self.stats.n_requests += n
             self.stats.request_seconds.extend((t1 - arr).tolist())
-            yield buf[:n], vals[:n], idx[:n]
+            yield buf[:n], vals, idx
 
     def serve_microbatch(self, user_ids, return_flags: bool = False):
         """Serve ≤ `microbatch` requests in one dispatch over the raw factor
@@ -556,11 +567,11 @@ class ServingEngine:
         ``stats.dispatch_seconds``. An id outside [0, I) with
         ``cfg.fallback`` off raises IndexError.
 
-        Unsharded on a card, the dispatch is a captured plan
-        (`_DispatchPlan`): one CUDA graph replay a call, captured on the
-        first call and again whenever the engine's operands moved
-        (``stats.n_captures``; ``stats.n_replays`` counts the replays).
-        On the CPU the same phases call the kernels' plain versions.
+        Unsharded, the dispatch goes through the engine's plan
+        (`_DispatchPlan`): on a card one CUDA graph replay a call,
+        captured on the first call and again whenever the engine's
+        operands moved (``stats.n_captures``); on the CPU the same phases
+        call the kernels' plain versions.
 
         Sharded, it is a collective that every rank calls with the same
         ids, all users of one shard (``user // _rows`` once clamped to the
@@ -573,15 +584,15 @@ class ServingEngine:
         Traced, a dispatch is one ``engine.serve_microbatch`` span from
         entry to return, its args the engine's ``dispatch`` number,
         ``rows`` launched (padding included), ``replay`` (1 where the plan
-        served it, else 0), ``n_real`` and ``n_fallback``. Inside it, in
-        order, on one device: ``engine.prepare`` (the ids clipped to
-        [0, I), mapped to their serving rows and padded with the first,
-        into the plan's pinned buffer),
-        ``engine.upload`` (one non-blocking copy to the card),
-        ``engine.launch`` (the replay and its event, or the kernel's
-        wrapper on the CPU), ``engine.readback`` (the fallback mask while
-        the kernel runs, the wait, the slates copied out of the pinned
-        packet) and ``engine.finish`` (the stats, the fallback overwrite);
+        replayed it on a card, else 0), ``n_real`` and ``n_fallback``.
+        Inside it, in order, on one device: ``engine.prepare`` (the ids
+        clipped to [0, I), mapped to their serving rows and padded with
+        the first, into the plan's buffer), ``engine.upload`` (one
+        non-blocking copy to the card; none on the CPU), ``engine.launch``
+        (the replay and its event, or the kernel's wrapper on the CPU),
+        ``engine.readback`` (the fallback mask while the kernel runs, the
+        wait, the slates copied out of the plan) and ``engine.finish``
+        (the stats, the fallback overwrite);
         sharded, ``engine.prepare`` (the fallback mask),
         ``engine.serve_home`` and ``engine.finish``. Unknown ids are
         clipped to [0, I); a known user whose slate the popularity slate
@@ -595,13 +606,13 @@ class ServingEngine:
         d = self.stats.n_dispatches
         plan = self._plan
         with trace_lib.span("engine.serve_microbatch", dispatch=d, rows=R,
-                            replay=int(plan is not None)) as sp:
+                            replay=int(plan.replay and self.group is None)) as sp:
             with trace_lib.span("engine.prepare", dispatch=d):
                 user_ids = np.asarray(user_ids)
                 n = len(user_ids)
                 assert n <= R, f"serve_microbatch takes ≤ microbatch ids ({n} > {R})"
                 if self.group is None:
-                    buf = plan.ids_np if plan is not None else np.empty(R, np.int64)
+                    buf = plan.ids_np
                     # clipped to [0, I), then each user's serving row
                     np.take(self._serve_row, user_ids, mode="clip", out=buf[:n])
                     buf[n:] = buf[0]       # pad with a real row (results dropped)
@@ -614,26 +625,14 @@ class ServingEngine:
             if self.group is None:
                 with trace_lib.span("engine.upload", dispatch=d):
                     t0 = time.perf_counter()
-                    if plan is not None:
-                        plan.upload()
-                    else:
-                        uids = torch.as_tensor(buf, device=self.device)
+                    plan.upload()
                 with trace_lib.span("engine.launch", dispatch=d):
-                    if plan is not None:
-                        kernel = (ops.serve_topk_rows if self.cfg.prune
-                                  else ops.recommend_topk_peruser)
-                        self.stats.n_captures += plan.launch(self._operands(), self._launch,
-                                                             kernel)
-                        self.stats.n_replays += 1
-                    else:
-                        out = self._launch(uids)
+                    self.stats.n_captures += plan.launch(self._operands(), self._launch,
+                                                         self._kernel)
                 with trace_lib.span("engine.readback", dispatch=d):
                     flags = self._flags(user_ids)            # while the kernel runs
                     fallen = np.flatnonzero(flags)
-                    if plan is not None:
-                        vals, idx = (x[:n].copy() for x in plan.wait())
-                    else:
-                        vals, idx = (x.cpu().numpy()[:n] for x in out)
+                    vals, idx = (x[:n].copy() for x in plan.wait())
                     dt = time.perf_counter() - t0
             else:
                 vals, idx, dt = self._serve_home(user_ids, flags)
@@ -645,8 +644,7 @@ class ServingEngine:
                 self.stats.n_dispatches += 1
                 self.stats.n_requests += n
                 if n_fallback:      # by row numbers, found while the kernel ran
-                    vals[fallen] = self._pop_vals
-                    idx[fallen] = self._pop_items
+                    _overwrite(vals, idx, fallen, self._pop_items, self._pop_vals)
                     self.stats.n_fallbacks += n_fallback
         if return_flags:
             return vals, idx, flags, dt
@@ -707,8 +705,7 @@ class ServingEngine:
                 idx.append(i)
             vals, idx = np.concatenate(vals), np.concatenate(idx)
         if flags.any():
-            vals[flags] = self._pop_vals
-            idx[flags] = self._pop_items
+            _overwrite(vals, idx, flags, self._pop_items, self._pop_vals)
             self.stats.n_fallbacks += int(flags.sum())
         if return_flags:
             return vals, idx, flags
@@ -726,11 +723,11 @@ class ServingEngine:
         ocfg: online_lib.OnlineConfig = online_lib.OnlineConfig(),
         rng: np.random.Generator | None = None,
     ) -> online_lib.RefreshReport:
-        """Stream new check-ins through the online refresh (U/P/Q in place),
-        then patch V = P + Q on the touched rows and the seen-filter on the
-        new check-ins. Sharded, every rank refreshes its replicated state
-        alike (the same events, the same generator) and patches its own
-        rows; nothing crosses ranks."""
+        """Stream new check-ins through the online refresh (U/P/Q in place,
+        which the dispatches read), then set the new check-ins' seen bits.
+        Sharded, every rank refreshes its replicated state alike (the same
+        events, the same generator) and patches its own rows of the served
+        views; nothing crosses ranks."""
         assert self.nbr is not None and self.dmf_cfg is not None, (
             "engine built without nbr/dmf_cfg — online refresh unavailable")
         events = np.asarray(events)
@@ -740,9 +737,6 @@ class ServingEngine:
                 rng if rng is not None else self._rng)
         if self.group is not None:
             self._patch_rows(report, events)
-        elif len(report.touched_users):
-            t = torch.as_tensor(report.touched_users, device=self.device)
-            self.V[t] = self.state.P[t] + self.state.Q[t]
         if len(events):
             ev = torch.as_tensor(events.astype(np.int64), device=self.device)
             self.seen[ev[:, 0], ev[:, 1]] = 1
@@ -752,7 +746,7 @@ class ServingEngine:
             u = events[:, 0].astype(np.int64)
             self._cold[u] = False
             self._serve_row[u] = np.where(self._flags(u), 0, u)
-            self._refresh_popularity()
+            self._pop_items, self._pop_vals = _popularity(self._item_counts, self.cfg.k)
         self.stats.n_refreshes += 1
         self.stats.n_events += int(len(events))
         return report

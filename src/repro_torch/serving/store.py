@@ -19,10 +19,10 @@ host numpy and gathers windows on the host, the port keeps every slab on
 the store's device (an H100's 80 GB holds all three precisions at once):
 a dispatch uploads R user ids and runs one kernel. int8 and bf16 read the
 store in place (`ops.serve_topk_tiled_quant`); fp32 gathers R windows on
-the device first (`ops.serve_topk_window`). On a card the dispatch is a
-captured CUDA graph, replayed (`serving/engine.py` `_DispatchPlan`). The
-index, the cold flags and the item counts stay host numpy; so does the
-popularity fallback.
+the device first (`ops.serve_topk_window`). The dispatch goes through
+`serving/engine.py`'s `_DispatchPlan`: on a card a captured CUDA graph,
+replayed. The index, the cold flags and the item counts stay host numpy;
+so does the popularity fallback (`serving/engine.py`'s, shared).
 
 Quantization, exact to the reference's numpy and bf16 cast bit for bit:
 
@@ -48,7 +48,8 @@ from repro_torch import device as device_lib
 from repro_torch.kernels import ops
 from repro_torch.obs import trace as trace_lib
 from repro_torch.serving.candidates import CandidateIndex
-from repro_torch.serving.engine import EngineStats, ServingConfig, _DispatchPlan
+from repro_torch.serving.engine import (EngineStats, ServingConfig, _DispatchPlan, _overwrite,
+                                        _popularity)
 
 _BF16_EPS = 2.0 ** -8     # round-to-nearest relative error bound of bfloat16
 
@@ -397,14 +398,9 @@ class TiledServingEngine:
         self._user_bucket = torch.as_tensor(store.index.user_bucket, dtype=torch.int64,
                                             device=dev)
         self._bucket_empty = (store.index.bucket_items < 0).all(axis=1)
-        # the popularity slate, built as ServingEngine._refresh_popularity
-        top = np.argsort(-store.item_counts, kind="stable")
-        self._pop_items = top[: cfg.k].astype(np.int32)
-        peak = max(int(store.item_counts.max()), 1)
-        self._pop_vals = (store.item_counts[self._pop_items] / peak).astype(np.float32)
-        # the dispatch captured and replayed (a store on a card)
-        self._plan = (_DispatchPlan(dev, cfg.microbatch, cfg.k) if dev.type == "cuda"
-                      else None)
+        self._pop_items, self._pop_vals = _popularity(store.item_counts, cfg.k)
+        self._plan = _DispatchPlan(dev, cfg.microbatch, cfg.k)
+        self._kernel = ops.serve_topk_window if mode == "fp32" else ops.serve_topk_tiled_quant
 
     def _fallback_mask(self, user_ids: np.ndarray) -> np.ndarray:
         uids = np.asarray(user_ids)
@@ -441,24 +437,25 @@ class TiledServingEngine:
         of `ServingEngine.recommend` (fallback slates flagged), in fresh
         arrays each call.
 
-        On a card each microbatch is served from a captured plan
-        (`_DispatchPlan`): one CUDA graph replay of `_launch`, captured on
-        the first dispatch and again whenever an operand it reads moved
-        (``stats.n_captures``; ``stats.n_replays`` counts the replays). On
-        the CPU the same phases call the kernels' plain versions.
+        Each microbatch goes through the engine's plan (`_DispatchPlan`):
+        on a card one CUDA graph replay of `_launch`, captured on the
+        first dispatch and again whenever an operand it reads moved
+        (``stats.n_captures``); on the CPU the same phases call the
+        kernels' plain versions.
 
         Each microbatch is one dispatch, in the reference's
         ``tiled.dispatch`` span: its args are ``mode``, the engine's
         ``dispatch`` number, ``rows`` launched (padding included),
-        ``replay`` (1 where the plan served it, else 0), ``n_real`` and
-        ``n_fallback``. Inside it, in order: ``tiled.prepare`` (the ids,
-        padded with the first, into the plan's pinned buffer),
-        ``tiled.upload`` (one non-blocking copy to the card), ``tiled.launch``
-        (the operands' pointers checked, the replay and its event; on the
-        CPU the gathers for fp32 and the kernel's wrapper),
-        ``tiled.readback`` (the wait for the event; on the CPU the slates
-        as arrays) and ``tiled.finish`` (one copy of the packet's rows into
-        the call's outputs, the stats); each has the ``dispatch`` arg."""
+        ``replay`` (1 where the plan replayed it on a card, else 0),
+        ``n_real`` and ``n_fallback``. Inside it, in order:
+        ``tiled.prepare`` (the ids, padded with the first, into the plan's
+        buffer), ``tiled.upload`` (one non-blocking copy to the card; none
+        on the CPU), ``tiled.launch`` (the operands' pointers checked, the
+        replay and its event; on the CPU the gathers for fp32 and the
+        kernel's wrapper), ``tiled.readback`` (the wait for the event; on
+        the CPU the slates as arrays) and ``tiled.finish`` (one copy of the
+        plan's rows into the call's outputs, the stats); each has the
+        ``dispatch`` arg."""
         user_ids = np.asarray(user_ids)
         R, k = self.cfg.microbatch, self.cfg.k
         n = len(user_ids)
@@ -471,35 +468,24 @@ class TiledServingEngine:
         vals = np.empty((n, k), np.float32)
         idx = np.empty((n, k), np.int32)
         plan = self._plan
-        kernel = ops.serve_topk_window if self.mode == "fp32" else ops.serve_topk_tiled_quant
         t_call = time.perf_counter()
         for s in range(0, n, R):
             e = min(s + R, n)
             d = self.stats.n_dispatches
             with trace_lib.span("tiled.dispatch", mode=self.mode, dispatch=d, rows=R,
-                                replay=int(plan is not None)) as sp:
+                                replay=int(plan.replay)) as sp:
                 with trace_lib.span("tiled.prepare", dispatch=d):
-                    buf = plan.ids_np if plan is not None else np.empty(R, np.int64)
+                    buf = plan.ids_np
                     buf[: e - s] = safe_ids[s:e]
                     buf[e - s:] = buf[0]   # pad with a real id (results dropped)
                 with trace_lib.span("tiled.upload", dispatch=d):
                     t0 = time.perf_counter()
-                    if plan is not None:
-                        plan.upload()
-                    else:
-                        ids = torch.as_tensor(buf, device=self.store.device)
+                    plan.upload()
                 with trace_lib.span("tiled.launch", dispatch=d):
-                    if plan is not None:
-                        self.stats.n_captures += plan.launch(self._operands(), self._launch,
-                                                             kernel)
-                        self.stats.n_replays += 1
-                    else:
-                        slates = self._launch(ids)
+                    self.stats.n_captures += plan.launch(self._operands(), self._launch,
+                                                         self._kernel)
                 with trace_lib.span("tiled.readback", dispatch=d):
-                    if plan is not None:
-                        v, i = plan.wait()
-                    else:
-                        v, i = (x.numpy() for x in slates)
+                    v, i = plan.wait()
                     t1 = time.perf_counter()
                 with trace_lib.span("tiled.finish", dispatch=d):
                     vals[s:e] = v[: e - s]
@@ -511,8 +497,7 @@ class TiledServingEngine:
                     if sp is not None:
                         sp.args.update(n_real=e - s, n_fallback=int(flags[s:e].sum()))
         if flags.any():
-            vals[flags] = self._pop_vals
-            idx[flags] = self._pop_items
+            _overwrite(vals, idx, flags, self._pop_items, self._pop_vals)
             self.stats.n_fallbacks += int(flags.sum())
         if return_flags:
             return vals, idx, flags

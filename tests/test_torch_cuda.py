@@ -631,9 +631,9 @@ except RuntimeError as e:
 
 
 def test_serving_engine_pruned_dispatches_launch_one_in_place_kernel(dev):
-    """`recommend` (on V) and `serve_microbatch` (on P and Q) pruned: one
+    """`recommend` and `serve_microbatch` pruned, both on P and Q: one
     launch of kernel 5 in place a microbatch, none of kernel 1, and the
-    slates of kernel 1 on the gathered windows, bit for bit."""
+    slates of kernel 1 on the gathered windows of P + Q, bit for bit."""
     from repro_torch.core import dmf
     from repro_torch.data import synthetic_poi
     from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
@@ -650,7 +650,7 @@ def test_serving_engine_pruned_dispatches_launch_one_in_place_kernel(dev):
     assert ops.serve_topk_window.launches == before[1]
     keep = np.flatnonzero(~flags)
     uids = torch.as_tensor(ids[keep], device=dev)
-    u, vw, _, cand, sw = _rows_gathered(uids, eng.state.U, eng.V, eng.state.Q, eng.seen,
+    u, _, vw, cand, sw = _rows_gathered(uids, eng.state.U, eng.state.P, eng.state.Q, eng.seen,
                                         eng._user_bucket, eng._bucket_items)
     wv, wi = ops.serve_topk_window(u, vw.contiguous(), cand, sw.contiguous(), 10)
     np.testing.assert_array_equal(vals[keep], wv.cpu().numpy())
@@ -721,7 +721,7 @@ def test_dispatch_plan_slates_equal_a_direct_kernel_call(dev, prune, n):
     got = eng.serve_microbatch(ids, return_flags=True)
     assert got[2][:5].all() and got[0].shape == (n, 5)
     _hold_plan(eng, ids, got)
-    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 1)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 1)
 
 
 @pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
@@ -742,7 +742,7 @@ def test_dispatch_plan_counts_one_launch_a_dispatch_and_returns_fresh_arrays(dev
     for a, b, c in zip(first[:2], kept, second[:2]):
         np.testing.assert_array_equal(a, b)
         assert not np.shares_memory(a, c)
-    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 4, 4)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 4)
 
 
 @pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
@@ -768,14 +768,14 @@ def test_dispatch_plan_follows_ingest_in_place_and_recaptures_on_new_state(dev, 
     got = eng.serve_microbatch(ids, return_flags=True)
     assert eng.stats.n_captures == 3
     assert (got[1][~got[2]] == -1).all()          # every item seen: nothing to serve
-    assert eng.stats.n_replays == 4
+    assert eng.stats.n_dispatches == 4
 
 
 @pytest.mark.parametrize("prune,pattern", [(False, r"\btopk_rows_kernel\b"),
                                            (True, r"\bserve_topk_kernel\b")],
                          ids=["dense", "pruned"])
-def test_dispatch_plan_replays_one_kernel_a_dispatch_under_a_profiler(dev, prune, pattern,
-                                                                       tmp_path):
+def test_dispatch_plan_replay_runs_one_kernel_a_dispatch_under_a_profiler(dev, prune, pattern,
+                                                                           tmp_path):
     """Under `torch.profiler` (the plan captured before it starts), the
     trace holds the kernel once for each replayed dispatch."""
     import re
@@ -792,7 +792,39 @@ def test_dispatch_plan_replays_one_kernel_a_dispatch_under_a_profiler(dev, prune
     rx = re.compile(pattern)
     kernels = [e for e in evs if e.get("cat") == "kernel" and rx.search(e.get("name", ""))]
     assert len(kernels) == 5, [e.get("name") for e in evs if e.get("cat") == "kernel"]
-    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 6)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 6)
+
+
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
+def test_recommend_and_serve_microbatch_share_one_capture(dev, prune):
+    """`recommend` (through `serve_stream`) and `serve_microbatch` on one
+    engine dispatch through one plan: one capture for both, one launch of
+    the mode's kernel a dispatch and none of the other's."""
+    ds, eng = _plan_engine(dev, prune)
+    mine, other = ((ops.serve_topk_rows, ops.recommend_topk_peruser) if prune
+                   else (ops.recommend_topk_peruser, ops.serve_topk_rows))
+    before = (mine.launches, other.launches)
+    eng.recommend(_plan_ids(ds, 2 * PLAN_R + 9))
+    assert (mine.launches, other.launches) == (before[0] + 3, before[1])
+    eng.serve_microbatch(_plan_ids(ds, PLAN_R, 1))
+    assert (mine.launches, other.launches) == (before[0] + 4, before[1])
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 4)
+
+
+@pytest.mark.parametrize("prune", [False, True], ids=["dense", "pruned"])
+def test_recommend_slates_equal_a_direct_kernel_call(dev, prune):
+    """`recommend` on one card: each microbatch's slates, the partial last
+    one included, bit for bit those of one direct kernel call on its ids;
+    the first microbatch equals `serve_microbatch`'s whole."""
+    ds, eng = _plan_engine(dev, prune)
+    ids = _plan_ids(ds, 3 * PLAN_R - 17)
+    got = eng.recommend(ids, return_flags=True)
+    assert got[2][:5].all() and got[0].shape == (len(ids), 5)
+    for s in range(0, len(ids), PLAN_R):
+        _hold_plan(eng, ids[s:s + PLAN_R], tuple(x[s:s + PLAN_R] for x in got))
+    first = eng.serve_microbatch(ids[:PLAN_R], return_flags=True)
+    for a, b in zip(first[:3], got):
+        np.testing.assert_array_equal(a, b[:PLAN_R])
 
 
 TILED_R = 64
@@ -866,7 +898,7 @@ def test_tiled_plan_slates_equal_the_unplanned_wrapper_path(dev, mode):
     got = eng.recommend(ids, return_flags=True)
     assert got[2][:3].all() and got[0].shape == (300, 10)
     _hold_tiled(eng, ids, got)
-    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 5, 5)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 5)
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
@@ -895,15 +927,15 @@ def test_tiled_plan_recaptures_on_a_reassigned_operand_and_only_then(dev, mode):
     assert (got[1][~got[2]] == -1).all()          # every item seen: nothing to serve
     _hold_tiled(eng, ids, got)
     eng.recommend(ids)
-    assert (eng.stats.n_captures, eng.stats.n_replays) == (3, 6 * 4)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (3, 6 * 4)
 
 
 @pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
 def test_tiled_plan_counts_one_launch_a_replay_and_none_for_the_capture(dev, mode):
     """The mode's kernel counter rises by one a replayed dispatch, by none
     for the warm-up and the capture, and the other kernel's not at all;
-    ``n_captures`` and ``n_replays`` count as the ``tiled.dispatch`` spans'
-    ``replay`` args say."""
+    the ``tiled.dispatch`` spans' ``replay`` args sum to ``n_dispatches``,
+    one capture among them."""
     from repro_torch.obs import trace as trace_lib
     eng = _tiled_plan_engine(dev, mode)
     mine, other = TILED_KERNELS[mode]
@@ -919,7 +951,7 @@ def test_tiled_plan_counts_one_launch_a_replay_and_none_for_the_capture(dev, mod
         trace_lib.set_tracer(saved)
     disp = [e["args"] for e in tracer.events() if e["name"] == "tiled.dispatch"]
     assert [a["replay"] for a in disp] == [1] * 6
-    assert (eng.stats.n_captures, eng.stats.n_replays, eng.stats.n_dispatches) == (1, 6, 6)
+    assert (eng.stats.n_captures, sum(a["replay"] for a in disp)) == (1, eng.stats.n_dispatches)
 
 
 def test_tiled_plan_returns_fresh_arrays(dev):
@@ -936,7 +968,7 @@ def test_tiled_plan_returns_fresh_arrays(dev):
         assert not np.shares_memory(a, p) and not np.shares_memory(c, p)
 
 
-def test_tiled_plan_replays_kernel_6_once_a_dispatch_under_a_profiler(dev, tmp_path):
+def test_tiled_plan_replay_runs_kernel_6_once_a_dispatch_under_a_profiler(dev, tmp_path):
     """Under `torch.profiler` (the plan captured before it starts), the
     trace holds kernel 6 on the int8 store once for each replayed
     dispatch, by the name the benchmark's roofline reader finds, and the
@@ -957,7 +989,7 @@ def test_tiled_plan_replays_kernel_6_once_a_dispatch_under_a_profiler(dev, tmp_p
     for phase in ("dispatch", "prepare", "upload", "launch", "readback", "finish"):
         assert sum(e.get("name") == f"tiled.{phase}" and e.get("cat") == "user_annotation"
                    for e in evs) == 5, phase
-    assert (eng.stats.n_captures, eng.stats.n_replays) == (1, 6)
+    assert (eng.stats.n_captures, eng.stats.n_dispatches) == (1, 6)
 
 
 @pytest.mark.parametrize("R,J,K,k", [(128, 256, 8, 5), (150, 500, 12, 10), (64, 1000, 15, 16),

@@ -491,7 +491,7 @@ def test_serve_microbatch_phases_each_dispatch_under_a_profiler(world, fresh, pr
     assert [(e["args"]["dispatch"], e["args"]["replay"], e["args"]["n_real"])
             for e in parents] == [(d, 0, len(b)) for d, b in enumerate(batches)]
     assert parents[-1]["args"]["n_fallback"] == 2
-    assert (eng.stats.n_replays, eng.stats.n_captures) == (0, 0)
+    assert eng.stats.n_captures == 0
     ann = _annotations(_profiler_doc(prof), ("engine.serve_microbatch",) + PHASES)
     assert all(len(v) == len(batches) for v in ann.values()), ann
     for d, (lo, hi) in enumerate(sorted(ann["engine.serve_microbatch"])):

@@ -146,16 +146,16 @@ def test_evaluate_reads_p_and_q_in_place(chunk):
 
 
 def test_engine_dense_dispatches_read_rows_in_place():
-    """The dense dispatches (`_dispatch_dense` on the served V, and
-    `_dispatch_rows` without pruning on P and Q) give the kernel's slates on
-    the gathered rows bit for bit, for repeated and unsorted ids."""
+    """The dense dispatch (`_dispatch_rows` without pruning, on V with
+    ``Q=None`` and on P and Q) gives the kernel's slates on the gathered
+    rows bit for bit in both forms, for repeated and unsorted ids."""
     I, J, K = 19, 90, 10
     st = _state(6, I, J, K)
     V = st.P + st.Q
     seen = torch.as_tensor(np.random.default_rng(7).random((I, J)) < 0.2).to(torch.int8)
     uids = torch.tensor([4, 0, 17, 4, 9, 1, 18, 3], dtype=torch.int64)
     want = ops.recommend_topk_peruser(st.U[uids], V[uids], seen[uids], 10)
-    for got in (engine._dispatch_dense(st.U, V, seen, uids, 10),
+    for got in (engine._dispatch_rows(st.U, V, None, seen, None, None, uids, 10, False),
                 engine._dispatch_rows(st.U, st.P, st.Q, seen, None, None, uids, 10, False)):
         for a, b in zip(got, want):
             assert torch.equal(a, b)

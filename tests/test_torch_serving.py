@@ -174,6 +174,57 @@ def test_ingest_then_recommend_matches_reference(world, states, prune):
     assert not torch.equal(eng.state.U, state.U)
 
 
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "dense"])
+def test_recommend_and_serve_stream_equal_serve_microbatch(world, states, prune):
+    """`recommend` and `serve_stream` dispatch through the engine's plan,
+    as `serve_microbatch` does: over two full microbatches and a partial
+    one of known, non-flagged ids the three give the same slates bit for
+    bit."""
+    _, state = states
+    ds = world["ds"]
+    eng = ServingEngine(state, world["index"],
+                        ServingConfig(microbatch=MICROBATCH, k=10, prune=prune),
+                        train=ds.train, device="cpu")
+    ids = np.random.default_rng(2).permutation(ds.n_users)
+    ids = ids[~eng._flags(ids)][:2 * MICROBATCH + 13]
+    assert len(ids) == 2 * MICROBATCH + 13
+    parts = [eng.serve_microbatch(ids[s:s + MICROBATCH]) for s in range(0, len(ids), MICROBATCH)]
+    want = [np.concatenate([p[j] for p in parts]) for j in (0, 1)]
+    streamed = list(eng.serve_stream(ids))
+    assert [len(u) for u, _, _ in streamed] == [MICROBATCH, MICROBATCH, 13]
+    np.testing.assert_array_equal(np.concatenate([u for u, _, _ in streamed]), ids)
+    got = eng.recommend(ids)
+    for j in (0, 1):
+        np.testing.assert_array_equal(np.concatenate([s[j + 1] for s in streamed]), want[j])
+        np.testing.assert_array_equal(got[j], want[j])
+    assert (eng.stats.n_dispatches, eng.stats.n_fallbacks, eng.stats.n_captures) == (9, 0, 0)
+
+
+@pytest.mark.parametrize("prune", [True, False], ids=["pruned", "dense"])
+def test_ingest_then_recommend_equals_a_fresh_engine_on_the_ingested_state(world, states,
+                                                                            prune):
+    """After `ingest` the engine serves its patched state, no stale view:
+    `recommend`'s flags and factor slates equal, bit for bit, those of an
+    engine built fresh on the ingested state and seen mask (the popularity
+    slates may differ: the stream counts every check-in, a fresh engine
+    its distinct pairs)."""
+    _, state = states
+    ds = world["ds"]
+    cfg = ServingConfig(microbatch=MICROBATCH, k=10, prune=prune)
+    eng = ServingEngine(state, world["index"], cfg, train=ds.train, nbr=world["nbr"],
+                        dmf_cfg=world["cfg"], device="cpu")
+    ids = _requests(ds)
+    before = eng.recommend(ids)
+    assert len(eng.ingest(ds.test, OnlineConfig(**OCFG)).touched_users)
+    fresh = ServingEngine(eng.state, world["index"], cfg, seen=eng.seen.numpy(), device="cpu")
+    got, want = (e.recommend(ids, return_flags=True) for e in (eng, fresh))
+    live = ~got[2]
+    np.testing.assert_array_equal(got[2], want[2])
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(a[live], b[live])
+    assert not np.array_equal(before[0][live], got[0][live])
+
+
 def test_serve_microbatch_matches_reference(world, states):
     ref_eng, eng = _engines(world, states, True)
     ids = _requests(world["ds"])[-MICROBATCH:]
@@ -213,7 +264,7 @@ def test_serve_microbatch_mask_behind_the_launch_matches_reference(world, states
     np.testing.assert_array_equal(got[1][~flags], _oracle_ids(ref_eng, ids, flags))
     np.testing.assert_allclose(got[0], np.asarray(expect[0]), rtol=1e-6, atol=1e-6)
     assert eng.stats.n_fallbacks == ref_eng.stats.n_fallbacks == int(flags.sum())
-    assert (eng.stats.n_replays, eng.stats.n_captures) == (0, 0)
+    assert (eng.stats.n_captures, eng._plan.replay) == (0, False)
 
 
 @pytest.mark.parametrize("prune", [True, False], ids=["pruned", "dense"])

@@ -241,9 +241,10 @@ def _oracle_ids(ref_eng, rows):
     return np.asarray(idx)
 
 
-def _spy(monkeypatch, eng, with_q):
-    """Record each in-place call (on the engine's own tensors); refuse the
-    window kernel, which the pruned dispatches no longer call."""
+def _spy(monkeypatch, eng):
+    """Record each in-place call (on the engine's own U, P, Q and seen);
+    refuse the window kernel, which the pruned dispatches no longer
+    call."""
     calls = []
     in_place = engine_mod.ops.serve_topk_rows
 
@@ -251,7 +252,7 @@ def _spy(monkeypatch, eng, with_q):
         calls.append(ids.clone())
         assert U is eng.state.U and seen is eng.seen
         assert user_bucket is eng._user_bucket and bucket_items is eng._bucket_items
-        assert (V is eng.state.P and Q is eng.state.Q) if with_q else (V is eng.V and Q is None)
+        assert V is eng.state.P and Q is eng.state.Q
         return in_place(ids, U, V, seen, user_bucket, bucket_items, k, Q=Q)
 
     def refuse(*a, **kw):
@@ -264,7 +265,7 @@ def _spy(monkeypatch, eng, with_q):
 
 def test_engine_pruned_recommend_reads_the_state_in_place(engines, monkeypatch):
     ref_eng, eng, ids = engines
-    calls = _spy(monkeypatch, eng, with_q=False)
+    calls = _spy(monkeypatch, eng)
     vals, idx, flags = eng.recommend(ids, return_flags=True)
     assert len(calls) == eng.stats.n_dispatches == 3
     rv, ri, rf = ref_eng.recommend(ids, return_flags=True)
@@ -277,8 +278,11 @@ def test_engine_pruned_recommend_reads_the_state_in_place(engines, monkeypatch):
 def test_engine_serve_microbatch_reads_p_and_q_in_place(engines, monkeypatch):
     ref_eng, eng, ids = engines
     batch = ids[-MICROBATCH:]
-    on_v = eng.recommend(batch)
-    calls = _spy(monkeypatch, eng, with_q=True)
+    on_v = engine_mod._dispatch_rows(
+        eng.state.U, eng.state.P + eng.state.Q, None, eng.seen, eng._bucket_items,
+        eng._user_bucket, torch.as_tensor(np.clip(batch, 0, eng._n_users - 1)), 10, True)
+    via_recommend = eng.recommend(batch)
+    calls = _spy(monkeypatch, eng)
     got = eng.serve_microbatch(batch, return_flags=True)
     assert len(calls) == 1
     expect = ref_eng.serve_microbatch(batch, return_flags=True)
@@ -287,6 +291,8 @@ def test_engine_serve_microbatch_reads_p_and_q_in_place(engines, monkeypatch):
         np.testing.assert_allclose(a, np.asarray(b), rtol=TOL, atol=TOL)
     flags = got[2]
     np.testing.assert_array_equal(got[1][~flags], _oracle_ids(ref_eng, batch[~flags]))
-    # P and Q in place serve what V in place serves, bit for bit
-    np.testing.assert_array_equal(got[1], on_v[1])
-    np.testing.assert_array_equal(got[0], on_v[0])
+    # P and Q in place serve what V in place serves, bit for bit, and
+    # `recommend` serves the same slates
+    for a, b, c in zip(got[:2], on_v, via_recommend):
+        np.testing.assert_array_equal(a[~flags], b.numpy()[~flags])
+        np.testing.assert_array_equal(a, c)

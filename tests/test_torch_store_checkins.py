@@ -162,7 +162,7 @@ def test_tiled_dispatch_on_the_cpu_is_no_replay(world, mode):
     assert [e["args"]["replay"] for e in disp] == [0] * n_disp
     assert all({"mode", "dispatch", "rows", "replay", "n_real", "n_fallback"}
                <= e["args"].keys() for e in disp)
-    assert (eng.stats.n_captures, eng.stats.n_replays) == (0, 0)
+    assert eng.stats.n_captures == 0
     assert [e["args"]["dispatch"] for e in disp] == list(range(n_disp))
     for d, outer in enumerate(disp):
         inner = sorted((e for e in evs if e["name"] in PHASES and e["args"]["dispatch"] == d),
