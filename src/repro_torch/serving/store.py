@@ -401,6 +401,7 @@ class TiledServingEngine:
         self._pop_items, self._pop_vals = _popularity(store.item_counts, cfg.k)
         self._plan = _DispatchPlan(dev, cfg.microbatch, cfg.k)
         self._kernel = ops.serve_topk_window if mode == "fp32" else ops.serve_topk_tiled_quant
+        self._out_ptrs: set[int] = set()      # base addresses of the outputs handed out
 
     def _fallback_mask(self, user_ids: np.ndarray) -> np.ndarray:
         uids = np.asarray(user_ids)
@@ -416,6 +417,25 @@ class TiledServingEngine:
         win = {"fp32": (st.slab,), "int8": (st.q_codes, st.q_scale),
                "bf16": (st.slab_bf16,)}[self.mode]
         return (st.U, *win, self._user_bucket, self._bucket_items, st.seen)
+
+    def _outputs(self, n: int) -> tuple[np.ndarray, np.ndarray, int]:
+        """A call's outputs, vals (n, k) f32 and idx (n, k) i32, and whether
+        this engine handed their memory out before (1) or not (0). On a
+        card both are numpy views of one block of PyTorch's pinned caching
+        host allocator, vals first, as the plan's packet is laid out: the
+        block stays the caller's while either view lives, then goes back
+        to the allocator's free list (no stream used it), and a later call
+        of a like size gets it back with its pages resident instead of
+        faulting in fresh ones. On the CPU they are fresh arrays (0)."""
+        k = self.cfg.k
+        if not self._plan.replay:
+            return np.empty((n, k), np.float32), np.empty((n, k), np.int32), 0
+        buf = torch.empty(8 * n * k, dtype=torch.uint8, pin_memory=True)
+        ptr = buf.data_ptr()
+        reused = int(ptr in self._out_ptrs)
+        self._out_ptrs.add(ptr)
+        return (buf[:4 * n * k].view(torch.float32).view(n, k).numpy(),
+                buf[4 * n * k:].view(torch.int32).view(n, k).numpy(), reused)
 
     def _launch(self, ids: torch.Tensor):
         """One fixed-shape microbatch on the store's device, the ids already
@@ -434,8 +454,12 @@ class TiledServingEngine:
 
     def recommend(self, user_ids, return_flags: bool = False):
         """Serve a batch of user ids, results in input order — the contract
-        of `ServingEngine.recommend` (fallback slates flagged), in fresh
-        arrays each call.
+        of `ServingEngine.recommend` (fallback slates flagged), in arrays
+        the caller owns: no later call writes them while they live. On a
+        card they are views of one block of pinned host memory
+        (`_outputs`), held until the caller drops both; a later call gets
+        the block back with its pages resident. On the CPU they are fresh
+        arrays.
 
         Each microbatch goes through the engine's plan (`_DispatchPlan`):
         on a card one CUDA graph replay of `_launch`, captured on the
@@ -447,6 +471,8 @@ class TiledServingEngine:
         ``tiled.dispatch`` span: its args are ``mode``, the engine's
         ``dispatch`` number, ``rows`` launched (padding included),
         ``replay`` (1 where the plan replayed it on a card, else 0),
+        ``out_reused`` (1 where the call's outputs start at an address this
+        engine handed out before, else 0, as on every CPU dispatch),
         ``n_real`` and ``n_fallback``. Inside it, in order:
         ``tiled.prepare`` (the ids, padded with the first, into the plan's
         buffer), ``tiled.upload`` (one non-blocking copy to the card; none
@@ -465,15 +491,14 @@ class TiledServingEngine:
         flags = (self._fallback_mask(user_ids) if self.cfg.fallback
                  else np.zeros(n, bool))
         safe_ids = np.where(flags, 0, user_ids).astype(np.int64)
-        vals = np.empty((n, k), np.float32)
-        idx = np.empty((n, k), np.int32)
+        vals, idx, reused = self._outputs(n)
         plan = self._plan
         t_call = time.perf_counter()
         for s in range(0, n, R):
             e = min(s + R, n)
             d = self.stats.n_dispatches
             with trace_lib.span("tiled.dispatch", mode=self.mode, dispatch=d, rows=R,
-                                replay=int(plan.replay)) as sp:
+                                replay=int(plan.replay), out_reused=reused) as sp:
                 with trace_lib.span("tiled.prepare", dispatch=d):
                     buf = plan.ids_np
                     buf[: e - s] = safe_ids[s:e]

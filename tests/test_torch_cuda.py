@@ -29,7 +29,8 @@ one launch a dispatch, returns fresh arrays, keeps its graph across
 `ingest` and captures again on a reassigned state; the tiled engine's plan
 (the same class) gives the wrapper's slates bit for bit in int8, bf16 and
 fp32, captures again only on a reassigned operand, counts one launch a
-replay and returns fresh arrays. The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
+replay and returns fresh arrays, views of a pinned host block that a later
+call gets back once they are dropped (``out_reused``). The per-user top-k (kernel 2) reading rows in place (``rows``, ``Q``)
 and in every layout equals the call on the materialized rows bit for bit.
 The shared-V top-k (`recommend_topk`, kernel 4) is held like the
 other top-k kernels, and on one user with V = p^i + q^i equals the
@@ -966,6 +967,43 @@ def test_tiled_plan_returns_fresh_arrays(dev):
         np.testing.assert_array_equal(a, b)
         assert not np.shares_memory(a, c)
         assert not np.shares_memory(a, p) and not np.shares_memory(c, p)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16", "fp32"])
+def test_tiled_outputs_come_back_from_the_pinned_cache(dev, mode):
+    """On a card a call's outputs are views of one pinned host block: a
+    second call leaves a held first result as it was and shares no memory
+    with it; once the first is dropped, the next call of the same size
+    (the second still held) gets its block back, ``out_reused`` 1 on every
+    dispatch (0 on the two calls before); its slates are bit for bit the
+    first call's copied out and the unplanned path's, and the popularity
+    slate still lands on the flagged rows."""
+    from repro_torch.obs import trace as trace_lib
+    eng = _tiled_plan_engine(dev, mode)
+    ids = _tiled_ids(300, 6)
+    saved = trace_lib.get_tracer()
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+        first = eng.recommend(ids, return_flags=True)
+        kept = [np.array(x, copy=True) for x in first]
+        second = eng.recommend(ids[::-1], return_flags=True)
+        for j in range(3):
+            np.testing.assert_array_equal(first[j], kept[j])
+            assert not np.shares_memory(first[j], second[j])
+        assert not np.shares_memory(first[0], first[1])
+        del first
+        third = eng.recommend(ids, return_flags=True)
+    finally:
+        trace_lib.set_tracer(saved)
+    disp = [e["args"] for e in tracer.events() if e["name"] == "tiled.dispatch"]
+    assert [a["out_reused"] for a in disp] == [0] * 10 + [1] * 5
+    assert torch.from_numpy(third[0]).is_pinned() and torch.from_numpy(third[1]).is_pinned()
+    for a, b in zip(third, kept):
+        np.testing.assert_array_equal(a, b)
+    _hold_tiled(eng, ids, third)
+    flags = third[2]
+    assert flags[:3].all()
+    assert (third[0][flags] == eng._pop_vals).all() and (third[1][flags] == eng._pop_items).all()
 
 
 def test_tiled_plan_replay_runs_kernel_6_once_a_dispatch_under_a_profiler(dev, tmp_path):

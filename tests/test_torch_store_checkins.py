@@ -189,3 +189,31 @@ def test_tiled_recommend_returns_fresh_arrays_each_call(world, mode):
         np.testing.assert_array_equal(a, b)
         assert not np.shares_memory(a, c)
     np.testing.assert_array_equal(second[1][-99:], first[1][101:][::-1])   # users 199..101
+
+
+@pytest.mark.parametrize("mode", ["fp32", "int8", "bf16"])
+def test_tiled_outputs_on_the_cpu_are_never_reused(world, mode):
+    """On the CPU every call's outputs are fresh arrays: each
+    ``tiled.dispatch`` span of three calls, the first result dropped before
+    the third, carries ``out_reused`` 0; two held results share no memory,
+    nor do vals and idx of one call."""
+    index, synth, pairs = world
+    st = TiledFactorStore.from_checkins(synth, index, pairs, device="cpu")
+    eng = TiledServingEngine(st, ServingConfig(microbatch=MICROBATCH, k=10), mode=mode)
+    ids = np.arange(I)[::-1]
+    saved = trace_lib.get_tracer()
+    try:
+        tracer = trace_lib.set_tracer(trace_lib.Tracer(enabled=True))
+        first = eng.recommend(ids)
+        second = eng.recommend(ids)
+        for a, b in zip(first, second):
+            np.testing.assert_array_equal(a, b)
+            assert not np.shares_memory(a, b)
+        assert not np.shares_memory(*first)
+        del first
+        eng.recommend(ids)
+    finally:
+        trace_lib.set_tracer(saved)
+    disp = [e["args"] for e in tracer.events() if e["name"] == "tiled.dispatch"]
+    assert len(disp) == 3 * -(-I // MICROBATCH) == eng.stats.n_dispatches
+    assert [a["out_reused"] for a in disp] == [0] * len(disp)
