@@ -9,7 +9,8 @@ reference's trace spans ``engine.dispatch``, ``engine.serve_microbatch``,
 ``engine.serve_wave`` and ``engine.ingest``, and the phases of a
 `serve_microbatch` dispatch inside its span (``engine.prepare``,
 ``.upload``, ``.launch``, ``.readback``, ``.finish``; sharded
-``.serve_home``).
+``.serve_home``) and of an ingest inside its own (the online refresh's
+``online.*`` spans, then ``engine.patch``).
 
 Request path:
 
@@ -98,6 +99,7 @@ class EngineStats:
     n_dispatches: int = 0
     n_refreshes: int = 0
     n_events: int = 0
+    n_touched: int = 0       # Σ touched users (affected ∪ receivers) over ingests
     n_fallbacks: int = 0
     n_captures: int = 0      # the dispatch plan captured (one device, a card)
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
@@ -727,28 +729,47 @@ class ServingEngine:
         which the dispatches read), then set the new check-ins' seen bits.
         Sharded, every rank refreshes its replicated state alike (the same
         events, the same generator) and patches its own rows of the served
-        views; nothing crosses ranks."""
+        views; nothing crosses ranks.
+
+        Traced, an ingest is one ``engine.ingest`` span from entry to
+        return, its args the ingest's number ``round`` (``n_refreshes``
+        before it), ``n_events``, ``n_rows`` (events and negatives a
+        step), ``n_batches`` (update calls over all steps), ``n_affected``
+        and ``n_touched``; inside it the refresh's own spans
+        (`online.online_refresh`), then ``engine.patch`` (the served views'
+        rows when sharded, the seen bits, the cold and serving-row maps,
+        the popularity slate). ``stats.n_touched`` adds up the touched
+        users."""
         assert self.nbr is not None and self.dmf_cfg is not None, (
             "engine built without nbr/dmf_cfg — online refresh unavailable")
         events = np.asarray(events)
-        with trace_lib.span("engine.ingest", n_events=len(events)):
+        rnd = self.stats.n_refreshes
+        with trace_lib.span("engine.ingest", round=rnd, n_events=len(events)) as sp:
             self.state, report = online_lib.online_refresh(
                 self.state, self.nbr, events, self.dmf_cfg, ocfg,
                 rng if rng is not None else self._rng)
-        if self.group is not None:
-            self._patch_rows(report, events)
-        if len(events):
-            ev = torch.as_tensor(events.astype(np.int64), device=self.device)
-            self.seen[ev[:, 0], ev[:, 1]] = 1
-            # a user with a first check-in stops being cold; popularity
-            # tracks the stream
-            np.add.at(self._item_counts, events[:, 1].astype(np.int64), 1)
-            u = events[:, 0].astype(np.int64)
-            self._cold[u] = False
-            self._serve_row[u] = np.where(self._flags(u), 0, u)
-            self._pop_items, self._pop_vals = _popularity(self._item_counts, self.cfg.k)
+            with trace_lib.span("engine.patch", round=rnd):
+                if self.group is not None:
+                    self._patch_rows(report, events)
+                if len(events):
+                    ev = torch.as_tensor(events.astype(np.int64), device=self.device)
+                    self.seen[ev[:, 0], ev[:, 1]] = 1
+                    # a user with a first check-in stops being cold;
+                    # popularity tracks the stream
+                    np.add.at(self._item_counts, events[:, 1].astype(np.int64), 1)
+                    u = events[:, 0].astype(np.int64)
+                    self._cold[u] = False
+                    self._serve_row[u] = np.where(self._flags(u), 0, u)
+                    self._pop_items, self._pop_vals = _popularity(self._item_counts,
+                                                                  self.cfg.k)
+            if sp is not None:
+                sp.args.update(n_rows=len(events) * (1 + ocfg.neg_samples),
+                               n_batches=report.n_batches,
+                               n_affected=len(report.affected_users),
+                               n_touched=len(report.touched_users))
         self.stats.n_refreshes += 1
         self.stats.n_events += int(len(events))
+        self.stats.n_touched += len(report.touched_users)
         return report
 
     def _patch_rows(self, report: online_lib.RefreshReport, events: np.ndarray) -> None:

@@ -18,6 +18,14 @@ outgoing message as training — the online channel is no side door around
 it. Each `online_refresh` call draws one fresh mechanism seed from its rng
 (before sampling the negatives; DP off: no draw) and keys each row's noise
 by its position in the refresh stream, ``step·stream_len + s + arange``.
+
+Traced (`obs/trace.py`), a refresh records ``online.touched`` (the walk
+table's receivers read back), then a step at a time ``online.sample``
+(the step's negatives drawn, its batches padded and uploaded; args
+``step``, ``rows``, ``batches``) followed by one ``online.update`` a batch
+(the Eq. 9-11 step and its loss read back to the host; args ``step``,
+``batch``). The draws, the batches and every update are those of the
+untraced refresh.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ import torch
 
 from repro_torch.core import dmf
 from repro_torch.core import graph as graph_lib
+from repro_torch.obs import trace as trace_lib
 from repro_torch.privacy import mechanism
 
 
@@ -110,17 +119,22 @@ def online_refresh(
             "online_refresh with DP on needs an explicit persistent rng — "
             "the default would reuse the same noise stream every call")
     rng = rng or np.random.default_rng(cfg.seed)
-    affected, touched = touched_from_events(events, nbr)
+    with trace_lib.span("online.touched"):
+        affected, touched = touched_from_events(events, nbr)
     dp_seed = mechanism.epoch_noise_seed(rng, cfg) if cfg.dp else 0
     stream_len = len(events) * (1 + ocfg.neg_samples)
+    n_batches = -(-stream_len // ocfg.batch_cap)
     losses = []
     for step in range(ocfg.steps):
-        for ui, vj, r, conf, valid, rid in _event_batches(
-                events, cfg, ocfg, rng, state.U.device, rid_offset=step * stream_len):
-            loss = dmf._sparse_batch_update(
-                state.U, state.P, state.Q, nbr.idx, nbr.wgt, ui, vj, r, conf, cfg,
-                valid=valid, rid=rid, dp_seed=dp_seed)
-            losses.append(float(loss))
+        with trace_lib.span("online.sample", step=step, rows=stream_len, batches=n_batches):
+            batches = list(_event_batches(events, cfg, ocfg, rng, state.U.device,
+                                          rid_offset=step * stream_len))
+        for b, (ui, vj, r, conf, valid, rid) in enumerate(batches):
+            with trace_lib.span("online.update", step=step, batch=b):
+                loss = dmf._sparse_batch_update(
+                    state.U, state.P, state.Q, nbr.idx, nbr.wgt, ui, vj, r, conf, cfg,
+                    valid=valid, rid=rid, dp_seed=dp_seed)
+                losses.append(float(loss))
     report = RefreshReport(
         affected_users=affected,
         touched_users=touched,

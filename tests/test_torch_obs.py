@@ -39,6 +39,7 @@ from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as trace_lib
 from repro_torch.obs.telemetry import TELE_KEYS, TELE_W, device_stats_to_dict
 from repro_torch.robustness import AttackConfig, ChurnConfig, DefenseConfig
+from repro_torch.serving.online import OnlineConfig
 
 EPOCHS = 3
 NORM_RTOL, LOSS_RTOL = 1e-5, 1e-4
@@ -597,8 +598,9 @@ def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
     alike: `fit.epoch` per epoch, `engine.dispatch` per `recommend`
     microbatch, `engine.serve_microbatch`, `engine.ingest` and
     `tiled.dispatch`. The port adds its own inside them: `train_epoch`'s
-    four phases per epoch, `serve_microbatch`'s five and the tiled
-    dispatch's five."""
+    four phases per epoch, `serve_microbatch`'s five, the tiled
+    dispatch's five and the ingest's (`online.touched`, `online.sample` a
+    step, `online.update` a batch, `engine.patch`)."""
     from repro.serving import ServingConfig as RefServingConfig
     from repro.serving import ServingEngine as RefServingEngine
     from repro.serving import index_from_dataset as ref_index
@@ -630,10 +632,13 @@ def test_span_names_and_counts_equal_the_reference(ref, world, fresh):
     got, want = _span_counts(tracer), _span_counts(ref_tracer)
     assert {name: c for name, c in got.items() if name in want} == want
     n_disp = -(-len(ids) // 8)
+    steps = OnlineConfig().steps        # 40 rows a step: one batch of 256
     assert got == {"fit.epoch": EPOCHS, "engine.dispatch": n_disp,
                    "engine.serve_microbatch": 1, "engine.ingest": 1, "tiled.dispatch": n_disp,
                    **{name: EPOCHS for name in TRAIN_SPANS}, **{name: 1 for name in PHASES},
-                   **{name: n_disp for name in TILED_PHASES}}
+                   **{name: n_disp for name in TILED_PHASES},
+                   "online.touched": 1, "online.sample": steps, "online.update": steps,
+                   "engine.patch": 1}
     by_name = {e["name"]: e["args"] for e in tracer.events()}
     assert by_name["tiled.dispatch"]["mode"] == "fp32"
     assert by_name["engine.dispatch"]["prune"] is True
