@@ -32,7 +32,10 @@ Request path:
 3. **Online refresh** — `ingest` streams new check-ins through
    `serving/online.py` (the Eq. 9-11 step, `ops.dmf_fused_step`; with DP
    on, also the mechanism kernel `ops.dp_clip_noise`), which updates U, P
-   and Q in place, then sets the new check-ins' seen bits.
+   and Q in place, then sets the new check-ins' seen bits. With DP off
+   the batches go through the engine's update plan (`online.UpdatePlan`):
+   on a card one pinned upload a step, one CUDA graph replay a batch and
+   the losses read once an ingest; on the CPU the update called directly.
 
 Learner-sharded serving (``n_shards = D > 1``): the reference runs one
 SPMD program over a ``learners`` mesh; here a shard is one rank of a
@@ -102,6 +105,7 @@ class EngineStats:
     n_touched: int = 0       # Σ touched users (affected ∪ receivers) over ingests
     n_fallbacks: int = 0
     n_captures: int = 0      # the dispatch plan captured (one device, a card)
+    n_update_captures: int = 0   # the ingest's update plan captured (a card, DP off)
     dispatch_seconds: list[float] = dataclasses.field(default_factory=list)
     # per-request arrival→completion of `serve_stream` / `recommend`: a
     # request riding the w-th dispatch of a drain pays for every dispatch
@@ -328,6 +332,7 @@ class ServingEngine:
         self._rows = I                 # rows a shard: user u lives on shard u // _rows
         self._plan = _DispatchPlan(self.device, cfg.microbatch, cfg.k)   # one device's dispatch
         self._kernel = ops.serve_topk_rows if cfg.prune else ops.recommend_topk_peruser
+        self._update_plan = online_lib.UpdatePlan(self.device)   # the ingest's batch updates
         if group is not None:
             self._shard()
         # persistent stream: successive ingest() calls draw fresh negatives
@@ -731,6 +736,15 @@ class ServingEngine:
         events, the same generator) and patches its own rows of the served
         views; nothing crosses ranks.
 
+        With DP off the refresh runs through the engine's update plan
+        (`online.UpdatePlan`), kept across ingests: on a card a step's
+        batches go up in one pinned copy, each batch replays one captured
+        CUDA graph of the update (captured on the first batch, and again
+        whenever U, P, Q or the walk table moved; ``stats.n_update_captures``),
+        and the losses are read once, after the last batch; on the CPU
+        the plan calls the update directly. With DP on each batch uploads
+        its arrays and reads its loss back. The bits are the same.
+
         Traced, an ingest is one ``engine.ingest`` span from entry to
         return, its args the ingest's number ``round`` (``n_refreshes``
         before it), ``n_events``, ``n_rows`` (events and negatives a
@@ -745,9 +759,12 @@ class ServingEngine:
         events = np.asarray(events)
         rnd = self.stats.n_refreshes
         with trace_lib.span("engine.ingest", round=rnd, n_events=len(events)) as sp:
+            plan = self._update_plan
+            captures = plan.captures
             self.state, report = online_lib.online_refresh(
                 self.state, self.nbr, events, self.dmf_cfg, ocfg,
-                rng if rng is not None else self._rng)
+                rng if rng is not None else self._rng, plan)
+            self.stats.n_update_captures += plan.captures - captures
             with trace_lib.span("engine.patch", round=rnd):
                 if self.group is not None:
                     self._patch_rows(report, events)

@@ -1,10 +1,13 @@
 """The online refresh's spans and counter on one device (the CPU here):
 `ServingEngine.ingest` records ``engine.ingest`` with its args, inside it
 ``online.touched``, an ``online.sample`` a step each followed by its
-batches' ``online.update``, then ``engine.patch``, in that order; it adds
-the touched users to ``EngineStats.n_touched``; and the refresh with the
-tracer on leaves U, P, Q, the seen bits, the losses and the slates that
-it leaves with the tracer off, bit for bit."""
+batches' ``online.update`` (``replay`` 0 on every batch: the engine's
+update plan replays a graph only on a card), then ``engine.patch``, in
+that order; it adds the touched users to ``EngineStats.n_touched``; the
+refresh with the tracer on leaves U, P, Q, the seen bits, the losses and
+the slates that it leaves with the tracer off, bit for bit; and the
+engine's refresh through its plan leaves the losses, U, P and Q of the
+plain `online_refresh` without one."""
 import numpy as np
 import pytest
 import torch
@@ -12,7 +15,7 @@ import torch
 from repro_torch.core import dmf, graph
 from repro_torch.data import synthetic_poi
 from repro_torch.obs import trace as trace_lib
-from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset
+from repro_torch.serving import ServingConfig, ServingEngine, index_from_dataset, online
 from repro_torch.serving.online import OnlineConfig
 
 OCFG = OnlineConfig(batch_cap=64, steps=3, neg_samples=3)
@@ -78,9 +81,9 @@ def test_ingest_spans_in_order_with_their_args(world, tracer):
     samples = [e["args"] for e in evs if e["name"] == "online.sample"]
     assert samples[:3] == [{"depth": 1, "parent": "engine.ingest", "step": s, "rows": 160,
                             "batches": 3} for s in range(3)]
-    updates = [(e["args"]["step"], e["args"]["batch"]) for e in evs
+    updates = [(e["args"]["step"], e["args"]["batch"], e["args"]["replay"]) for e in evs
                if e["name"] == "online.update"]
-    assert updates[:9] == [(s, b) for s in range(3) for b in range(3)]
+    assert updates == [(s, b, 0) for s in range(3) for b in range(3)] * 2
     patch = [e["args"] for e in evs if e["name"] == "engine.patch"]
     assert patch == [{"depth": 1, "parent": "engine.ingest", "round": r} for r in range(2)]
     assert eng.stats.n_touched == sum(len(rep.touched_users) for rep, _ in rounds)
@@ -104,3 +107,23 @@ def test_tracing_leaves_the_refresh_bit_for_bit(world, tracer):
         assert np.array_equal(rg.touched_users, rw.touched_users)
         assert all(np.array_equal(a, b) for a, b in zip(sg, sw))
     assert on.stats.n_touched == off.stats.n_touched
+
+
+def test_the_plan_leaves_the_plain_refresh_bit_for_bit(world):
+    """Rounds of 40 and 64 check-ins (a partial last batch, then four full
+    batches a step) through the engine's plan against `online_refresh`
+    without one on a copy of the state, from generators in the same state."""
+    ds, nbr, cfg, _ = world
+    eng = _engine(world)
+    plain = dmf.DMFState(*(x.clone() for x in (eng.state.U, eng.state.P, eng.state.Q)))
+    plain_rng = np.random.default_rng(cfg.seed)         # the engine's, as it builds it
+    rng = np.random.default_rng(4)
+    for n in (40, 64, 40):
+        events = np.stack([rng.integers(0, ds.n_users, n), rng.integers(0, ds.n_items, n)], 1)
+        got = eng.ingest(events, OCFG)
+        _, want = online.online_refresh(plain, nbr, events, cfg, OCFG, plain_rng)
+        assert got.losses == want.losses and len(got.losses) == want.n_batches
+        assert all(type(x) is float for x in got.losses)
+        for x, y in zip((eng.state.U, eng.state.P, eng.state.Q), (plain.U, plain.P, plain.Q)):
+            assert torch.equal(x, y)
+    assert (eng.stats.n_update_captures, eng._update_plan.captures) == (0, 0)
