@@ -103,6 +103,7 @@ class EngineStats:
     n_refreshes: int = 0
     n_events: int = 0
     n_touched: int = 0       # Σ touched users (affected ∪ receivers) over ingests
+    n_released: int = 0      # Σ real messages released under the DP mechanism over ingests
     n_fallbacks: int = 0
     n_captures: int = 0      # the dispatch plan captured (one device, a card)
     n_update_captures: int = 0   # the ingest's update plan captured (a card, DP off)
@@ -748,16 +749,23 @@ class ServingEngine:
         Traced, an ingest is one ``engine.ingest`` span from entry to
         return, its args the ingest's number ``round`` (``n_refreshes``
         before it), ``n_events``, ``n_rows`` (events and negatives a
-        step), ``n_batches`` (update calls over all steps), ``n_affected``
-        and ``n_touched``; inside it the refresh's own spans
-        (`online.online_refresh`), then ``engine.patch`` (the served views'
-        rows when sharded, the seen bits, the cold and serving-row maps,
-        the popularity slate). ``stats.n_touched`` adds up the touched
-        users."""
+        step), ``n_batches`` (update calls over all steps), ``n_affected``,
+        ``n_touched``, ``dp`` (1 where the refresh ran the DP mechanism)
+        and ``n_released`` (the real messages released under the
+        mechanism, ``n_rows`` a step; 0 with DP off); inside it the
+        refresh's own spans (`online.online_refresh`), then
+        ``engine.patch`` (the served views' rows when sharded, the seen
+        bits, the cold and serving-row maps, the popularity slate).
+        ``stats.n_touched`` adds up the touched users, ``stats.n_released``
+        the released messages: the count a DP deployment composes its
+        privacy loss over."""
         assert self.nbr is not None and self.dmf_cfg is not None, (
             "engine built without nbr/dmf_cfg — online refresh unavailable")
         events = np.asarray(events)
         rnd = self.stats.n_refreshes
+        dp = self.dmf_cfg.dp
+        n_rows = len(events) * (1 + ocfg.neg_samples)
+        n_released = ocfg.steps * n_rows if dp else 0
         with trace_lib.span("engine.ingest", round=rnd, n_events=len(events)) as sp:
             plan = self._update_plan
             captures = plan.captures
@@ -780,13 +788,14 @@ class ServingEngine:
                     self._pop_items, self._pop_vals = _popularity(self._item_counts,
                                                                   self.cfg.k)
             if sp is not None:
-                sp.args.update(n_rows=len(events) * (1 + ocfg.neg_samples),
-                               n_batches=report.n_batches,
+                sp.args.update(n_rows=n_rows, n_batches=report.n_batches,
                                n_affected=len(report.affected_users),
-                               n_touched=len(report.touched_users))
+                               n_touched=len(report.touched_users), dp=int(dp),
+                               n_released=n_released)
         self.stats.n_refreshes += 1
         self.stats.n_events += int(len(events))
         self.stats.n_touched += len(report.touched_users)
+        self.stats.n_released += n_released
         return report
 
     def _patch_rows(self, report: online_lib.RefreshReport, events: np.ndarray) -> None:

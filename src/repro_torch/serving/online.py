@@ -35,8 +35,10 @@ through the plan; args ``step``, ``rows``, ``batches``) followed by one
 ``online.update`` a batch (the Eq. 9-11 step, its loss kept on the device
 through the plan and read back without one; args ``step``, ``batch``,
 ``replay``: 1 where the batch replayed the plan's graph, 0 where it ran
-eagerly or was the batch that captured it). The draws, the batches and
-every update are those of the untraced refresh.
+eagerly or was the batch that captured it; ``dp``: 1 where the batch ran
+the mechanism over its messages, on a card one eager kernel 8 launch). No
+span sits inside the mechanism: kernel 8 is named in a device trace. The draws, the
+batches and every update are those of the untraced refresh.
 """
 from __future__ import annotations
 
@@ -320,7 +322,7 @@ def online_refresh(
                     losses.append(float(loss))
                     replayed = False
                 if sp is not None:
-                    sp.args["replay"] = int(replayed)
+                    sp.args.update(replay=int(replayed), dp=int(cfg.dp))
     if planned:
         losses = losses.tolist()        # one read, after the last batch
     report = RefreshReport(

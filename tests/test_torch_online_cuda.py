@@ -20,7 +20,9 @@ batch, then a full step) leaves U, P, Q, the losses and the refreshed
 slates of the plain `online_refresh` without a plan, bit for bit, with
 one capture over the in-place rounds and ``replay`` 1 on every batch
 after it; a reassigned P captures again; with DP on the engine stays on
-the plain path (``replay`` 0, no capture) and gives its bits.
+the plain path (``replay`` 0, no capture) and gives its bits, every batch
+marks ``dp`` 1 and launches kernel 8 once, and the ingests count their
+released messages.
 """
 import dataclasses
 
@@ -159,3 +161,29 @@ def test_dp_rounds_stay_on_the_plain_path(dev, tracer):
     eng, replays = _planned_against_plain(dev, cfg, (200, 512), tracer)
     assert replays == [0] * len(replays)
     assert eng.stats.n_update_captures == 0
+
+
+def test_dp_rounds_mark_their_spans_and_launch_kernel_8_once_a_batch(dev, tracer):
+    """With DP on, every ``online.update`` of the engine's ingests has
+    ``dp`` 1 and launches kernel 8 once; ``engine.ingest``'s ``n_released``
+    is the real rows over the steps and ``EngineStats.n_released`` their
+    sum."""
+    from repro_torch.kernels import ops
+    ds, nbr, cfg, state = _world()
+    cfg = dataclasses.replace(cfg, dp_clip=0.25, dp_sigma=1.0, dp_seed=3)
+    eng = ServingEngine(state, index_from_dataset(ds), ServingConfig(microbatch=512, k=10),
+                        train=ds.train, nbr=nbr, dmf_cfg=cfg, device=dev)
+    rng = np.random.default_rng(9)
+    tracer.clear()
+    before = ops.dp_clip_noise.launches
+    for n in (200, 512):
+        events = np.stack([rng.integers(0, ds.n_users, n), rng.integers(0, ds.n_items, n)], 1)
+        eng.ingest(events)
+    evs = tracer.events()
+    ups = [e["args"]["dp"] for e in evs if e["name"] == "online.update"]
+    assert ups == [1] * (4 * 4 + 4 * 8)
+    assert ops.dp_clip_noise.launches - before == len(ups)
+    ingests = [(e["args"]["dp"], e["args"]["n_released"]) for e in evs
+               if e["name"] == "engine.ingest"]
+    assert ingests == [(1, 4 * 4 * 200), (1, 4 * 4 * 512)]
+    assert eng.stats.n_released == 4 * 4 * (200 + 512)

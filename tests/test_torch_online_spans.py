@@ -5,9 +5,15 @@ batches' ``online.update`` (``replay`` 0 on every batch: the engine's
 update plan replays a graph only on a card), then ``engine.patch``, in
 that order; it adds the touched users to ``EngineStats.n_touched``; the
 refresh with the tracer on leaves U, P, Q, the seen bits, the losses and
-the slates that it leaves with the tracer off, bit for bit; and the
+the slates that it leaves with the tracer off, bit for bit; the
 engine's refresh through its plan leaves the losses, U, P and Q of the
-plain `online_refresh` without one."""
+plain `online_refresh` without one; and with the DP mechanism on, the
+spans say so (``dp`` on ``engine.ingest`` and every ``online.update``,
+``n_released`` the real rows over the steps, summed in
+``EngineStats.n_released``), 0 with it off, with the bits of the untraced
+rounds either way."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -77,17 +83,17 @@ def test_ingest_spans_in_order_with_their_args(world, tracer):
     for r, (args, (report, _)) in enumerate(zip(ingests, rounds)):
         assert args == {"depth": 0, "round": r, "n_events": 40, "n_rows": 160, "n_batches": 9,
                         "n_affected": len(report.affected_users),
-                        "n_touched": len(report.touched_users)}
+                        "n_touched": len(report.touched_users), "dp": 0, "n_released": 0}
     samples = [e["args"] for e in evs if e["name"] == "online.sample"]
     assert samples[:3] == [{"depth": 1, "parent": "engine.ingest", "step": s, "rows": 160,
                             "batches": 3} for s in range(3)]
-    updates = [(e["args"]["step"], e["args"]["batch"], e["args"]["replay"]) for e in evs
-               if e["name"] == "online.update"]
-    assert updates == [(s, b, 0) for s in range(3) for b in range(3)] * 2
+    updates = [(e["args"]["step"], e["args"]["batch"], e["args"]["replay"], e["args"]["dp"])
+               for e in evs if e["name"] == "online.update"]
+    assert updates == [(s, b, 0, 0) for s in range(3) for b in range(3)] * 2
     patch = [e["args"] for e in evs if e["name"] == "engine.patch"]
     assert patch == [{"depth": 1, "parent": "engine.ingest", "round": r} for r in range(2)]
     assert eng.stats.n_touched == sum(len(rep.touched_users) for rep, _ in rounds)
-    assert eng.stats.n_refreshes == 2 and eng.stats.n_events == 80
+    assert eng.stats.n_refreshes == 2 and eng.stats.n_events == 80 and eng.stats.n_released == 0
 
 
 def test_tracing_leaves_the_refresh_bit_for_bit(world, tracer):
@@ -127,3 +133,37 @@ def test_the_plan_leaves_the_plain_refresh_bit_for_bit(world):
         for x, y in zip((eng.state.U, eng.state.P, eng.state.Q), (plain.U, plain.P, plain.Q)):
             assert torch.equal(x, y)
     assert (eng.stats.n_update_captures, eng._update_plan.captures) == (0, 0)
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_dp_args_and_released_count(world, tracer, dp):
+    """The mechanism on (σ=1, C=0.25) or off: ``engine.ingest``'s ``dp``
+    and ``n_released`` (3 steps × 160 real rows with DP on, else 0), every
+    ``online.update``'s ``dp``, ``EngineStats.n_released`` their sum; the
+    traced rounds leave the untraced rounds' U, P, Q, losses and slates."""
+    ds, nbr, cfg, state = world
+    if dp:
+        cfg = dataclasses.replace(cfg, dp_sigma=1.0, dp_clip=0.25, dp_seed=7)
+    on = _engine((ds, nbr, cfg, state))
+    got = _rounds(on, ds)
+    evs = tracer.events()
+    ingests = [e["args"] for e in evs if e["name"] == "engine.ingest"]
+    assert [(a["dp"], a["n_released"]) for a in ingests] == [(int(dp), 3 * 160 * dp)] * 2
+    updates = [e["args"]["dp"] for e in evs if e["name"] == "online.update"]
+    assert updates == [int(dp)] * 18
+    assert on.stats.n_released == 2 * 3 * 160 * dp
+    trace_lib.set_tracer(trace_lib.Tracer(enabled=False))
+    off = _engine((ds, nbr, cfg, state))
+    want = _rounds(off, ds)
+    assert not trace_lib.get_tracer().events()
+    for x, y in zip((on.state.U, on.state.P, on.state.Q, on.seen),
+                    (off.state.U, off.state.P, off.state.Q, off.seen)):
+        assert torch.equal(x, y)
+    for (rg, sg), (rw, sw) in zip(got, want):
+        assert rg.losses == rw.losses
+        assert all(np.array_equal(a, b) for a, b in zip(sg, sw))
+    assert off.stats.n_released == on.stats.n_released
+    if dp:    # the mechanism moved the factors away from the DP-off refresh
+        plain = _engine(world)
+        _rounds(plain, ds)
+        assert not torch.equal(plain.state.P, off.state.P)
